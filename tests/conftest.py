@@ -18,6 +18,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-process, big compiles)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
 
 
 @pytest.fixture(scope="session")
