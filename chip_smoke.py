@@ -5,13 +5,21 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: requires a CUDA card and prints its name and power limit;
-  2. kernels: builds every hand kernel from the sources in the checkout and
-     holds it against its plain PyTorch version on the card, at the shapes
-     the served path gives it and at edge shapes, and times it beside its
-     plain version, a PyTorch library call and its bound;
-  3. slice: serves SAM-B 1024x1024 interactive-segmentation requests through
-     ``SAMPredictor`` on the card, counts the kernel launches of that run,
-     and compares the masks with the same requests on the plain path.
+  2. kernels: builds every hand kernel from the sources in the checkout (one
+     nvcc per source, started together) and holds each against its plain
+     PyTorch version on the card, at the shapes the main paths give it and
+     at edge shapes, and times it beside its plain version, a PyTorch
+     library call and its bound;
+  3. serving: serves SAM-B 1024x1024 interactive-segmentation requests
+     through ``SAMPredictor`` on the card, counts the kernel launches of
+     that run, and compares the masks with the same requests on the plain
+     path;
+  4. training: takes ViT-B/16 224x224 bf16 train steps at batch 128 through
+     the engine's ``make_train_step`` (flash attention, the AdamW recipe
+     with layer-wise lr decay and a warm-up cosine schedule), counts the
+     kernel launches of that run, profiles one step, and compares one
+     more engine step's loss and gradients, on the whole batch, with the
+     einsum attention path.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -26,9 +34,17 @@ import time
 import numpy as np
 import torch
 
+from simpleaicv_tpu_torch.core.engine import (EngineConfig,
+                                              create_train_state,
+                                              make_train_step)
+from simpleaicv_tpu_torch.core.optim import OptimizerConfig, build_optimizer
+from simpleaicv_tpu_torch.core.registry import BACKBONES, LOSSES
+from simpleaicv_tpu_torch.core.schedule import SchedulerConfig
 from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
+from simpleaicv_tpu_torch.models.common import init_params
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
+from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 
 # H100 SXM dense peaks (NVIDIA data sheet) at the full 700 W power limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -76,9 +92,153 @@ def _relpos_inputs(bh, k_h, k_w, d, dtype, seed):
     return q, k, v, rel_h, rel_w
 
 
+def _bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by): the larger of the operations over the card's
+    peak rate for their type and the bytes over its memory rate."""
+    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def _flash_inputs(b, h, n, d, dtype, seed):
+    """q, k, v as ViT hands them over ([B, H, N, d] views of one fused
+    [B, N, 3, H, d] projection) and dO as autograd hands it back (a
+    [B, H, N, d] view of [B, N, H, d] storage)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    do = torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
+    return q, k, v, do.transpose(1, 2)
+
+
+def _flash_all(q, k, v, do):
+    """(o, lse, dq, dk, dv) through the kernels' wrappers."""
+    o, lse = fa._flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return (o, lse, fa._flash_dq_cuda(q, k, v, do, lse, delta),
+            *fa._flash_dkv_cuda(q, k, v, do, lse, delta))
+
+
+def _flash_all_plain(q, k, v, do):
+    o, lse = fa.flash_attention_reference(q, k, v)
+    return (o, lse, *fa.flash_attention_backward_reference(q, k, v, o, lse,
+                                                           do))
+
+
+def _flash_atol(key, want, dtype):
+    """Tolerance for output ``key`` of the flash kernels against its plain
+    version ``want``. f32 tensors (lse always is one): 1e-4. bf16 o: 8e-3,
+    one bf16 step of a value in [1, 2) and two steps below 1, where nearly
+    all of o lies; it differs from its plain version by the rounding of one
+    f32 result to a neighbour. bf16 gradients: two bf16 steps at the tensor's
+    largest value (a step there is at most 2^-7 of it), since they also carry
+    the rounding of p or ds to bf16 before the product, where kernel and
+    plain version may land a step apart."""
+    if dtype == torch.float32 or key == "lse":
+        return 1e-4
+    if key == "o":
+        return 8e-3
+    return 2 * 2.0**-7 * want.float().abs().max().item()
+
+
+def phase_flash_kernels(card):
+    """K1-K3 (flash forward, dq, dk/dv) against their plain versions, then
+    their times at the ViT-B/16 batch-128 training shape."""
+    # (name, B, H, N, d): ViT-B/16 at batch 128, ViT-H/14 (d 80, N 257), a
+    # multiple of the tiles, and a tail (N = 5, d = 40 padded in the kernel)
+    shapes = [("vit_b_b128", 128, 12, 197, 64), ("vit_h", 8, 16, 257, 80),
+              ("n256", 2, 4, 256, 64), ("tail_n5", 2, 3, 5, 40)]
+    names = ("o", "lse", "dq", "dk", "dv")
+    main_errs, failed = None, []
+    for i, (name, b, h, n, d) in enumerate(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _flash_inputs(b, h, n, d, dtype, seed=20 + i)
+            got = _flash_all(*args)
+            want = _flash_all_plain(*args)
+            torch.cuda.synchronize()
+            errs = {key: (a.float() - w.float()).abs().max().item()
+                    for key, a, w in zip(names, got, want)}
+            tols = {key: _flash_atol(key, w, dtype)
+                    for key, w in zip(names, want)}
+            print(f"kernel check flash {name} B={b} H={h} N={n} d={d} "
+                  f"{str(dtype)[6:]}: " + " ".join(
+                      f"max|{key}-ref|={e:.3e} (atol {tols[key]:.3e})"
+                      for key, e in errs.items()), flush=True)
+            failed += [f"{name} {dtype} {key}" for key, e in errs.items()
+                       if not e <= tols[key]]
+            if name == "vit_b_b128" and dtype == torch.bfloat16:
+                main_errs = errs
+            del args, got, want
+    if failed:
+        raise RuntimeError(f"flash attention kernels disagree with their "
+                           f"plain versions at {failed}")
+
+    # times at the training shape: ViT-B/16, batch 128, bf16
+    _, b, h, n, d = shapes[0]
+    bh, dtype = b * h, torch.bfloat16
+    q, k, v, do = _flash_inputs(b, h, n, d, dtype, seed=29)
+    o, lse = fa._flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = sdpa(ql, kl, vl)
+    lib_fwd = _cuda_ms(lambda: sdpa(q, k, v), 20)
+    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (ql, kl, vl), do, retain_graph=True), 20)
+    tensor, rows = bh * n * d * 2, bh * n * 4  # one bf16 tensor, one f32 row
+    pairs = 2.0 * n * n * d * bh               # one product's operations
+    cases = [
+        ("flash_attention_fwd", "flash_fwd.cu", 34,
+         lambda: fa._flash_fwd_cuda(q, k, v),
+         lambda: fa.flash_attention_reference(q, k, v),
+         2 * pairs, 4 * tensor + rows, lib_fwd,
+         max(main_errs["o"], main_errs["lse"])),
+        ("flash_attention_dq", "flash_bwd.cu", 64,
+         lambda: fa._flash_dq_cuda(q, k, v, do, lse, delta),
+         lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta),
+         3 * pairs, 5 * tensor + 2 * rows, lib_bwd, main_errs["dq"]),
+        ("flash_attention_dkv", "flash_bwd.cu", 88,
+         lambda: fa._flash_dkv_cuda(q, k, v, do, lse, delta),
+         lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
+         4 * pairs, 6 * tensor + 2 * rows, lib_bwd,
+         max(main_errs["dk"], main_errs["dv"])),
+    ]
+    print("library call: scaled_dot_product_attention forward for the "
+          "forward kernel; its autograd backward, which computes dq, dk and "
+          "dv in one call, stands beside both backward kernels", flush=True)
+    # what the wrapper and autograd do around the kernels, per layer
+    dq, dk, dv = (t.transpose(1, 2) for t in _flash_all(q, k, v, do)[2:])
+    delta_ms = _cuda_ms(lambda: (do.float() * o.float()).sum(dim=-1), 20)
+    stack_ms = _cuda_ms(lambda: torch.stack((dq, dk, dv), dim=2), 20)
+    print(f"around the kernels, ViT-B/16 b128 bf16 [{card}]: delta = "
+          f"rowsum(dO * o) in f32 {delta_ms:.4f} ms; stacking dq, dk, dv "
+          f"into the qkv gradient (the one copy left on the path) "
+          f"{stack_ms:.4f} ms", flush=True)
+    del dq, dk, dv
+    kernels = []
+    for name, source, line, kernel_fn, plain_fn, flops, nbytes, lib, err in \
+            cases:
+        ms = _cuda_ms(kernel_fn, 20)
+        plain_ms = _cuda_ms(plain_fn, 5)
+        bound_ms, bound_by = _bound(flops, nbytes, dtype)
+        print(f"{name} ViT-B/16 b128 bf16 [{card}]: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s)", flush=True)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"simpleaicv_tpu_torch/ops/csrc/{source}",
+            "replaces": f"simpleaicv_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib})
+    return kernels
+
+
 def phase_kernels(card):
     t0 = time.perf_counter()
-    logs = _build.build(["flash_relpos_fwd"])
+    logs = _build.build(["flash_relpos_fwd", "flash_fwd", "flash_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -124,19 +284,18 @@ def phase_kernels(card):
     del bias
     flops = 4.0 * n * n * d * bh
     nbytes = 4 * bh * n * d * 2 + bh * n * (k_h + k_w + 1) * 4
-    op_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
     print(f"flash_attention_relpos_fwd SAM-B bf16 [{card}]: kernel {ms:.4f} ms"
           f", plain {plain_ms:.4f} ms, sdpa+bias {library_ms:.4f} ms, bound "
-          f"{max(op_ms, byte_ms):.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
-          flush=True)
-    return {"name": "flash_attention_relpos_fwd", "route": "cuda",
-            "source": "simpleaicv_tpu_torch/ops/csrc/flash_relpos_fwd.cu",
-            "replaces": "simpleaicv_tpu/ops/flash_attention.py:247",
-            "launches": None, "max_abs_err": main_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": library_ms}
+          f"{bound_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    relpos = {"name": "flash_attention_relpos_fwd", "route": "cuda",
+              "source": "simpleaicv_tpu_torch/ops/csrc/flash_relpos_fwd.cu",
+              "replaces": "simpleaicv_tpu/ops/flash_attention.py:247",
+              "launches": None, "max_abs_err": main_err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+    del q, k, v, rel_h, rel_w
+    return phase_flash_kernels(card) + [relpos]
 
 
 def _requests():
@@ -162,7 +321,35 @@ def _serve(pred, kind, image, prompt):
     return pred.predict_region(image, prompt)
 
 
-def phase_slice(card, rounds=3):
+def _reset_launches():
+    for name in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[name] = 0
+
+
+def _profile_device(run):
+    """Runs ``run`` under the profiler; returns (device-busy ms, the device
+    rows sorted by time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("Activity Buffer")]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return sum(e.self_device_time_total for e in events) / 1e3, events
+
+
+def _print_rows(events, busy_ms, top):
+    for e in events[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} "
+              f"{e.key[:90]}")
+
+
+def phase_serving(card, rounds=2):
     t0 = time.perf_counter()
     pred = SAMPredictor("sam_b", image_size=1024, device="cuda",
                         dtype=torch.bfloat16, seed=0)
@@ -171,8 +358,7 @@ def phase_slice(card, rounds=3):
     requests = _requests()
 
     # the served path: every request through the predictor's entry points
-    for name in fa.KERNEL_LAUNCHES:
-        fa.KERNEL_LAUNCHES[name] = 0
+    _reset_launches()
     latencies, served = [], 0
     for r in range(rounds):
         for kind, image, prompt in requests:
@@ -199,26 +385,15 @@ def phase_slice(card, rounds=3):
 
     # one request under the profiler: device time by kernel, and the share
     # of an unprofiled request's latency in which the device was idle
-    from torch.profiler import ProfilerActivity, profile
     kind, image, prompt = requests[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _serve(pred, kind, image, prompt)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy_ms, events = _profile_device(
+        lambda: _serve(pred, kind, image, prompt))
     if busy_ms > 0:
         median = float(np.median(latencies))
         print(f"profiled {kind} request [{card}]: device busy {busy_ms:.2f} "
               f"ms of a {median:.2f} ms median request, idle share "
               f"{1 - busy_ms / median:.3f}", flush=True)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            ms = e.self_device_time_total / 1e3
-            print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count} "
-                  f"{e.key[:90]}")
+        _print_rows(events, busy_ms, 10)
     else:
         print("profiled request: no device time recorded (not measured)")
 
@@ -251,12 +426,160 @@ def phase_slice(card, rounds=3):
     return launches
 
 
+TRAIN_BATCH = 128
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv")
+
+
+def _vit_b16(use_flash_attention, seed=0, **kwargs):
+    """ViT-B/16 at 224^2 as its ImageNet recipe builds it (global-pool head,
+    drop-path 0.1), bf16, weights drawn from a seeded generator. The
+    engine's entry points take it to the card."""
+    model = BACKBONES.create(
+        "vit_base_patch16", image_size=224, num_classes=1000,
+        global_pool=True, drop_path_prob=0.1, dtype=torch.bfloat16,
+        use_flash_attention=use_flash_attention, **kwargs)
+    return init_params(model, torch.Generator().manual_seed(seed))
+
+
+def _step_loss_and_grads(step, state, batch):
+    """One train step through the engine; returns its loss and each
+    parameter's gradient as the backward left it, before the update."""
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, name=name: grads.__setitem__(name, p.grad.clone()))
+        for name, p in state.model.named_parameters()]
+    _, metrics = step(state, batch, seed=0)
+    for hook in hooks:
+        hook.remove()
+    if float(metrics["skipped"]) != 0.0:
+        raise RuntimeError("the compared step was skipped")
+    return metrics["loss"].item(), [grads[n] for n in state.optimizer.names]
+
+
+def phase_training(card, warm_up=3, timed=10):
+    t0 = time.perf_counter()
+    model = _vit_b16(use_flash_attention=True)
+    # the vit_base_patch16 ImageNet recipe: AdamW, layer-wise lr decay 0.75
+    # over 12 blocks, no decay on the embeddings, 5 warm-up epochs into a
+    # cosine to 1e-6. An epoch is cut to 4 steps, so that the warm-up spans
+    # 20 steps and the rate is not still near 0 when this run ends.
+    opt_cfg = OptimizerConfig(
+        name="AdamW", lr=1e-3, weight_decay=0.05, global_weight_decay=False,
+        beta1=0.9, beta2=0.999,
+        no_weight_decay_layer_name_list=("position_encoding", "cls_token"),
+        lr_layer_decay=0.75, lr_layer_decay_block_nums=12,
+        block_name="blocks")
+    sched = SchedulerConfig("CosineLR", lr=1e-3, epochs=100,
+                            warm_up_epochs=5, min_lr=1e-6)
+    optimizer, _ = build_optimizer(opt_cfg, sched, 4, model)
+    cfg = EngineConfig()
+    state = create_train_state(model, optimizer, cfg)
+    print(f"vit_base_patch16 224^2 bf16 and its AdamW state built on "
+          f"{state.device} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if state.device.type != "cuda":
+        raise RuntimeError("the engine did not take the model to the card")
+    loss_fn = make_loss_fn(LOSSES.create("OneHotLabelCELoss"))
+    step = make_train_step(loss_fn, cfg)
+
+    # one synthetic batch, repeated: normalised-image noise and one-hot
+    # labels, as the recipe's mixup collater hands them over
+    g = torch.Generator(device="cuda").manual_seed(1)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g,
+                           device="cuda")
+    batch = {"image": torch.randn(TRAIN_BATCH, 224, 224, 3, generator=g,
+                                  device="cuda"),
+             "label": torch.nn.functional.one_hot(labels, 1000).float()}
+
+    # the main path: warm-up and timed steps through the engine
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, skipped = [], 0.0
+    for i in range(warm_up + timed):
+        if i == warm_up:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch, seed=0)
+        losses.append(metrics["loss"])
+        skipped += metrics["skipped"]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = dict(fa.KERNEL_LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v.item() for v in losses]
+    steps = warm_up + timed
+    print(f"trained {steps} steps; kernel launches "
+          f"{ {k: launches[k] for k in TRAIN_KERNELS} } (12 per step each "
+          f"expected); losses {' '.join(f'{v:.4f}' for v in losses)}",
+          flush=True)
+    if any(launches[k] != 12 * steps for k in TRAIN_KERNELS):
+        raise RuntimeError("the train step did not launch each flash "
+                           "kernel 12 times")
+    if not all(np.isfinite(losses)) or float(skipped) != 0.0:
+        raise RuntimeError(f"non-finite loss or skipped step: {losses}, "
+                           f"skipped {float(skipped)}")
+    if not losses[-1] < losses[0] - 0.05:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    if state.step != steps or optimizer.step_count != steps:
+        raise RuntimeError("step counters disagree with the steps taken")
+    print(f"ViT-B/16 224^2 bf16 training, batch {TRAIN_BATCH} [{card}]: "
+          f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, {step_ms:.2f} ms per "
+          f"step over {timed} steps, peak memory {peak_gib:.2f} GiB",
+          flush=True)
+
+    # one more step under the profiler: device time by kernel, and the share
+    # of an unprofiled step in which the device was idle
+    busy_ms, events = _profile_device(lambda: step(state, batch, seed=0))
+    if busy_ms > 0:
+        print(f"profiled train step [{card}]: device busy {busy_ms:.2f} ms "
+              f"of a {step_ms:.2f} ms step, idle share "
+              f"{1 - busy_ms / step_ms:.3f}", flush=True)
+        _print_rows(events, busy_ms, 16)
+    else:
+        print("profiled train step: no device time recorded (not measured)")
+
+    # the same weights on the einsum attention path: one more step of each
+    # model through the engine on the whole batch, from the same step number
+    # so that both draw the same drop-path masks. The einsum model recomputes
+    # each layer in the backward: its f32 scores are 2.4 GB a layer.
+    plain = _vit_b16(use_flash_attention=False, use_gradient_checkpoint=True)
+    plain.load_state_dict(model.state_dict())
+    plain_opt, _ = build_optimizer(opt_cfg, sched, 4, plain)
+    plain_state = create_train_state(plain, plain_opt, cfg)
+    plain_state.step = state.step
+    torch.cuda.empty_cache()
+    loss_a, grads_a = _step_loss_and_grads(step, state, batch)
+    loss_b, grads_b = _step_loss_and_grads(step, plain_state, batch)
+    flat_a = torch.cat([g.flatten() for g in grads_a]).double()
+    flat_b = torch.cat([g.flatten() for g in grads_b]).double()
+    rel = ((flat_a - flat_b).norm() / flat_b.norm()).item()
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+        for a, b in zip(grads_a, grads_b))
+    print(f"train step vs einsum path, batch {TRAIN_BATCH}: loss "
+          f"{loss_a:.5f} vs {loss_b:.5f}, gradient relative L2 difference "
+          f"{rel:.5f} of a norm of {flat_b.norm().item():.5f}, least "
+          f"per-parameter cosine {cos:.5f}", flush=True)
+    # bf16 keeps 8 bits and the two paths round p, ds and o at other places:
+    # the loss within 5e-3, the whole gradient within 1% in L2 (after the
+    # steps above the gradient on this very batch is small, which makes the
+    # rounding large beside it), and every parameter's gradient pointing the
+    # same way
+    if not (abs(loss_a - loss_b) <= 5e-3 and np.isfinite(rel)
+            and rel <= 1e-2 and cos >= 0.999):
+        raise RuntimeError("the flash path disagrees with the einsum path")
+    return launches
+
+
 def main():
     card = phase_device()
-    kernel = phase_kernels(card)
-    launches = phase_slice(card)
-    kernel["launches"] = launches[kernel["name"]]
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = phase_kernels(card)
+    launches = phase_serving(card)
+    launches.update({k: v for k, v in phase_training(card).items()
+                     if k in TRAIN_KERNELS})
+    for kernel in kernels:
+        kernel["launches"] = launches[kernel["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
-"""Loads the JAX package's SAM parameters into the port's modules.
+"""Moves parameters between the JAX package's trees and the port's modules.
 
-``load_jax_params(model, params)`` takes ``variables["params"]`` of the JAX
-SAM (nested dicts of numpy arrays) and fills the port's SAM, or one of its
-sub-modules when called with that sub-module's sub-tree. The port's
-state_dict keys are the reference SAM's names; ``_RULES`` maps them onto the
-JAX package's parameter paths (a copy of the ``_REF_SAM_RULES`` table in
-``simpleaicv_tpu/core/converters.py``). Layouts:
+``load_jax_params(model, params)`` takes ``variables["params"]`` of a JAX
+SAM or ViT (nested dicts of numpy arrays) and fills the port's model, or one
+of SAM's sub-modules when called with that sub-module's sub-tree.
+``export_jax_params(model)`` goes the other way: the model's parameters (or
+any tensors keyed like them: gradients, optimizer moments, EMA) as a nested
+dict of numpy arrays in the JAX tree's layout. The port's state_dict keys
+are the reference models' names; ``_RULES`` maps them onto the JAX package's
+parameter paths (copies of the ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES``
+tables in ``simpleaicv_tpu/core/converters.py``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
   * Conv kernel HWIO        -> Conv2d weight OIHW;
   * ConvTranspose HWIO      -> ConvTranspose2d weight IOHW, spatially
@@ -13,7 +16,8 @@ JAX package's parameter paths (a copy of the ``_REF_SAM_RULES`` table in
   * LayerNorm ``scale``     -> ``weight``;
   * plain parameters (pos_embed, rel_pos_h/w, embeddings, tokens) as they
     are.
-Raises on any JAX leaf left unused and on any port parameter left unfilled.
+Both directions raise on a leaf left over: a JAX leaf not consumed, a port
+parameter not filled, a tensor with no parameter to go with.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from ..models.common import Conv2d, ConvTranspose2d, LayerNorm, Linear
 from ..models.interactive_segmentation.image_encoder import \
     LayerNormChannelsLast
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_jax_params", "jax_paths"]
 
 _RULES = [
     (r"^image_encoder\.pos_embed$", "image_encoder/pos_embed"),
@@ -72,6 +76,11 @@ _RULES = [
      r"mask_decoder/output_hypernetworks_mlps_\1/layers_\2"),
     (r"^mask_decoder\.iou_prediction_head\.layers\.(\d+)$",
      r"mask_decoder/iou_prediction_head/layers_\1"),
+    # ViT backbones
+    (r"^(cls_token|position_encoding|patch_embedding|norm|fc)$", r"\1"),
+    (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
+    (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
+    (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
 ]
 
 
@@ -95,36 +104,66 @@ def _jax_path(name: str, root: str) -> str:
     raise KeyError(f"no JAX parameter rule for port parameter '{full}'")
 
 
-# (port leaf, JAX leaf, layout change) per layer type
+def _conv_t_to_port(a):
+    return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _conv_t_to_jax(a):
+    return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+
+
+# (port leaf, JAX leaf, JAX -> port layout, port -> JAX layout) per layer
 _LAYER_LEAVES = {
-    Linear: [("weight", "kernel", lambda a: a.T), ("bias", "bias", None)],
-    Conv2d: [("weight", "kernel", lambda a: a.transpose(3, 2, 0, 1)),
-             ("bias", "bias", None)],
-    ConvTranspose2d: [("weight", "kernel",
-                       lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)),
-                      ("bias", "bias", None)],
-    LayerNorm: [("weight", "scale", None), ("bias", "bias", None)],
-    LayerNormChannelsLast: [("weight", "scale", None), ("bias", "bias", None)],
+    Linear: [("weight", "kernel", np.transpose, np.transpose),
+             ("bias", "bias", None, None)],
+    Conv2d: [("weight", "kernel", lambda a: a.transpose(3, 2, 0, 1),
+              lambda a: a.transpose(2, 3, 1, 0)),
+             ("bias", "bias", None, None)],
+    ConvTranspose2d: [("weight", "kernel", _conv_t_to_port, _conv_t_to_jax),
+                      ("bias", "bias", None, None)],
+    LayerNorm: [("weight", "scale", None, None), ("bias", "bias", None, None)],
+    LayerNormChannelsLast: [("weight", "scale", None, None),
+                            ("bias", "bias", None, None)],
 }
+
+
+def _leaves(model: nn.Module, root: str):
+    """(state_dict key, JAX leaf path, JAX -> port layout, port -> JAX
+    layout) for every parameter and buffer of ``model``."""
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        leaves = _LAYER_LEAVES.get(type(module))
+        if leaves is not None:
+            path = _jax_path(name, root)
+            for leaf, jax_leaf, to_port, to_jax in leaves:
+                if getattr(module, leaf, None) is not None:
+                    yield prefix + leaf, f"{path}/{jax_leaf}", to_port, to_jax
+            continue
+        own = list(module.named_parameters(recurse=False)) + list(
+            module.named_buffers(recurse=False))
+        for leaf, _ in own:
+            yield prefix + leaf, _jax_path(prefix + leaf, root), None, None
+
+
+def jax_paths(model: nn.Module, root: str = "") -> Dict[str, str]:
+    """state_dict key -> path of the same leaf in the JAX parameter tree."""
+    return {key: path for key, path, _, _ in _leaves(model, root)}
 
 
 def load_jax_params(model: nn.Module, params, root: str = "") -> nn.Module:
     """Fills ``model`` from the JAX parameter tree ``params``.
 
     ``root`` is the model's own name inside a whole SAM (``""`` for SAM
-    itself, ``"image_encoder"``, ``"prompt_encoder"`` or ``"mask_decoder"``
-    for a sub-module loaded from that sub-tree).
+    itself or a ViT backbone, ``"image_encoder"``, ``"prompt_encoder"`` or
+    ``"mask_decoder"`` for a sub-module loaded from that sub-tree).
     """
     flat = _flatten(params)
     state = model.state_dict()
     consumed, filled = set(), set()
-
-    def put(key, path, layout):
+    for key, path, to_port, _ in _leaves(model, root):
         if path not in flat:
             raise KeyError(f"JAX parameter '{path}' (for '{key}') missing")
-        arr = flat[path]
-        if layout is not None:
-            arr = layout(arr)
+        arr = flat[path] if to_port is None else to_port(flat[path])
         target = state[key]
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"'{key}': JAX '{path}' has shape {arr.shape}, "
@@ -134,20 +173,6 @@ def load_jax_params(model: nn.Module, params, root: str = "") -> nn.Module:
         consumed.add(path)
         filled.add(key)
 
-    for name, module in model.named_modules():
-        prefix = f"{name}." if name else ""
-        leaves = _LAYER_LEAVES.get(type(module))
-        if leaves is not None:
-            path = _jax_path(name, root)
-            for leaf, jax_leaf, layout in leaves:
-                if getattr(module, leaf, None) is not None:
-                    put(prefix + leaf, f"{path}/{jax_leaf}", layout)
-            continue
-        own = list(module.named_parameters(recurse=False)) + list(
-            module.named_buffers(recurse=False))
-        for leaf, _ in own:
-            put(prefix + leaf, _jax_path(prefix + leaf, root), None)
-
     unused = sorted(set(flat) - consumed)
     if unused:
         raise ValueError(f"JAX parameters not consumed: {unused}")
@@ -155,3 +180,31 @@ def load_jax_params(model: nn.Module, params, root: str = "") -> nn.Module:
     if unfilled:
         raise ValueError(f"port parameters not filled: {unfilled}")
     return model
+
+
+def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
+    """The JAX parameter tree (nested dicts of numpy arrays) of ``model``.
+
+    ``tensors`` maps state_dict keys to the tensors to export in the
+    parameters' place (gradients, optimizer moments, EMA parameters); it
+    defaults to ``model.state_dict()``. Raises if a key of ``model`` has no
+    tensor or a tensor has no key of ``model``.
+    """
+    if tensors is None:
+        tensors = model.state_dict()
+    tree, used = {}, set()
+    for key, path, _, to_jax in _leaves(model, root):
+        if key not in tensors:
+            raise KeyError(f"no tensor for port parameter '{key}'")
+        arr = tensors[key].detach().float().cpu().numpy()
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr if to_jax is None
+                                          else to_jax(arr))
+        used.add(key)
+    extra = sorted(set(tensors) - used)
+    if extra:
+        raise ValueError(f"tensors with no port parameter: {extra}")
+    return tree

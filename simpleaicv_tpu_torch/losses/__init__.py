@@ -1,0 +1,4 @@
+"""Losses of the PyTorch port (importing it registers them)."""
+
+from .classification import (CELoss, FocalCELoss, LabelSmoothCELoss,
+                             OneHotLabelCELoss, SemanticSoftmaxLoss)  # noqa: F401

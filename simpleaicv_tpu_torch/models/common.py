@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm",
-           "resolve_device", "init_params"]
+__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm", "DropPath",
+           "dropout", "resolve_device", "init_params"]
 
 
 def resolve_device(device) -> torch.device:
@@ -39,14 +39,19 @@ class Linear(nn.Module):
     """flax ``nn.Dense(dtype=...)``: x @ W.T + b computed in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 init_std: float | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.dtype = dtype
+        self.init_std = init_std  # truncated normal instead of lecun normal
 
     def reset_parameters(self, generator):
-        _lecun_normal(self.weight, self.weight.shape[1], generator)
+        if self.init_std is None:
+            _lecun_normal(self.weight, self.weight.shape[1], generator)
+        else:
+            truncated_normal_(self.weight, self.init_std, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -122,6 +127,49 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
                             self.bias, self.eps)
+
+
+def dropout(x, prob: float, training: bool, generator=None):
+    """flax ``nn.Dropout``: zeroes elements with probability ``prob`` and
+    scales the rest by 1 / (1 - prob). The mask comes from ``generator`` (on
+    x's device), or from torch's global generator when it is None."""
+    if prob == 0.0 or not training:
+        return x
+    keep = 1.0 - prob
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return x * (mask.to(x.dtype) / keep)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training each sample's branch is dropped with
+    probability ``drop_path_prob`` and the kept ones are scaled by 1 / keep
+    (``scale_by_keep``). One mask value per sample, from ``generator``."""
+
+    def __init__(self, drop_path_prob: float = 0.0,
+                 scale_by_keep: bool = True):
+        super().__init__()
+        self.drop_path_prob = drop_path_prob
+        self.scale_by_keep = scale_by_keep
+
+    def forward(self, x, generator=None):
+        if self.drop_path_prob == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.drop_path_prob
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = (torch.rand(shape, device=x.device, generator=generator)
+                < keep).to(x.dtype)
+        if self.scale_by_keep:
+            mask = mask / keep
+        return x * mask
+
+
+def truncated_normal_(tensor, stddev, generator):
+    """flax ``truncated_normal(stddev)``: a normal cut at two standard
+    deviations and rescaled so that the result's deviation is ``stddev``."""
+    std = stddev / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(tensor, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
 
 
 def _lecun_normal(weight, fan_in, generator):

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``simpleaicv_tpu_torch/_build/`` at first use and loaded with ``ctypes``; no
 PyTorch headers are compiled, so a build takes seconds. The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -40,6 +41,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -21,34 +21,11 @@
 // Plain C interface, loaded with ctypes; the caller passes contiguous
 // tensors and PyTorch's current stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;  // queries per thread block
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one 16x8x16 tile: a row-major 16x16 bf16, b column-major
-// 16x8 bf16, d 16x8 f32 (PTX ISA, "mma.m16n8k16" fragment layouts).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // bf16 kernel. Block: 64 queries, 4 warps of 16 query rows each. Lane
 // (g = lane/4, t = lane%4) owns rows g and g+8 of its warp's 16 and, in

@@ -1,16 +1,28 @@
-"""Flash attention with SAM's decomposed relative-position bias.
+"""Flash attention: plain (ViT) and with SAM's decomposed relative-position
+bias.
 
-Counterpart of ``simpleaicv_tpu/ops/flash_attention.py``'s
-``flash_attention_relpos`` (the Pallas kernel ``_relpos_fwd_kernel`` and its
-XLA twin ``flash_attention_relpos_xla``), forward only: serving needs no
-backward.
+Counterpart of ``simpleaicv_tpu/ops/flash_attention.py``:
 
-``flash_attention_relpos`` dispatches on the tensors' device. CUDA tensors go
-to the hand-written Hopper kernel in ``csrc/flash_relpos_fwd.cu``, which
-never materialises the [N, N] bias; CPU tensors go to
-``flash_attention_relpos_reference``, the plain version that materialises
-bias and softmax. A CUDA tensor never takes the plain version: a kernel that
-cannot build or launch raises.
+* ``flash_attention(q, k, v)`` on ``[B, H, N, d]``, differentiable, any N:
+  the counterpart of both ``flash_attention`` (the Pallas kernels
+  ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) and
+  ``flash_attention_xla`` (what ViT calls). A ``torch.autograd.Function``
+  saves ``(q, k, v, o, lse)``; its backward is FlashAttention-2's.
+* ``attention_recompute(q, k, v)``: ``attention_recompute_xla``, a one-shot
+  softmax forward with the same recompute backward. Plain tensor code in the
+  JAX package, so plain PyTorch here on every device.
+* ``flash_attention_relpos``: ``flash_attention_relpos`` (the Pallas kernel
+  ``_relpos_fwd_kernel`` and its XLA twin), forward only: its backward
+  kernels are not ported, so on CUDA tensors it refuses inputs that need a
+  gradient.
+
+Every wrapper dispatches on the tensors' device. CUDA tensors go to the
+hand-written Hopper kernels in ``csrc/``, which never materialise the
+[N, N] scores; CPU tensors go to the plain versions
+(``flash_attention_reference``, ``flash_attention_dq_reference``,
+``flash_attention_dkv_reference``, ``flash_attention_relpos_reference``),
+which do. A CUDA tensor never takes a
+plain version: a kernel that cannot build or launch raises.
 """
 
 from __future__ import annotations
@@ -22,13 +34,255 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_relpos", "flash_attention_relpos_reference",
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward_reference",
+           "flash_attention_dq_reference", "flash_attention_dkv_reference",
+           "attention_recompute",
+           "flash_attention_relpos", "flash_attention_relpos_reference",
            "KERNEL_LAUNCHES"]
 
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches, and nowhere else.
-KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0}
+KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0, "flash_attention_fwd": 0,
+                   "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
+
+# ------------------------- plain flash attention -------------------------
+
+def flash_attention_reference(q, k, v, normalize_before_cast: bool = False):
+    """Plain forward on [..., N, d]: returns (o in q's dtype, lse f32
+    [..., N]), scores and softmax materialised in f32. The probabilities are
+    rounded to v's dtype before p.v: unnormalised and divided by the row sum
+    after the product, as the online-softmax kernels must, or normalised
+    first (``normalize_before_cast``, the one-shot softmax of
+    ``attention_recompute``)."""
+    d = q.shape[-1]
+    s = torch.einsum("...nd,...md->...nm", q.float() * d**-0.5, k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if normalize_before_cast:
+        o = torch.einsum("...nm,...md->...nd", (p / l).to(v.dtype).float(),
+                         v.float())
+    else:
+        o = torch.einsum("...nm,...md->...nd", p.to(v.dtype).float(),
+                         v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _recompute(q, k, v, do, lse, delta):
+    """(p, ds) of the backward, both f32 [..., N, N]: p = exp(s - lse) from
+    the saved row logsumexp and ds = p * (dO v^T - delta)."""
+    s = torch.einsum("...nd,...md->...nm", q.float() * q.shape[-1]**-0.5,
+                     k.float())
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("...nd,...md->...nm", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_dq_reference(q, k, v, do, lse, delta):
+    """Plain dq = d^-0.5 * ds k, with ds rounded to q's dtype first."""
+    _, ds = _recompute(q, k, v, do, lse, delta)
+    dq = torch.einsum("...nm,...md->...nd", ds.to(q.dtype).float(), k.float())
+    return (dq * q.shape[-1]**-0.5).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, do, lse, delta):
+    """Plain (dk, dv): dv = p^T dO with p rounded to dO's dtype, and
+    dk = d^-0.5 * ds^T q with ds rounded to q's dtype."""
+    p, ds = _recompute(q, k, v, do, lse, delta)
+    dv = torch.einsum("...nm,...nd->...md", p.to(do.dtype).float(),
+                      do.float())
+    dk = torch.einsum("...nm,...nd->...md", ds.to(q.dtype).float(), q.float())
+    return (dk * q.shape[-1]**-0.5).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do):
+    """Plain FlashAttention-2 backward from the saved residuals: (dq, dk,
+    dv), with the probabilities recomputed from ``lse`` and
+    delta = rowsum(dO * o) in f32."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return (flash_attention_dq_reference(q, k, v, do, lse, delta),
+            *flash_attention_dkv_reference(q, k, v, do, lse, delta))
+
+
+def _check_qkv(q, k, v):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [B, H, N, d] shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+_VIEW = [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_kernels():
+    """(flash_fwd, flash_dq, flash_dkv), both libraries built together."""
+    _build.build(["flash_fwd", "flash_bwd"])
+    fwd = _build.load("flash_fwd").flash_fwd
+    bwd = _build.load("flash_bwd")
+    fwd.argtypes = _VIEW * 4 + [ctypes.c_void_p] + _TAIL
+    bwd.flash_dq.argtypes = _VIEW * 5 + [ctypes.c_void_p] * 2 + _TAIL
+    bwd.flash_dkv.argtypes = _VIEW * 6 + [ctypes.c_void_p] * 2 + _TAIL
+    for fn in (fwd, bwd.flash_dq, bwd.flash_dkv):
+        fn.restype = ctypes.c_int
+    return fwd, bwd.flash_dq, bwd.flash_dkv
+
+
+def _readable(t):
+    """``t`` as the kernels read it in place: unit stride over d and, for
+    bf16's paired loads, 4-byte aligned rows; else a contiguous copy."""
+    pairs = t.dtype == torch.bfloat16
+    ok = t.shape[-1] == 1 or t.stride(-1) == 1
+    if ok and pairs:
+        ok = t.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in t.stride()[:3])
+    return t if ok else t.contiguous()
+
+
+def _view(t):
+    return [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _empty_bnhd(like):
+    """An uninitialised [B, H, N, d] tensor stored as [B, N, H, d]: the
+    layout of the fused qkv projection's slices and of the output
+    projection's input, so neither side of the attention needs a copy."""
+    b, h, n, d = like.shape
+    return torch.empty((b, n, h, d), dtype=like.dtype,
+                       device=like.device).permute(0, 2, 1, 3)
+
+
+def _kernel_tail(q):
+    b, h, n, d = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"kernel takes bf16 or f32 q/k/v, got {q.dtype}")
+    if d > 128 or (q.dtype == torch.bfloat16 and d % 2):
+        raise ValueError(f"kernel takes d <= 128 (even for bf16), got d={d}")
+    return [b, h, n, d, int(q.dtype == torch.bfloat16), d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def _launch(name, fn, args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES[name] += 1
+
+
+def _flash_fwd_cuda(q, k, v):
+    fwd, _, _ = _flash_kernels()
+    q, k, v = _readable(q), _readable(k), _readable(v)
+    o = _empty_bnhd(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_fwd", fwd,
+                _view(q) + _view(k) + _view(v) + _view(o) + [lse.data_ptr()]
+                + _kernel_tail(q))
+    return o, lse
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    """(the tensors as launched, the inputs' arguments, the closing
+    arguments) of a backward kernel; the caller holds the tensors until the
+    launch is enqueued."""
+    q, k, v, do = _readable(q), _readable(k), _readable(v), _readable(do)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    return ((q, k, v, do, lse, delta),
+            _view(q) + _view(k) + _view(v) + _view(do),
+            [lse.data_ptr(), delta.data_ptr()] + _kernel_tail(q))
+
+
+def _flash_dq_cuda(q, k, v, do, lse, delta):
+    _, dq_fn, _ = _flash_kernels()
+    held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
+    dq = _empty_bnhd(q)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_dq", dq_fn, inputs + _view(dq) + tail)
+    del held
+    return dq
+
+
+def _flash_dkv_cuda(q, k, v, do, lse, delta):
+    _, _, dkv_fn = _flash_kernels()
+    held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
+    dk, dv = _empty_bnhd(q), _empty_bnhd(q)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_dkv", dkv_fn,
+                inputs + _view(dk) + _view(dv) + tail)
+    del held
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do):
+    do = _readable(do.to(q.dtype))
+    # delta = rowsum(dO * o) in f32 is outside the TPU kernels too
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return (_flash_dq_cuda(q, k, v, do, lse, delta),
+            *_flash_dkv_cuda(q, k, v, do, lse, delta))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves (q, k, v, o, lse); CPU tensors take the plain versions, CUDA
+    tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v)
+        else:
+            o, lse = _flash_fwd_cuda(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return flash_attention_backward_reference(q, k, v, o, lse, do)
+        return _flash_bwd_cuda(q, k, v, o, lse, do)
+
+
+def flash_attention(q, k, v):
+    """softmax(d^-0.5 q k^T) v on [B, H, N, d] (bf16 or f32), any N.
+    Differentiable: the backward recomputes the probabilities from the saved
+    row logsumexp (FlashAttention-2). CUDA tensors run the hand kernels,
+    which read strided inputs in place and return ``o`` as a [B, H, N, d]
+    view of [B, N, H, d] storage; CPU tensors run the plain versions."""
+    _check_qkv(q, k, v)
+    return _FlashAttention.apply(q, k, v)
+
+
+class _AttentionRecompute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_reference(q, k, v,
+                                           normalize_before_cast=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_backward_reference(*ctx.saved_tensors, do)
+
+
+def attention_recompute(q, k, v):
+    """Exact softmax attention on [B, H, N, d] with a one-shot softmax
+    forward that saves only (q, k, v, o, lse) and the recompute backward of
+    ``flash_attention``: no [B, H, N, N] residual is kept. Plain tensor code
+    on every device, as in the JAX package."""
+    _check_qkv(q, k, v)
+    return _AttentionRecompute.apply(q, k, v)
+
+
+# ---------------- decomposed-rel-pos flash attention (SAM) ----------------
 
 def flash_attention_relpos_reference(q, k, v, rel_h, rel_w):
     """Plain version: q/k/v [BH, N, d], rel_h [BH, N, k_h], rel_w
@@ -70,7 +324,18 @@ def _kernel():
     return fn
 
 
+def _refuse_gradients(*tensors):
+    """The rel-pos kernel is forward only: raises where autograd would
+    expect a graph through it, instead of returning tensors cut from it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "flash_attention_relpos has no backward kernel on CUDA: call it "
+            "under torch.no_grad(), or train through the einsum path "
+            "(use_flash_attention=False)")
+
+
 def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
+    _refuse_gradients(q, k, v, rel_h, rel_w)
     bh, n, d = q.shape
     k_h, k_w = rel_h.shape[-1], rel_w.shape[-1]
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -109,7 +374,9 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w):
     rel_h [BH, N, k_h] and rel_w [BH, N, k_w] f32;
     bias[q, kh * k_w + kw] = rel_h[q, kh] + rel_w[q, kw]; the d^-0.5 scale
     applies to q.k only. Returns (o [BH, N, d] in q's dtype, lse [BH, N] f32).
-    CUDA tensors run the hand kernel, CPU tensors the plain version.
+    CUDA tensors run the hand kernel (forward only: it raises if an input
+    requires a gradient while grad mode is on), CPU tensors the plain
+    version, which autograd differentiates.
     """
     _check(q, k, v, rel_h, rel_w)
     if q.device.type == "cpu":

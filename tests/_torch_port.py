@@ -60,3 +60,15 @@ def random_params(tree, seed: int):
         return out
 
     return draw(tree)
+
+
+def flatten_tree(tree, prefix=""):
+    """{'a': {'b': x}} -> {'a/b': numpy x}."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if hasattr(val, "items"):
+            out.update(flatten_tree(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out

@@ -2,8 +2,8 @@
 JAX package's: the Pallas kernel in interpret mode and its XLA twin.
 
 On the CPU the port's wrapper runs its plain version; the hand kernel is
-checked against that plain version on the card (the ``cuda`` test here and
-``chip_smoke.py``)."""
+checked against that plain version on the card
+(``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -73,23 +73,3 @@ def test_flash_relpos_rejects_bad_shapes():
         flash_attention_relpos(*arrs[:3], arrs[3][..., :3], arrs[4])
     with pytest.raises(ValueError):
         flash_attention_relpos(arrs[0], arrs[1][:, :8], *arrs[2:])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 2e-2)])
-def test_kernel_matches_plain_version_on_card(dtype, atol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the hand kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for bh, k_h, k_w, d in SHAPES + [(12, 64, 64, 64), (2, 64, 64, 80)]:
-        arrs = _inputs(bh, k_h, k_w, d, seed=1)
-        q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrs[:3])
-        rh, rw = (torch.from_numpy(a).cuda() for a in arrs[3:])
-        launches = KERNEL_LAUNCHES["flash_attention_relpos_fwd"]
-        o, lse = flash_attention_relpos(q, k, v, rh, rw)
-        assert KERNEL_LAUNCHES["flash_attention_relpos_fwd"] == launches + 1
-        o_ref, lse_ref = flash_attention_relpos_reference(q, k, v, rh, rw)
-        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
-                                   rtol=0)
-        torch.testing.assert_close(lse, lse_ref, atol=atol, rtol=0)
