@@ -82,8 +82,10 @@ def create_train_state(model: nn.Module, optimizer: Optimizer,
 def _require_on(device, model, batch):
     """Raises unless ``model``'s parameters and ``batch``'s tensors lie on
     ``device``, so that no step runs quietly on another device than the one
-    its caller named."""
-    found = {f"batch[{k!r}]": v.device for k, v in batch.items()}
+    its caller named. A ``None`` entry of the batch (a prompt kind not
+    chosen) lies nowhere and passes."""
+    found = {f"batch[{k!r}]": v.device for k, v in batch.items()
+             if v is not None}
     p = next(model.parameters(), None)
     if p is not None:
         found["the model"] = p.device
@@ -108,18 +110,22 @@ def step_generator(generator: torch.Generator, seed: int, step: int):
 def _micro_batches(batch, accum):
     if accum == 1:
         return [batch]
-    split = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+    # a None entry stays None in every micro-batch
+    split = {k: None if v is None else
+             v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
              for k, v in batch.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(accum)]
+    return [{k: None if v is None else v[i] for k, v in split.items()}
+            for i in range(accum)]
 
 
 def make_train_step(loss_fn: LossFn, cfg: EngineConfig, augment_fn=None):
     """Builds the train step ``(state, batch, seed=0) -> (state, metrics)``.
 
     ``batch`` is a dict of tensors with a leading global-batch dim, on the
-    state's device; the step raises for a batch or a model elsewhere. ``augment_fn(batch, generator) -> batch`` is a hook for
-    device-side augmentation of the global batch before the micro-batch
-    split. Metrics are 0-d tensors on the device, ``skipped`` included.
+    state's device (an entry may be ``None`` and stays so); the step raises
+    for a batch or a model elsewhere. ``augment_fn(batch, generator) ->
+    batch`` is a hook for device-side augmentation of the global batch
+    before the micro-batch split. Metrics are 0-d tensors on the device, ``skipped`` included.
     """
     accum = max(cfg.accumulation_steps, 1)
 

@@ -3,10 +3,10 @@
 ``load_jax_params(model, params)`` takes ``variables["params"]`` of a JAX
 SAM or ViT (nested dicts of numpy arrays) and fills the port's model, or one
 of SAM's sub-modules when called with that sub-module's sub-tree.
-``export_jax_params(model)`` goes the other way: the model's parameters (or
-any tensors keyed like them: gradients, optimizer moments, EMA) as a nested
-dict of numpy arrays in the JAX tree's layout. The port's state_dict keys
-are the reference models' names; ``_RULES`` maps them onto the JAX package's
+``export_jax_params(model)`` goes the other way, for SAM and ViT alike: the
+model's parameters (or any tensors keyed like them: gradients, optimizer
+moments, EMA) as a nested dict of numpy arrays in the JAX tree's layout.
+The port's state_dict keys are the reference models' names; ``_RULES`` maps them onto the JAX package's
 parameter paths (copies of the ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES``
 tables in ``simpleaicv_tpu/core/converters.py``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
@@ -187,14 +187,22 @@ def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
 
     ``tensors`` maps state_dict keys to the tensors to export in the
     parameters' place (gradients, optimizer moments, EMA parameters); it
-    defaults to ``model.state_dict()``. Raises if a key of ``model`` has no
-    tensor or a tensor has no key of ``model``.
+    defaults to ``model.state_dict()``. Raises if a parameter of ``model``
+    has no tensor or a tensor has no key of ``model``. A buffer (SAM's
+    ``positional_encoding_gaussian_matrix``, a parameter in the JAX tree) has
+    no gradient and no moment: it is left out of the tree where ``tensors``
+    does not hold it.
     """
+    buffers = set()
     if tensors is None:
         tensors = model.state_dict()
+    else:
+        buffers = {name for name, _ in model.named_buffers()}
     tree, used = {}, set()
     for key, path, _, to_jax in _leaves(model, root):
         if key not in tensors:
+            if key in buffers:
+                continue
             raise KeyError(f"no tensor for port parameter '{key}'")
         arr = tensors[key].detach().float().cpu().numpy()
         node = tree

@@ -2,3 +2,6 @@
 
 from .classification import (CELoss, FocalCELoss, LabelSmoothCELoss,
                              OneHotLabelCELoss, SemanticSoftmaxLoss)  # noqa: F401
+from .interactive_segmentation import (  # noqa: F401
+    SAMDistillLoss, SAMDistillMSELoss, SAMMultiLevelAssignLoss,
+    SAMMultiLevelIoUMaxLoss, SAMMultiLevelLoss)

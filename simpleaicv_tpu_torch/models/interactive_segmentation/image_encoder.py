@@ -9,7 +9,9 @@ softmax run in f32, as in the JAX package.
 
 Global layers whose token count is a multiple of 128 take
 ``flash_attention_relpos`` when ``use_flash_attention`` is set: the hand
-kernel on CUDA tensors. Every other layer takes the einsum path.
+kernels on CUDA tensors, forward and backward. Every other layer takes the
+einsum path. With ``use_gradient_checkpoint`` each block is recomputed in
+the backward (``nn.remat`` per block in the JAX package), in train mode only.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import flash_attention_relpos
 from ...ops.upsample import resize_bilinear
@@ -218,11 +221,13 @@ class ViTImageEncoder(nn.Module):
                  head_nums: int = 12, mlp_ratio: float = 4.0,
                  out_planes: int = 256, window_size: int = 0,
                  global_attn_indexes: Sequence[int] = (),
+                 use_gradient_checkpoint: bool = False,
                  use_flash_attention: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         g = image_size // patch_size
         self.dtype = dtype
+        self.use_gradient_checkpoint = use_gradient_checkpoint
         self.patch_embed = PatchEmbed(patch_size, embedding_planes, dtype)
         self.pos_embed = nn.Parameter(torch.empty(1, g, g, embedding_planes))
         self.blocks = nn.ModuleList(
@@ -246,6 +251,8 @@ class ViTImageEncoder(nn.Module):
     def forward(self, x):
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
+        remat = (self.use_gradient_checkpoint and self.training
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return self.neck(x)

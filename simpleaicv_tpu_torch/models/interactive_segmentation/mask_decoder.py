@@ -166,9 +166,11 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
                 dense_prompt_embeddings,
-                mask_out_idxs: Sequence[int] = (0, 1, 2, 3)):
+                mask_out_idxs: Sequence[int] = (0, 1, 2, 3),
+                return_feats: bool = False):
         """image_embeddings [B, H, W, C]; returns (masks [B, K, 4H, 4W],
-        iou [B, K]) for the K tokens in ``mask_out_idxs``."""
+        iou [B, K]) for the K tokens in ``mask_out_idxs`` and, with
+        ``return_feats``, the upscaled mask feature [B, 4H, 4W, C/8] too."""
         bp = sparse_prompt_embeddings.shape[0]
         output_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)
         output_tokens = output_tokens[None].expand(bp, -1, -1)
@@ -190,4 +192,6 @@ class MaskDecoder(nn.Module):
         masks = torch.einsum("bkc,bhwc->bkhw", hyper, upscaled)
         iou_pred = self.iou_prediction_head(iou_token_out)
         idxs = list(mask_out_idxs)
+        if return_feats:
+            return masks[:, idxs], iou_pred[:, idxs], upscaled
         return masks[:, idxs], iou_pred[:, idxs]

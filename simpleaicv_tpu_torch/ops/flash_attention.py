@@ -11,18 +11,20 @@ Counterpart of ``simpleaicv_tpu/ops/flash_attention.py``:
 * ``attention_recompute(q, k, v)``: ``attention_recompute_xla``, a one-shot
   softmax forward with the same recompute backward. Plain tensor code in the
   JAX package, so plain PyTorch here on every device.
-* ``flash_attention_relpos``: ``flash_attention_relpos`` (the Pallas kernel
-  ``_relpos_fwd_kernel`` and its XLA twin), forward only: its backward
-  kernels are not ported, so on CUDA tensors it refuses inputs that need a
-  gradient.
+* ``flash_attention_relpos``: ``flash_attention_relpos`` (the Pallas kernels
+  ``_relpos_fwd_kernel``, ``_relpos_dq_kernel``, ``_relpos_dkv_kernel``) and
+  its XLA twin ``flash_attention_relpos_xla`` (what SAM calls),
+  differentiable in all five tensor arguments. A ``torch.autograd.Function``
+  saves ``(q, k, v, rel_h, rel_w, o, lse)``.
 
 Every wrapper dispatches on the tensors' device. CUDA tensors go to the
 hand-written Hopper kernels in ``csrc/``, which never materialise the
 [N, N] scores; CPU tensors go to the plain versions
 (``flash_attention_reference``, ``flash_attention_dq_reference``,
-``flash_attention_dkv_reference``, ``flash_attention_relpos_reference``),
-which do. A CUDA tensor never takes a
-plain version: a kernel that cannot build or launch raises.
+``flash_attention_dkv_reference``, ``flash_attention_relpos_reference``,
+``flash_attention_relpos_dq_reference``,
+``flash_attention_relpos_dkv_reference``), which do. A CUDA tensor never
+takes a plain version: a kernel that cannot build or launch raises.
 """
 
 from __future__ import annotations
@@ -39,11 +41,14 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_dq_reference", "flash_attention_dkv_reference",
            "attention_recompute",
            "flash_attention_relpos", "flash_attention_relpos_reference",
-           "KERNEL_LAUNCHES"]
+           "flash_attention_relpos_dq_reference",
+           "flash_attention_relpos_dkv_reference", "KERNEL_LAUNCHES"]
 
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches, and nowhere else.
-KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0, "flash_attention_fwd": 0,
+KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0,
+                   "flash_attention_relpos_dq": 0,
+                   "flash_attention_relpos_dkv": 0, "flash_attention_fwd": 0,
                    "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
@@ -284,21 +289,59 @@ def attention_recompute(q, k, v):
 
 # ---------------- decomposed-rel-pos flash attention (SAM) ----------------
 
-def flash_attention_relpos_reference(q, k, v, rel_h, rel_w):
-    """Plain version: q/k/v [BH, N, d], rel_h [BH, N, k_h], rel_w
-    [BH, N, k_w] with N = k_h * k_w. Returns (o in q's dtype, lse f32 [BH, N])
-    computed in f32 with the bias and softmax materialised."""
+def _relpos_scores(q, k, rel_h, rel_w):
+    """f32 [BH, N, N] scores d^-0.5 q k^T + rel_h[q, kh] + rel_w[q, kw]."""
     bh, n, d = q.shape
     k_h, k_w = rel_h.shape[-1], rel_w.shape[-1]
     if k_h * k_w != n:
         raise ValueError(f"k_h*k_w={k_h}*{k_w} != N={n}")
     s = torch.einsum("bnd,bmd->bnm", q.float() * d**-0.5, k.float())
-    s = (s.view(bh, n, k_h, k_w) + rel_h.float()[..., :, None]
-         + rel_w.float()[..., None, :]).view(bh, n, n)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bnm,bmd->bnd", p, v.float()).to(q.dtype)
-    return o, lse
+    return (s.view(bh, n, k_h, k_w) + rel_h.float()[..., :, None]
+            + rel_w.float()[..., None, :]).view(bh, n, n)
+
+
+def flash_attention_relpos_reference(q, k, v, rel_h, rel_w):
+    """Plain version: q/k/v [BH, N, d], rel_h [BH, N, k_h], rel_w
+    [BH, N, k_w] with N = k_h * k_w. Returns (o in q's dtype, lse f32 [BH, N])
+    with the bias and softmax materialised in f32. The unnormalised
+    probabilities are rounded to v's dtype before p.v and the product is
+    divided by the row sum after, as the online-softmax kernel and the JAX
+    package's XLA twin do."""
+    s = _relpos_scores(q, k, rel_h, rel_w)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bnm,bmd->bnd", p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _relpos_recompute(q, k, v, rel_h, rel_w, do, lse, delta):
+    """(p, ds) of the rel-pos backward, both f32 [BH, N, N]."""
+    p = torch.exp(_relpos_scores(q, k, rel_h, rel_w) - lse[..., None])
+    dp = torch.einsum("bnd,bmd->bnm", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_relpos_dq_reference(q, k, v, rel_h, rel_w, do, lse,
+                                        delta):
+    """Plain (dq, drh, drw): dq = d^-0.5 * ds k with ds rounded to q's dtype
+    first; drh[q, kh] and drw[q, kw] are the sums of the unrounded f32 ds
+    over the other key axis, in rel_h's and rel_w's dtype."""
+    _, ds = _relpos_recompute(q, k, v, rel_h, rel_w, do, lse, delta)
+    dq = torch.einsum("bnm,bmd->bnd", ds.to(q.dtype).float(), k.float())
+    ds4 = ds.view(*ds.shape[:2], rel_h.shape[-1], rel_w.shape[-1])
+    return ((dq * q.shape[-1]**-0.5).to(q.dtype),
+            ds4.sum(dim=-1).to(rel_h.dtype), ds4.sum(dim=-2).to(rel_w.dtype))
+
+
+def flash_attention_relpos_dkv_reference(q, k, v, rel_h, rel_w, do, lse,
+                                         delta):
+    """Plain (dk, dv): dv = p^T dO with p rounded to dO's dtype, and
+    dk = d^-0.5 * ds^T q with ds rounded to q's dtype."""
+    p, ds = _relpos_recompute(q, k, v, rel_h, rel_w, do, lse, delta)
+    dv = torch.einsum("bnm,bnd->bmd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bnm,bnd->bmd", ds.to(q.dtype).float(), q.float())
+    return (dk * q.shape[-1]**-0.5).to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, rel_h, rel_w):
@@ -313,39 +356,46 @@ def _check(q, k, v, rel_h, rel_w):
     if rel_h.shape[-1] * rel_w.shape[-1] != n:
         raise ValueError(f"k_h*k_w={rel_h.shape[-1]}*{rel_w.shape[-1]} != "
                          f"N={n}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+_RELPOS_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _relpos_fwd_kernel():
     fn = _build.load("flash_relpos_fwd").flash_relpos_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + _RELPOS_TAIL
     fn.restype = ctypes.c_int
     return fn
 
 
-def _refuse_gradients(*tensors):
-    """The rel-pos kernel is forward only: raises where autograd would
-    expect a graph through it, instead of returning tensors cut from it."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "flash_attention_relpos has no backward kernel on CUDA: call it "
-            "under torch.no_grad(), or train through the einsum path "
-            "(use_flash_attention=False)")
+@functools.lru_cache(maxsize=None)
+def _relpos_bwd_kernels():
+    """(flash_relpos_dq, flash_relpos_dkv)."""
+    lib = _build.load("flash_relpos_bwd")
+    lib.flash_relpos_dq.argtypes = [ctypes.c_void_p] * 11 + _RELPOS_TAIL
+    lib.flash_relpos_dkv.argtypes = [ctypes.c_void_p] * 10 + _RELPOS_TAIL
+    for fn in (lib.flash_relpos_dq, lib.flash_relpos_dkv):
+        fn.restype = ctypes.c_int
+    return lib.flash_relpos_dq, lib.flash_relpos_dkv
 
 
-def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
-    _refuse_gradients(q, k, v, rel_h, rel_w)
+def _relpos_kernel_args(inputs, outputs):
+    """The arguments of a rel-pos kernel: the pointers of ``inputs`` (q, k,
+    v, [dO,] rel_h, rel_w, [lse, delta]) and ``outputs``, then the shape,
+    the dtype flag, the scale and the stream. Raises on what the kernels do
+    not take; every tensor must be contiguous and on q's device."""
+    q, rel_h, rel_w = inputs["q"], inputs["rel_h"], inputs["rel_w"]
     bh, n, d = q.shape
     k_h, k_w = rel_h.shape[-1], rel_w.shape[-1]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"kernel takes bf16 or f32 q/k/v, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one dtype")
-    if rel_h.dtype != torch.float32 or rel_w.dtype != torch.float32:
-        raise TypeError("rel_h and rel_w must be float32")
-    for name, t in (("q", q), ("k", k), ("v", v), ("rel_h", rel_h),
-                    ("rel_w", rel_w)):
+    for name, t in inputs.items():
+        want = q.dtype if name in ("q", "k", "v", "do") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -353,18 +403,73 @@ def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
     if k_w > 64 or d > 128 or d % 2:
         raise ValueError(f"kernel takes k_w <= 64 and even d <= 128, got "
                          f"k_w={k_w} d={d}")
-    fn = _kernel()
+    return ([t.data_ptr() for t in (*inputs.values(), *outputs)]
+            + [bh, n, d, k_h, k_w, int(q.dtype == torch.bfloat16), d**-0.5,
+               torch.cuda.current_stream(q.device).cuda_stream])
+
+
+def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
     o = torch.empty_like(q)
-    lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    args = _relpos_kernel_args(
+        dict(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w), (o, lse))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
-                 rel_w.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n, d,
-                 k_h, k_w, int(q.dtype == torch.bfloat16), d**-0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_relpos_fwd launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["flash_attention_relpos_fwd"] += 1
+        _launch("flash_attention_relpos_fwd", _relpos_fwd_kernel(), args)
     return o, lse
+
+
+def _flash_relpos_dq_cuda(q, k, v, rel_h, rel_w, do, lse, delta):
+    dq = torch.empty_like(q)
+    drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    args = _relpos_kernel_args(
+        dict(q=q, k=k, v=v, do=do, rel_h=rel_h, rel_w=rel_w, lse=lse,
+             delta=delta), (dq, drh, drw))
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_relpos_dq", _relpos_bwd_kernels()[0], args)
+    return dq, drh, drw
+
+
+def _flash_relpos_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta):
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = _relpos_kernel_args(
+        dict(q=q, k=k, v=v, do=do, rel_h=rel_h, rel_w=rel_w, lse=lse,
+             delta=delta), (dk, dv))
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_relpos_dkv", _relpos_bwd_kernels()[1], args)
+    return dk, dv
+
+
+class _FlashAttentionRelpos(torch.autograd.Function):
+    """Saves (q, k, v, rel_h, rel_w, o, lse) and nothing else between the
+    forward and the backward, so a checkpointed layer may run the forward
+    twice. CPU tensors take the plain versions, CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_relpos_reference(q, k, v, rel_h, rel_w)
+        else:
+            o, lse = _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, rel_h, rel_w, o, lse = ctx.saved_tensors
+        # the kernels take contiguous tensors; autograd hands dO over
+        # contiguous already where it comes from SAM's head merge
+        do = do.to(q.dtype).contiguous()
+        # delta = rowsum(dO * o) in f32 is outside the TPU kernels too
+        delta = (do.float() * o.float()).sum(dim=-1)
+        args = (q, k, v, rel_h, rel_w, do, lse, delta)
+        if q.device.type == "cpu":
+            dq, drh, drw = flash_attention_relpos_dq_reference(*args)
+            dk, dv = flash_attention_relpos_dkv_reference(*args)
+        else:
+            dq, drh, drw = _flash_relpos_dq_cuda(*args)
+            dk, dv = _flash_relpos_dkv_cuda(*args)
+        return dq, dk, dv, drh, drw
 
 
 def flash_attention_relpos(q, k, v, rel_h, rel_w):
@@ -374,13 +479,10 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w):
     rel_h [BH, N, k_h] and rel_w [BH, N, k_w] f32;
     bias[q, kh * k_w + kw] = rel_h[q, kh] + rel_w[q, kw]; the d^-0.5 scale
     applies to q.k only. Returns (o [BH, N, d] in q's dtype, lse [BH, N] f32).
-    CUDA tensors run the hand kernel (forward only: it raises if an input
-    requires a gradient while grad mode is on), CPU tensors the plain
-    version, which autograd differentiates.
+    ``o`` is differentiable in all five arguments (the backward recomputes
+    the probabilities from the saved ``lse``); ``lse`` carries no gradient.
+    CUDA tensors run the hand kernels, forward and backward, and must be
+    contiguous; CPU tensors run the plain versions.
     """
     _check(q, k, v, rel_h, rel_w)
-    if q.device.type == "cpu":
-        return flash_attention_relpos_reference(q, k, v, rel_h, rel_w)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    return _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w)
+    return _FlashAttentionRelpos.apply(q, k, v, rel_h, rel_w)

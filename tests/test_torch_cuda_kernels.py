@@ -14,6 +14,7 @@ import torch
 from simpleaicv_tpu_torch.ops.flash_attention import (
     KERNEL_LAUNCHES, flash_attention, flash_attention_backward_reference,
     flash_attention_reference, flash_attention_relpos,
+    flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
 
 pytestmark = pytest.mark.cuda
@@ -99,12 +100,61 @@ def test_flash_kernels_copy_what_they_cannot_read_in_place():
     torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
 
 
-def test_relpos_refuses_gradients_on_card():
-    q, k, v = (torch.randn(2, 64, 32, device="cuda", requires_grad=True)
-               for _ in range(3))
-    rh, rw = (torch.randn(2, 64, 8, device="cuda") for _ in range(2))
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        flash_attention_relpos(q, k, v, rh, rw)
-    with torch.no_grad():
-        o, _ = flash_attention_relpos(q, k, v, rh, rw)
-    assert o.shape == q.shape
+RELPOS_SHAPES = [(3, 16, 16, 32), (2, 8, 16, 40), (3, 10, 10, 40),
+                 (12, 64, 64, 64), (2, 64, 64, 80), (2, 16, 24, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relpos_gradients_match_plain_versions_on_card(dtype):
+    """The rel-pos backward kernels through autograd: dq, dk, dv, drh, drw
+    against the plain versions on the same (o, lse, delta), at SAM-B and
+    SAM-H global layers, non-square grids, N = 100 (no 64-query tile divides
+    it; k_w = 10 and d = 40 are padded in the kernel) and the widest head.
+    f32 tensors, the bias gradients among them: 1e-4; bf16 dq, dk, dv: two
+    bf16 steps at the tensor's largest value (``_grad_atol``)."""
+    for bh, k_h, k_w, d in RELPOS_SHAPES:
+        rng = np.random.RandomState(k_w + d)
+        n = k_h * k_w
+        q, k, v, do = (_randn(rng, bh, n, d).to("cuda", dtype)
+                       for _ in range(4))
+        rh, rw = _randn(rng, bh, n, k_h).cuda(), _randn(rng, bh, n, k_w).cuda()
+        leaves = [t.requires_grad_() for t in (q, k, v, rh, rw)]
+        before = dict(KERNEL_LAUNCHES)
+        o, lse = flash_attention_relpos(*leaves)
+        assert o.requires_grad and not lse.requires_grad
+        dq, dk, dv, drh, drw = torch.autograd.grad(o, leaves, do)
+        for name in ("flash_attention_relpos_fwd", "flash_attention_relpos_dq",
+                     "flash_attention_relpos_dkv"):
+            assert KERNEL_LAUNCHES[name] == before[name] + 1
+        with torch.no_grad():
+            delta = (do.float() * o.float()).sum(dim=-1)
+            args = (q, k, v, rh, rw, do, lse, delta)
+            want = (*flash_attention_relpos_dq_reference(*args),
+                    *flash_attention_relpos_dkv_reference(*args))
+        for name, g, w in zip(("dq", "drh", "drw", "dk", "dv"),
+                              (dq, drh, drw, dk, dv), want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=0, msg=f"{name} {bh, k_h, k_w, d}",
+                atol=_grad_atol(w, w.dtype))
+
+
+def test_relpos_gradients_survive_checkpointing_on_card():
+    """Under ``torch.utils.checkpoint`` the forward kernel runs twice and
+    the gradients equal those without it."""
+    from torch.utils.checkpoint import checkpoint
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 64, 32, device="cuda", generator=g)
+               .requires_grad_() for _ in range(3))
+    rh, rw = (torch.randn(2, 64, 8, device="cuda", generator=g)
+              .requires_grad_() for _ in range(2))
+    leaves = (q, k, v, rh, rw)
+    want = torch.autograd.grad(flash_attention_relpos(*leaves)[0].sum(),
+                               leaves)
+    before = KERNEL_LAUNCHES["flash_attention_relpos_fwd"]
+    out = checkpoint(lambda *a: flash_attention_relpos(*a)[0], *leaves,
+                     use_reentrant=False)
+    got = torch.autograd.grad(out.sum(), leaves)
+    assert KERNEL_LAUNCHES["flash_attention_relpos_fwd"] == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -136,20 +136,25 @@ def test_flash_rejects_bad_inputs(fn):
 
 
 def test_relpos_gradient_guard():
-    """The forward-only rel-pos kernel refuses inputs that need a gradient
-    while grad mode is on; the guard is what its CUDA path calls first."""
-    a = torch.zeros(2, requires_grad=True)
-    b = torch.zeros(2)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        port_fa._refuse_gradients(b, a)
-    port_fa._refuse_gradients(b, b)
-    with torch.no_grad():
-        port_fa._refuse_gradients(a, b)
-    # on CPU tensors the plain version is differentiable and stays allowed
+    """``flash_attention_relpos`` once refused inputs that need a gradient;
+    it is differentiable now: the output carries a graph into all five
+    arguments whatever subset needs a gradient, the row logsumexp carries
+    none, and nothing is recorded under ``no_grad``."""
+    assert not hasattr(port_fa, "_refuse_gradients")
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(1, 16, 8).astype(np.float32))
                .requires_grad_() for _ in range(3))
     rh, rw = (torch.from_numpy(rng.randn(1, 16, 4).astype(np.float32))
               for _ in range(2))
-    o, _ = flash_attention_relpos(q, k, v, rh, rw)
-    assert o.requires_grad
+    o, lse = flash_attention_relpos(q, k, v, rh, rw)
+    assert o.requires_grad and not lse.requires_grad
+    dq, dk, dv = torch.autograd.grad(o.sum(), (q, k, v))
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
+    # only the bias tables need a gradient
+    rh.requires_grad_(), rw.requires_grad_()
+    o, _ = flash_attention_relpos(q.detach(), k.detach(), v.detach(), rh, rw)
+    drh, drw = torch.autograd.grad(o.sum(), (rh, rw))
+    assert drh.shape == rh.shape and drw.shape == rw.shape
+    with torch.no_grad():
+        o, _ = flash_attention_relpos(q, k, v, rh, rw)
+    assert not o.requires_grad
