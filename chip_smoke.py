@@ -6,10 +6,10 @@
 Phases, each of which raises (exit code 1) on failure:
   1. device: requires a CUDA card and prints its name and power limit;
   2. kernels: builds every hand kernel from the sources in the checkout (one
-     nvcc per source, started together) and holds each against its plain
-     PyTorch version on the card, at the shapes the main paths give it and
-     at edge shapes, and times it beside its plain version, a PyTorch
-     library call and its bound;
+     nvcc per source, started together) and holds the flash-attention ones
+     against their plain PyTorch versions on the card, at the shapes the
+     main paths give them and at edge shapes, and times each beside its
+     plain version, a PyTorch library call and its bound;
   3. serving: serves SAM-B 1024x1024 interactive-segmentation requests
      through ``SAMPredictor`` on the card, counts the kernel launches of
      that run, and compares the masks with the same requests on the plain
@@ -28,13 +28,27 @@ Phases, each of which raises (exit code 1) on failure:
      point batch taking two optimizer steps with a no-grad prediction and a
      new click between them. It counts the rel-pos kernels' launches of
      every step, profiles one step, and compares one more step's loss and
-     gradients with the einsum attention path.
+     gradients with the einsum attention path;
+  6. MSDA kernels: holds the multi-scale deformable attention kernels (K7
+     and its backward) against their plain versions at edge shapes, through
+     the module with 2-D and 4-D reference points, and at DINO-DETR's
+     encoder launch at batch 2 (the plain version run over chunks of
+     queries), and times them there beside their bound and the reference's
+     grid_sample composition;
+  7. DINO-DETR training: takes resnet50_dinodetr 1024x1024 train steps at
+     batch 2 through ``make_train_step`` (the res50_dinodetr_yoloresize1024
+     recipe's DINODETRLoss, AdamW with the backbone at 1e-5 and clipping at
+     0.1, MultiStepLR) on batches from the port's synthetic dataset and
+     collater, counts the MSDA kernels' launches of every step, times the
+     host's Hungarian matchings, profiles one step, and compares one step at
+     batch 1 with the same model on the plain MSDA.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import subprocess
@@ -50,14 +64,21 @@ from simpleaicv_tpu_torch.core.engine import (EngineConfig,
 from simpleaicv_tpu_torch.core.optim import OptimizerConfig, build_optimizer
 from simpleaicv_tpu_torch.core.registry import BACKBONES, LOSSES, MODELS
 from simpleaicv_tpu_torch.core.schedule import SchedulerConfig
+from simpleaicv_tpu_torch.data.datasets import FakeDetectionDataset
+from simpleaicv_tpu_torch.data.detection import (DETRDetectionCollater,
+                                                 Normalize)
 from simpleaicv_tpu_torch.data.interactive_segmentation import (
     FakeSAMSegmentationDataset, SAMBatchCollater)
 from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
+from simpleaicv_tpu_torch.losses import dinodetr as dino_loss
 from simpleaicv_tpu_torch.models.common import init_params
+from simpleaicv_tpu_torch.models.detection import dinodetr
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
+from simpleaicv_tpu_torch.ops import msda
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
+from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
 
 # H100 SXM dense peaks (NVIDIA data sheet) at the full 700 W power limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -404,7 +425,7 @@ def phase_flash_kernels(card):
 def phase_kernels(card):
     t0 = time.perf_counter()
     logs = _build.build(["flash_relpos_fwd", "flash_relpos_bwd", "flash_fwd",
-                         "flash_bwd"])
+                         "flash_bwd", "msda"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -514,8 +535,9 @@ def _serve(pred, kind, image, prompt):
 
 
 def _reset_launches():
-    for name in fa.KERNEL_LAUNCHES:
-        fa.KERNEL_LAUNCHES[name] = 0
+    for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _profile_device(run):
@@ -1022,6 +1044,691 @@ def phase_sam_training(card, timed_batches=6):
         raise RuntimeError("the flash path disagrees with the einsum path")
     return launches
 
+# ------------------- multi-scale deformable attention -------------------
+
+# DINO-DETR at the res50_dinodetr_yoloresize1024 recipe's 1024^2 and one
+# card's batch of 2: levels C2-C5 and a stride-64 convolution, 8 heads of
+# 32 channels, 4 points per level
+DINO_BATCH = 2
+DINO_IMAGE = 1024
+DINO_LEVELS = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))
+DINO_HEADS, DINO_HEAD_DIM, DINO_POINTS = 8, 32, 4
+DINO_QUERIES = 900 + 200  # the decoder's queries and denoising slots
+MSDA_KERNELS = ("msda_fwd", "msda_bwd")
+
+
+def _msda_case(b, lq, h, d, shapes, p, lo, hi, seed, on_centres=False):
+    """value, locations, weights and grad_out on the card from a seeded CPU
+    generator. ``on_centres`` puts every location on a cell centre, where
+    the pixel coordinate x = loc * w - 0.5 is an integer and the sample
+    lies on the border between two bilinear cells."""
+    g = torch.Generator().manual_seed(seed)
+    n_levels = len(shapes)
+    s = sum(hh * ww for hh, ww in shapes)
+    value = torch.randn(b, s, h, d, generator=g)
+    loc = lo + (hi - lo) * torch.rand(b, lq, h, n_levels, p, 2, generator=g)
+    if on_centres:
+        wh = torch.tensor([[ww, hh] for hh, ww in shapes],
+                          dtype=torch.float32)[None, None, None, :, None]
+        loc = (torch.floor(loc * wh).clamp(min=0) + 0.5) / wh
+    wts = torch.rand(b, lq, h, n_levels, p, generator=g)
+    grad_out = torch.randn(b, lq, h * d, generator=g)
+    return tuple(t.cuda() for t in (value, loc, wts, grad_out))
+
+
+def _rel_err(got, want):
+    """max |got - want| over want's largest value."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+@contextlib.contextmanager
+def _plain_msda():
+    """The port's DINO-DETR modules on the plain MSDA and its autograd
+    instead of the kernels, for comparisons: swapped in by this script."""
+    kernel = dinodetr.ms_deform_attn
+    dinodetr.ms_deform_attn = msda.ms_deform_attn_reference
+    try:
+        yield
+    finally:
+        dinodetr.ms_deform_attn = kernel
+
+
+def _by_query_chunks(value, shapes, loc, wts, grad_out=None, chunk=8192):
+    """The plain forward, or with ``grad_out`` the plain backward, over
+    ``chunk`` queries at a time: at the encoder's launch one corner's
+    [B, Lq, H, P, D] f32 gather is 715 MB per level. Queries are
+    independent; the value gradient is the sum of the chunks'."""
+    lq = loc.shape[1]
+    spans = [slice(i, i + chunk) for i in range(0, lq, chunk)]
+    if grad_out is None:
+        return torch.cat([msda.ms_deform_attn_reference(
+            value, shapes, loc[:, c], wts[:, c]) for c in spans], 1)
+    grad_value = torch.zeros_like(value)
+    grad_loc, grad_wts = [], []
+    for c in spans:
+        gv, gl, gw = msda.ms_deform_attn_backward_reference(
+            value, shapes, loc[:, c], wts[:, c], grad_out[:, c])
+        grad_value += gv
+        grad_loc.append(gl)
+        grad_wts.append(gw)
+    return grad_value, torch.cat(grad_loc, 1), torch.cat(grad_wts, 1)
+
+
+def _grid_sample_msda(value, shapes, loc, wts):
+    """The reference's own fallback (ms_deform_attn_core_pytorch): one
+    ``F.grid_sample`` per level and the weighted sum, a composition of 5
+    library calls that computes MSDA. Timed only; the port never calls it."""
+    b, _, h, d = value.shape
+    lq, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    values = value.split([hh * ww for hh, ww in shapes], dim=1)
+    grids = 2 * loc - 1
+    sampled = []
+    for lid, (hh, ww) in enumerate(shapes):
+        v = values[lid].flatten(2).transpose(1, 2).reshape(b * h, d, hh, ww)
+        g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)
+        sampled.append(torch.nn.functional.grid_sample(
+            v, g, mode="bilinear", padding_mode="zeros", align_corners=False))
+    w = wts.transpose(1, 2).reshape(b * h, 1, lq, n_levels * p)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * w).sum(-1)
+    return out.view(b, h * d, lq).transpose(1, 2)
+
+
+def _launch_inputs(lq, seed, boxes):
+    """K7's inputs at a DINO-DETR launch at batch 2, on the card: value
+    [2, S, 8, 32]; locations as the model forms them at its initial
+    offsets (the directional bias, up to 4 cells, plus noise): around every
+    cell centre of every level (the encoder, ``boxes`` False) or around
+    ``lq`` random boxes (the decoder's 4-D form); softmax weights."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, d, p = DINO_BATCH, DINO_HEADS, DINO_HEAD_DIM, DINO_POINTS
+    n_levels = len(DINO_LEVELS)
+    s = sum(hh * ww for hh, ww in DINO_LEVELS)
+    value = torch.randn(b, s, h, d, generator=g, device="cuda")
+    offsets = (dinodetr._offsets_bias(h, n_levels, p).cuda().reshape(
+        h, n_levels, p, 2) + 0.5 * torch.randn(
+        b, lq, h, n_levels, p, 2, generator=g, device="cuda"))
+    if boxes:
+        ref = torch.rand(b, lq, 1, 1, 1, 4, generator=g, device="cuda")
+        ref_wh = 0.05 + 0.3 * ref[..., 2:]
+        loc = ref[..., :2] + offsets / p * ref_wh * 0.5
+    else:
+        centres = torch.cat([dinodetr._grid_centres(hh, ww, "cuda")
+                             for hh, ww in DINO_LEVELS])
+        wh = torch.tensor([[ww, hh] for hh, ww in DINO_LEVELS],
+                          dtype=torch.float32, device="cuda")
+        loc = (centres[None, :, None, None, None, :]
+               + offsets / wh[None, None, None, :, None, :])
+    wts = torch.softmax(torch.randn(b, lq, h, n_levels * p, generator=g,
+                                    device="cuda"), -1).reshape(
+        b, lq, h, n_levels, p)
+    grad_out = torch.randn(b, lq, h * d, generator=g, device="cuda")
+    return value, loc.contiguous(), wts, grad_out
+
+
+def _corners(shapes, loc):
+    """(inside, rows): how many of the samples' bilinear corners lie inside
+    their level (the corners both kernels read, and K7b's atomic adds per
+    channel), and how many distinct (batch, value row, head) rows of value
+    those corners name: the rows the work needs, each read once. The
+    decoder's 1,100 queries reach under half of value's rows."""
+    b, lq, h = loc.shape[:3]
+    touched = torch.zeros(b, sum(hh * ww for hh, ww in shapes), h,
+                          dtype=torch.bool, device=loc.device)
+    bi = torch.arange(b, device=loc.device)[:, None, None, None]
+    hi = torch.arange(h, device=loc.device)[None, None, :, None]
+    n, start = 0, 0
+    for lid, (hh, ww) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lid, :, 0] * ww - 0.5).long()
+        y0 = torch.floor(loc[:, :, :, lid, :, 1] * hh - 0.5).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                inside = (x >= 0) & (x < ww) & (y >= 0) & (y < hh)
+                n += inside.sum().item()
+                touched[bi.expand_as(x)[inside], (start + y * ww + x)[inside],
+                        hi.expand_as(x)[inside]] = True
+        start += hh * ww
+    return n, touched.sum().item()
+
+
+def _msda_times(card, name, lq, seed, boxes):
+    """K7 and K7b at one DINO-DETR launch: errors against the plain version
+    (over chunks of queries), times beside the plain version, the
+    grid_sample composition and its autograd backward, and the bounds."""
+    shapes = DINO_LEVELS
+    value, loc, wts, grad_out = _launch_inputs(lq, seed, boxes)
+    out = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    grads = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
+    want = _by_query_chunks(value, shapes, loc, wts)
+    want_grads = _by_query_chunks(value, shapes, loc, wts, grad_out)
+    lib = _grid_sample_msda(value, shapes, loc, wts)
+    torch.cuda.synchronize()
+    err_fwd = _rel_err(out, want)
+    err_bwd = max(_rel_err(a, w) for a, w in zip(grads, want_grads))
+    err_lib = _rel_err(lib, want)
+    abs_fwd = (out - want).abs().max().item()
+    abs_bwd = max((a - w).abs().max().item()
+                  for a, w in zip(grads, want_grads))
+    del out, grads, want, want_grads, lib
+    print(f"kernel check msda {name} B={DINO_BATCH} Lq={lq}: max|out-ref| "
+          f"{abs_fwd:.3e} ({err_fwd:.3e} of its largest value), "
+          f"max|grad-ref| {abs_bwd:.3e} (at most {err_bwd:.3e} of a "
+          f"gradient's largest value; tolerance 1e-5 of it); the grid_sample "
+          f"composition {err_lib:.3e}", flush=True)
+    if not (err_fwd <= 1e-5 and err_bwd <= 1e-5):
+        raise RuntimeError(f"the MSDA kernels disagree with their plain "
+                           f"versions at the {name} launch")
+
+    b, s, h, d = value.shape
+    samples = loc[..., 0].numel()
+    inside, touched = _corners(shapes, loc)
+    ms_fwd = _cuda_ms(lambda: msda._msda_fwd_cuda(value, shapes, loc, wts),
+                      20)
+    ms_bwd = _cuda_ms(lambda: msda._msda_bwd_cuda(value, shapes, loc, wts,
+                                                  grad_out), 20)
+    plain_fwd = _cuda_ms(lambda: _by_query_chunks(value, shapes, loc, wts),
+                         3)
+    plain_bwd = _cuda_ms(lambda: _by_query_chunks(value, shapes, loc, wts,
+                                                  grad_out), 3)
+    lib_fwd = _cuda_ms(lambda: _grid_sample_msda(value, shapes, loc, wts), 5)
+    leaves = [t.detach().requires_grad_() for t in (value, loc, wts)]
+    lib_out = _grid_sample_msda(leaves[0], shapes, *leaves[1:])
+    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, grad_out, retain_graph=True), 3)
+    del lib_out, leaves
+    f32 = 4
+    # bytes: value's rows that inside corners name, read once; grad_value
+    # written once in full (its rows no corner reaches are zeros that the
+    # function still returns); out, grad_out, locations and weights once
+    needed = touched * d * f32                     # value read
+    tensor = b * s * h * d * f32                   # grad_value written
+    rows = b * lq * h * d * f32                    # out, grad_out
+    locs, weights = samples * 2 * f32, samples * f32
+    # operations: each inside corner's product and sum per channel, and per
+    # sample and channel the bilinear blend's three and the weighting's two;
+    # the backward adds three per corner (the atomic add's product and sum)
+    # and nine per sample and channel (the recomputed sample and the three
+    # reductions)
+    cases = [("msda_fwd", "simpleaicv_tpu/ops/msda_pallas.py:32", ms_fwd,
+              plain_fwd, lib_fwd, abs_fwd,
+              (inside * 2 + samples * 5) * d, needed + locs + weights + rows),
+             ("msda_bwd", "simpleaicv_tpu/ops/msda.py:66", ms_bwd, plain_bwd,
+              lib_bwd, abs_bwd, (inside * 5 + samples * 14) * d,
+              needed + tensor + 2 * (locs + weights) + rows)]
+    kernels = []
+    for kname, replaces, ms, plain_ms, lib_ms, err, flops, nbytes in cases:
+        bound_ms, bound_by = _bound(flops, nbytes, torch.float32)
+        print(f"{kname} DINO-DETR {name} launch B={DINO_BATCH} Lq={lq} "
+              f"[{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (chunks "
+              f"of 8192 queries), grid_sample composition {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.1f} "
+              f"GFLOP/ms); {samples} samples, {inside} inside corners "
+              f"({inside * d} atomic adds in the backward) naming {touched} "
+              f"of value's {b * s * h} rows; {nbytes} bytes, {flops} "
+              f"operations", flush=True)
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "simpleaicv_tpu_torch/ops/csrc/msda.cu",
+            "replaces": replaces, "launches": None,
+            "shape": f"B={b} Lq={lq} S={s} H={h} D={d} L={len(shapes)} "
+                     f"P={DINO_POINTS} f32 ({name})",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    return kernels
+
+
+def _module_check():
+    """MSDeformAttn (256 wide, 8 heads, 5 levels) with 2-D (encoder) and
+    4-D (decoder) reference points on the kernels against the same module on
+    the plain version: output and every gradient."""
+    shapes = ((32, 32), (16, 16), (8, 8), (4, 4), (2, 2))
+    s = sum(hh * ww for hh, ww in shapes)
+    g = torch.Generator().manual_seed(61)
+    module = init_params(dinodetr.MSDeformAttn(256, 5, 8, 4), g)
+    with torch.no_grad():   # offsets and weights that depend on the query
+        for lin in (module.sampling_offsets, module.attention_weights):
+            lin.weight.copy_(0.05 * torch.randn(lin.weight.shape,
+                                                generator=g))
+    module.cuda()
+    value = torch.randn(2, s, 256, generator=g).cuda()
+    refs = {"2-D": torch.cat([dinodetr._grid_centres(hh, ww, "cpu")
+                              for hh, ww in shapes])[None, :, None, :]
+            .expand(2, -1, 5, -1),
+            "4-D": torch.cat([torch.rand(2, 300, 1, 2, generator=g),
+                              0.05 + 0.3 * torch.rand(2, 300, 1, 2,
+                                                      generator=g)], -1)
+            .expand(-1, -1, 5, -1)}
+    worst = 0.0
+    for form, ref in refs.items():
+        query = torch.randn(2, ref.shape[1], 256, generator=g).cuda()
+        grad = torch.randn(2, ref.shape[1], 256, generator=g).cuda()
+        results = []
+        for plain in (False, True):
+            leaves = [t.clone().requires_grad_() for t in (query, value)]
+            module.zero_grad()
+            with _plain_msda() if plain else contextlib.nullcontext():
+                out = module(leaves[0], ref.cuda(), leaves[1], shapes)
+            out.backward(grad)
+            results.append([out.detach(), *(t.grad for t in leaves)]
+                           + [p.grad.clone() for p in module.parameters()])
+        errs = [_rel_err(a, b) for a, b in zip(*results)]
+        worst = max(worst, *errs)
+        print(f"kernel check msda module, {form} reference points: max "
+              f"relative error {max(errs):.3e} over the output, the query, "
+              f"value and parameter gradients (tolerance 1e-4)", flush=True)
+    if worst > 1e-4:
+        raise RuntimeError("MSDeformAttn on the kernels disagrees with the "
+                           "plain version")
+
+
+def phase_msda_kernels(card):
+    """K7 and K7b against their plain versions at edge shapes (D 8, 16, 32,
+    48; 1 to 5 levels with a 16x16 tail; locations in [-0.1, 1.1] and on
+    cell centres), through the module with 2-D and 4-D reference points, and
+    at DINO-DETR's encoder and decoder launches, timed there."""
+    cases = [
+        ("d32_one_level", 2, 50, 8, 32, ((16, 16),), 4, 0.0, 1.0, False),
+        ("d8_two_levels", 2, 50, 8, 8, ((8, 8), (4, 4)), 3, -0.1, 1.1,
+         False),
+        ("d16_five_levels", 1, 77, 4, 16,
+         ((32, 32), (16, 16), (8, 8), (4, 4), (16, 16)), 4, -0.1, 1.1,
+         False),
+        ("d48_odd_levels", 2, 40, 8, 48, ((12, 10), (5, 7)), 4, -0.1, 1.1,
+         False),
+        ("d32_centres", 2, 40, 8, 32, ((12, 10), (5, 7), (16, 16)), 4, -0.1,
+         1.1, True),
+        ("d32_dino_levels", 1, 64, 8, 32, DINO_LEVELS, 4, -0.1, 1.1, False),
+    ]
+    failed = []
+    for i, (name, b, lq, h, d, shapes, p, lo, hi, centres) in enumerate(cases):
+        value, loc, wts, grad_out = _msda_case(b, lq, h, d, shapes, p, lo, hi,
+                                               60 + i, centres)
+        got = (msda._msda_fwd_cuda(value, shapes, loc, wts),
+               *msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out))
+        want = (msda.ms_deform_attn_reference(value, shapes, loc, wts),
+                *msda.ms_deform_attn_backward_reference(value, shapes, loc,
+                                                        wts, grad_out))
+        errs = [_rel_err(a, w) for a, w in zip(got, want)]
+        print(f"kernel check msda {name} B={b} Lq={lq} H={h} D={d} levels "
+              f"{shapes} P={p}: max error over each tensor's largest value "
+              f"out {errs[0]:.3e} grad_value {errs[1]:.3e} grad_loc "
+              f"{errs[2]:.3e} grad_weights {errs[3]:.3e} (tolerance 1e-5)",
+              flush=True)
+        if max(errs) > 1e-5:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"the MSDA kernels disagree with their plain "
+                           f"versions at {failed}")
+    _module_check()
+    kernels = _msda_times(card, "encoder", sum(hh * ww for hh, ww in
+                                               DINO_LEVELS), 70, boxes=False)
+    decoder = _msda_times(card, "decoder", DINO_QUERIES, 71, boxes=True)
+    for kernel, other in zip(kernels, decoder):
+        kernel["other_shapes"] = [_reading(other)]
+    return kernels
+
+
+# ---------------------------- DINO-DETR training ----------------------------
+
+# launches per train step without checkpointing: one of each kernel in each
+# of the 6 encoder and 6 decoder layers
+DINO_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+# the res50_dinodetr_yoloresize1024 recipe's AdamW and MultiStepLR; an epoch
+# is cut to 4 steps (the milestone at epoch 33 lies far beyond this run)
+DINO_OPT = OptimizerConfig(name="AdamW", lr=1e-4, weight_decay=1e-4,
+                           global_weight_decay=False,
+                           no_weight_decay_layer_name_list=(),
+                           sub_layer_lr={"backbone": 1e-5}, clip_max_norm=0.1)
+DINO_SCHED = SchedulerConfig("MultiStepLR", lr=1e-4, epochs=39,
+                             warm_up_epochs=0, milestones=(33,), gamma=0.1)
+
+
+def _dino_model(use_gradient_checkpoint=False, seed=0):
+    """resnet50_dinodetr(num_classes=80) at its defaults (hidden 256, 8
+    heads, 900 queries, 6 + 6 layers, FFN 2048, dn_number 100), the
+    backbone in bf16, weights drawn from a seeded generator."""
+    model = MODELS.create("resnet50_dinodetr", num_classes=80,
+                          use_gradient_checkpoint=use_gradient_checkpoint,
+                          dtype=torch.bfloat16)
+    return init_params(model, torch.Generator().manual_seed(seed))
+
+
+def _dino_state(model):
+    optimizer, _ = build_optimizer(DINO_OPT, DINO_SCHED, 4, model)
+    cfg = EngineConfig()
+    return create_train_state(model, optimizer, cfg), cfg
+
+
+def _dino_batches(count):
+    """``count`` batches of 2 synthetic 1024^2 samples (up to 20 boxes of 80
+    classes) through Normalize and the recipe's collater, on the card."""
+    dataset = FakeDetectionDataset(count * DINO_BATCH, image_hw=DINO_IMAGE,
+                                   num_classes=80, max_boxes=20,
+                                   transform=Normalize())
+    collater = DETRDetectionCollater(resize=DINO_IMAGE,
+                                     resize_type="yolo_style",
+                                     max_annots_num=100)
+    batches = []
+    for j in range(0, count * DINO_BATCH, DINO_BATCH):
+        batch = collater([dataset[i] for i in range(j, j + DINO_BATCH)])
+        batches.append({k: torch.from_numpy(batch[k]).cuda()
+                        for k in ("image", "scaled_annots")})
+    return batches
+
+
+@contextlib.contextmanager
+def _matchings(record=None, replay=None):
+    """Wraps the loss's host Hungarian matcher. ``record`` (a list) gets
+    (matches, host ms, cost, valid) of every call, timed from a synchronised
+    card so that the time is the copy to the host and scipy's; ``replay`` (a
+    list of matches) is handed back in order instead of matching anew, and
+    each call's own match is appended to ``record``."""
+    inner = dino_loss.hungarian_match
+
+    def wrapped(cost, valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(cost, valid)
+        if record is not None:
+            record.append((out, (time.perf_counter() - t0) * 1e3,
+                           cost.detach().clone(), valid))
+        return replay.pop(0) if replay is not None else out
+
+    dino_loss.hungarian_match = wrapped
+    try:
+        yield
+    finally:
+        dino_loss.hungarian_match = inner
+
+
+@contextlib.contextmanager
+def _topk_tap(scores, own, indices=None):
+    """Records each ``Tensor.topk`` call's input in ``scores`` and its own
+    selection in ``own``; with ``indices`` (a list, in order) hands those
+    back in place of that selection. The step's one top-k is the two-stage
+    top-900 of the encoder's proposals, whose order decides which query
+    slot takes which anchor."""
+    inner = torch.Tensor.topk
+
+    def tapped(self, k, dim=-1, largest=True, sorted=True):
+        result = inner(self, k, dim, largest, sorted)
+        scores.append(self.detach().clone())
+        own.append(result.indices)
+        if indices is None:
+            return result
+        idx = indices.pop(0)
+        if idx.shape != result.indices.shape:
+            raise RuntimeError("replayed top-k of another shape")
+        return torch.return_types.topk((self.gather(dim, idx), idx))
+
+    torch.Tensor.topk = tapped
+    try:
+        yield
+    finally:
+        torch.Tensor.topk = inner
+
+
+def _topk_moves(scores_a, topk_a, scores_b, topk_b):
+    """Why the plain run's own top-900 differs from the kernel run's: the
+    largest difference d of the two runs' proposal scores, the f32 spacing
+    at the largest score, and at each place the two selections fill with
+    different proposals, the gap between those proposals' plain scores.
+    Each order statistic moves by at most d, so a gap above 2 d would mean
+    the replayed selection is not the one these scores make; the scores
+    must agree within 1e-4 of their largest value, the loss's bound."""
+    sa, sb = scores_a.double(), scores_b.double()
+    delta = (sa - sb).abs().max().item()
+    top = sb.abs().max().item()
+    spacing = float(np.spacing(np.float32(top)))
+    moved = topk_a != topk_b
+    gaps = (sb.gather(1, topk_a) - sb.gather(1, topk_b)).abs()[moved]
+    max_gap = gaps.max().item() if gaps.numel() else 0.0
+    print(f"top-900 proposals, kernel vs plain MSDA: scores at most "
+          f"{delta:.3e} apart ({delta / top:.3e} of the largest, {top:.5f}, "
+          f"whose f32 spacing is {spacing:.3e}: {delta / spacing:.1f} "
+          f"spacings); {int(moved.sum())} of {moved.numel()} places filled "
+          f"by other proposals, their plain scores' gaps at most "
+          f"{max_gap:.3e} ({int((gaps > delta).sum())} above the score "
+          f"difference, none may lie above twice it), median "
+          f"{gaps.median().item() if gaps.numel() else 0.0:.3e}", flush=True)
+    if max_gap > 2 * delta or delta > 1e-4 * top:
+        raise RuntimeError("the top-900 moved by more than rounding of the "
+                           "proposal scores explains")
+
+
+def _match_moves(record_a, record_b):
+    """How many of the plain run's 7 matchings would have differed from the
+    kernel run's, which were handed to it; for each that would, the cost of
+    the handed matching over the plain run's optimum, both under the plain
+    run's costs. With k matched pairs and costs at most d apart, either
+    matching's total moves by at most k d, so the gap may not exceed 2 k d;
+    the costs must agree within 1e-4 of their largest value."""
+    differing = 0
+    for (ma, _, ca, valid), (mb, _, cb, _) in zip(record_a, record_b):
+        cols = valid[:, None, :].expand_as(cb)
+        delta = (ca - cb).abs()[cols].max().item()
+        top = cb.abs()[cols].max().item()
+
+        def total(m):
+            hit = m >= 0
+            return cb.double().gather(2, m.clamp(min=0)[..., None])[
+                ..., 0][hit].sum().item()
+
+        k = int((ma >= 0).sum())
+        gap = total(ma) - total(mb)
+        if (ma != mb).any():
+            differing += 1
+            print(f"matching handed to the plain run: its cost {gap:.3e} "
+                  f"above the plain optimum, {k} pairs, costs at most "
+                  f"{delta:.3e} apart (bound {2 * k * delta:.3e})",
+                  flush=True)
+        if gap > 2 * k * delta or delta > 1e-4 * top:
+            raise RuntimeError("a matching moved by more than rounding of "
+                               "the costs explains")
+    return differing
+
+
+def _dino_step(step, state, batch, expected):
+    before = dict(msda.KERNEL_LAUNCHES)
+    state, metrics = step(state, batch, seed=0)
+    delta = {k: msda.KERNEL_LAUNCHES[k] - before[k] for k in MSDA_KERNELS}
+    if delta != expected:
+        raise RuntimeError(f"a DINO-DETR step launched {delta}, expected "
+                           f"{expected}")
+    return state, metrics
+
+
+def phase_dino_training(card, warm_up=3, timed=10):
+    t0 = time.perf_counter()
+    model = _dino_model()
+    state, cfg = _dino_state(model)
+    if state.device.type != "cuda":
+        raise RuntimeError("the engine did not take the model to the card")
+    step = make_train_step(make_detr_loss_fn(
+        LOSSES.create("DINODETRLoss", num_classes=80)), cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"resnet50_dinodetr 1024^2 ({n_params} parameters, bf16 backbone) "
+          f"and its AdamW state built on {state.device} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    batches = _dino_batches(2)
+    boxes = [int((b["scaled_annots"][..., 4] >= 0).sum(1).max())
+             for b in batches]
+    print(f"2 batches of {DINO_BATCH} synthetic 1024^2 samples collated and "
+          f"moved in {time.perf_counter() - t0:.1f} s (at most {boxes} boxes "
+          f"an image)", flush=True)
+
+    # the main path: warm-up and timed steps through the engine, each
+    # checked for its 12 + 12 kernel launches
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, skipped = [], []
+    for i in range(warm_up + timed):
+        if i == warm_up:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = _dino_step(step, state, batches[i % 2],
+                                    DINO_STEP_LAUNCHES)
+        losses.append(metrics["loss"])
+        skipped.append(metrics["skipped"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = dict(msda.KERNEL_LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v.item() for v in losses]
+    steps = warm_up + timed
+    print(f"trained {steps} steps; every step launched {DINO_STEP_LAUNCHES}, "
+          f"in all {launches}; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not all(np.isfinite(losses)) or any(float(v) for v in skipped):
+        raise RuntimeError(f"non-finite loss or skipped step: {losses}")
+    if state.step != steps or state.optimizer.step_count != steps:
+        raise RuntimeError("step counters disagree with the steps taken")
+    print(f"DINO-DETR R50 1024^2 training, batch {DINO_BATCH} [{card}]: "
+          f"{DINO_BATCH / step_ms * 1e3:.3f} images/s, {step_ms:.2f} ms per "
+          f"step over {timed} steps, peak memory {peak_gib:.2f} GiB",
+          flush=True)
+
+    # the host's share: the loss's 7 Hungarian matchings (6 decoder layers
+    # and the encoder proposals), each a cost matrix copied to the host
+    record = []
+    with _matchings(record=record):
+        state, _ = _dino_step(step, state, batches[0], DINO_STEP_LAUNCHES)
+    match_ms = [entry[1] for entry in record]
+    print(f"Hungarian matchings of one step [{card}]: {len(match_ms)} calls, "
+          f"{sum(match_ms):.2f} ms on the host in all (copy of the cost "
+          f"matrix and scipy, from a synchronised card): "
+          f"{' '.join(f'{ms:.2f}' for ms in match_ms)}", flush=True)
+    if len(match_ms) != 7:
+        raise RuntimeError("the loss did not match 7 times")
+
+    # one more step under the profiler
+    busy_ms, events = _profile_device(lambda: _dino_step(
+        step, state, batches[1], DINO_STEP_LAUNCHES))
+    if busy_ms > 0:
+        kern = {k: sum(e.self_device_time_total for e in events
+                       if f"{k}_kernel" in e.key) / 1e3
+                for k in MSDA_KERNELS}
+        print(f"profiled DINO-DETR step [{card}]: device busy {busy_ms:.2f} "
+              f"ms of a {step_ms:.2f} ms step, idle share "
+              f"{1 - busy_ms / step_ms:.3f}; msda_fwd {kern['msda_fwd']:.3f} "
+              f"ms and msda_bwd {kern['msda_bwd']:.3f} ms for 12 launches "
+              f"each, {100 * sum(kern.values()) / busy_ms:.1f}% of device "
+              f"time", flush=True)
+        _print_rows(events, busy_ms, 20)
+    else:
+        print("profiled DINO-DETR step: no device time recorded (not "
+              "measured)")
+
+    # the same weights on the plain MSDA: one step of each at batch 1 with
+    # both models recomputing their layers (the plain version's gathers are
+    # 358 MB per corner and level at the encoder), from the same step number
+    # (the same denoising noise) and with the kernel model's top-900
+    # proposal order and matches handed to the plain model: both are
+    # discrete choices among scores and costs that may lie within rounding
+    # of each other (one call of this script saw 20 of 900 proposals change
+    # place and the loss move by 1%), so only the MSDA differs;
+    # ``_topk_moves`` and ``_match_moves`` measure that the two runs' scores
+    # and costs do agree to rounding before the comparison. A second
+    # kernel model takes the same step with the same choices: K7b's atomic
+    # adds and cuDNN's backward come in another order on every run, and the
+    # two kernel runs show how far that alone moves the gradients (the noise
+    # floor of the comparison).
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    del state, model, step
+    torch.cuda.empty_cache()
+    models = [_dino_model(use_gradient_checkpoint=True) for _ in range(3)]
+    for m in models:
+        m.load_state_dict(weights)
+    del weights
+    states = [_dino_state(m)[0] for m in models]
+    step = make_train_step(make_detr_loss_fn(
+        LOSSES.create("DINODETRLoss", num_classes=80)), cfg)
+    one = {k: v[:1] for k, v in batches[0].items()}
+    scores_a, topk, scores_b, own_topk = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    record_a, record_b = [], []
+    before = dict(msda.KERNEL_LAUNCHES)
+    with _matchings(record=record_a), _topk_tap(scores_a, topk):
+        loss_a, grads_a = _step_loss_and_grads(step, states[0], one)
+    # a checkpointed layer runs K7 twice, in the forward and the recompute
+    delta = {k: msda.KERNEL_LAUNCHES[k] - before[k] for k in MSDA_KERNELS}
+    if delta != {"msda_fwd": 24, "msda_bwd": 12}:
+        raise RuntimeError(f"the checkpointed kernel step launched {delta}")
+    if len(topk) != 1:
+        raise RuntimeError(f"a step took {len(topk)} top-k selections, "
+                           f"expected 1")
+    matches = [entry[0] for entry in record_a]
+    with _matchings(replay=list(matches)), _topk_tap([], [], list(topk)):
+        loss_c, grads_c = _step_loss_and_grads(step, states[2], one)
+    before = dict(msda.KERNEL_LAUNCHES)
+    with _plain_msda(), _matchings(record=record_b, replay=list(matches)), \
+            _topk_tap(scores_b, own_topk, list(topk)):
+        loss_b, grads_b = _step_loss_and_grads(step, states[1], one)
+    if dict(msda.KERNEL_LAUNCHES) != before:
+        raise RuntimeError("the plain model launched an MSDA kernel")
+    _topk_moves(scores_a[0], topk[0], scores_b[0], own_topk[0])
+    differing = _match_moves(record_a, record_b)
+    moved = int((topk[0] != own_topk[0]).sum())
+    names = states[0].optimizer.names
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item()
+
+    def compare(grads_x, grads_y):
+        """(relative L2 difference of the whole gradient, its norm, least
+        cosine, the same two over the offset and weight parameters)."""
+        # the decoder self-attention's key bias has a true gradient of 0
+        # (the softmax ignores it): no direction to compare
+        pairs = [(n, a, b) for n, a, b in zip(names, grads_x, grads_y)
+                 if not n.endswith("self_attn.k.bias")
+                 and (a.any().item() or b.any().item())]
+        fed = [(n, a, b) for n, a, b in pairs
+               if "sampling_offsets" in n or "attention_weights" in n]
+        if len(fed) != 48:
+            raise RuntimeError(f"{len(fed)} offset and weight parameters "
+                               f"compared, expected 48")
+        out = []
+        for group in (pairs, fed):
+            fa = torch.cat([a.flatten() for _, a, _ in group]).double()
+            fb = torch.cat([b.flatten() for _, _, b in group]).double()
+            out += [((fa - fb).norm() / fb.norm()).item(), fb.norm().item(),
+                    min(cosine(a, b) for _, a, b in group)]
+        return out, len(pairs)
+
+    (rel, norm, cos, fed_rel, _, fed_cos), n_compared = compare(grads_a,
+                                                                grads_b)
+    (floor_rel, _, floor_cos, floor_fed_rel, _, floor_fed_cos), _ = compare(
+        grads_a, grads_c)
+    print(f"DINO-DETR step vs plain MSDA, batch 1, checkpointed (peak memory "
+          f"of the three steps {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; {differing} of 7 matchings of the plain model's own would "
+          f"have differed, and {moved} of the {topk[0].numel()} places of "
+          f"its own top-k proposals): loss {loss_a:.6f} vs {loss_b:.6f}, "
+          f"gradient "
+          f"relative L2 difference {rel:.3e} of a norm of {norm:.5f}, least "
+          f"per-parameter cosine {cos:.6f} over {n_compared} of "
+          f"{len(names)} parameters; the 48 sampling_offsets and "
+          f"attention_weights parameters (fed by K7b's location and weight "
+          f"gradients alone): relative L2 {fed_rel:.3e}, least cosine "
+          f"{fed_cos:.6f}. Two kernel runs of the same step: loss "
+          f"{loss_a:.6f} vs {loss_c:.6f}, relative L2 {floor_rel:.3e}, least "
+          f"cosine {floor_cos:.6f}; offsets and weights {floor_fed_rel:.3e}, "
+          f"{floor_fed_cos:.6f}", flush=True)
+    # with the same discrete choices both paths are f32 but for the bf16
+    # backbone and differ only in the order of sums, which grows through 12
+    # layers and sums over 87,296 queries: the loss within 1e-4 of itself,
+    # the whole gradient and the offset and weight gradients within 1% in
+    # L2, every compared gradient pointing the same way
+    if not (abs(loss_a - loss_b) <= 1e-4 * abs(loss_b) and rel <= 1e-2
+            and cos >= 0.99 and fed_rel <= 1e-2 and fed_cos >= 0.999):
+        raise RuntimeError("the kernel path disagrees with the plain MSDA")
+    return launches
+
 
 def main():
     card = phase_device()
@@ -1029,10 +1736,13 @@ def main():
     serving = phase_serving(card)
     vit = phase_training(card)
     sam = phase_sam_training(card)
+    kernels += phase_msda_kernels(card)
+    dino = phase_dino_training(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum
-    paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam}
+    paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
+             "dino_train": dino}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -38,6 +38,7 @@ from torch import nn
 
 from ..models.common import resolve_device
 from .schedule import SchedulerConfig, lr_at_epoch
+from .weights import path_form
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +73,6 @@ _EMBED_SCALE0_NAMES = ("position_encoding", "cls_token", "patch_embedding")
 _BLOCK_IDX_RE = re.compile(r"_(\d+)(?:/|$)")
 
 
-def _path_form(name: str) -> str:
-    """``blocks.3.attn.qkv.weight`` -> ``blocks_3/attn/qkv/weight``."""
-    return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", name).replace(".", "/")
-
-
 def per_leaf_hyperparams(cfg: OptimizerConfig, model: nn.Module):
     """Returns (lr_scales, weight_decays, table): two lists of Python floats
     in ``model.named_parameters()`` order, ``lr_scale`` relative to
@@ -94,7 +90,7 @@ def per_leaf_hyperparams(cfg: OptimizerConfig, model: nn.Module):
 
     lr_scales, wds, table = [], [], []
     for port_name, leaf in model.named_parameters():
-        name = _path_form(port_name)
+        name = path_form(port_name)
         # weight decay
         if cfg.global_weight_decay:
             wd = cfg.weight_decay

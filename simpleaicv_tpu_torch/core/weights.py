@@ -1,19 +1,28 @@
 """Moves parameters between the JAX package's trees and the port's modules.
 
-``load_jax_params(model, params)`` takes ``variables["params"]`` of a JAX
-SAM or ViT (nested dicts of numpy arrays) and fills the port's model, or one
-of SAM's sub-modules when called with that sub-module's sub-tree.
-``export_jax_params(model)`` goes the other way, for SAM and ViT alike: the
-model's parameters (or any tensors keyed like them: gradients, optimizer
-moments, EMA) as a nested dict of numpy arrays in the JAX tree's layout.
-The port's state_dict keys are the reference models' names; ``_RULES`` maps them onto the JAX package's
-parameter paths (copies of the ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES``
-tables in ``simpleaicv_tpu/core/converters.py``). Layouts:
+``load_jax_params(model, params, batch_stats=None)`` takes
+``variables["params"]`` of a JAX SAM, ViT, ResNet or DINO-DETR (nested
+dicts of numpy arrays) and, for models with BatchNorm,
+``variables["batch_stats"]``, and fills the port's model, or one of SAM's
+sub-modules when called with that sub-module's sub-tree.
+``export_jax_params(model)`` goes the other way: the model's parameters (or
+any tensors keyed like them: gradients, optimizer moments, EMA) as a nested
+dict of numpy arrays in the JAX tree's layout; ``export_jax_batch_stats``
+gives the BatchNorm running statistics as the ``batch_stats`` tree.
+SAM's and ViT's state_dict keys are the reference models' names; ``_RULES``
+maps them onto the JAX package's parameter paths (copies of the
+``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
+``simpleaicv_tpu/core/converters.py``). ResNet's and DINO-DETR's keys are
+the JAX paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
+``encoder.0.self_attn.value_proj``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
   * Conv kernel HWIO        -> Conv2d weight OIHW;
   * ConvTranspose HWIO      -> ConvTranspose2d weight IOHW, spatially
     flipped (flax does not mirror the kernel, torch does);
-  * LayerNorm ``scale``     -> ``weight``;
+  * LayerNorm, GroupNorm and BatchNorm ``scale`` -> ``weight``;
+  * BatchNorm ``batch_stats`` ``mean``/``var`` -> buffers ``running_mean``/
+    ``running_var``;
+  * Embed ``embedding``     -> ``weight``;
   * plain parameters (pos_embed, rel_pos_h/w, embeddings, tokens) as they
     are.
 Both directions raise on a leaf left over: a JAX leaf not consumed, a port
@@ -29,11 +38,26 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.common import Conv2d, ConvTranspose2d, LayerNorm, Linear
+from ..models.common import (Conv2d, ConvTranspose2d, Embed, GroupNorm,
+                             LayerNorm, Linear)
 from ..models.interactive_segmentation.image_encoder import \
     LayerNormChannelsLast
+from ..ops.fused_bn import FusedBatchNorm
 
-__all__ = ["load_jax_params", "export_jax_params", "jax_paths"]
+__all__ = ["load_jax_params", "export_jax_params", "export_jax_batch_stats",
+           "jax_paths", "path_form"]
+
+# JAX leaves of the ``batch_stats`` collection carry this prefix in the
+# flat tables below
+BATCH_STATS = "batch_stats:"
+
+
+def path_form(name: str) -> str:
+    """A port name in the JAX tree's path form, ``_N`` for ``.N``:
+    ``blocks.3.attn.qkv.weight`` -> ``blocks_3/attn/qkv/weight``. The
+    optimizer's per-leaf table reads these names too."""
+    return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", name).replace(".", "/")
+
 
 _RULES = [
     (r"^image_encoder\.pos_embed$", "image_encoder/pos_embed"),
@@ -81,6 +105,13 @@ _RULES = [
     (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
     (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
     (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
+    # ResNet backbones (alone or as DINO-DETR's ``backbone``) and DINO-DETR:
+    # the JAX path itself
+    (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
+     r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
+     r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
+     r"label_encoder|decoder|ref_point_head|decoder_norm|bbox_embed|"
+     r"class_embed)(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 
 
@@ -124,6 +155,12 @@ _LAYER_LEAVES = {
     LayerNorm: [("weight", "scale", None, None), ("bias", "bias", None, None)],
     LayerNormChannelsLast: [("weight", "scale", None, None),
                             ("bias", "bias", None, None)],
+    GroupNorm: [("weight", "scale", None, None), ("bias", "bias", None, None)],
+    FusedBatchNorm: [("weight", "scale", None, None),
+                     ("bias", "bias", None, None),
+                     ("running_mean", BATCH_STATS + "mean", None, None),
+                     ("running_var", BATCH_STATS + "var", None, None)],
+    Embed: [("weight", "embedding", None, None)],
 }
 
 
@@ -137,7 +174,10 @@ def _leaves(model: nn.Module, root: str):
             path = _jax_path(name, root)
             for leaf, jax_leaf, to_port, to_jax in leaves:
                 if getattr(module, leaf, None) is not None:
-                    yield prefix + leaf, f"{path}/{jax_leaf}", to_port, to_jax
+                    collection, _, jax_leaf = jax_leaf.rpartition(":")
+                    full = f"{collection}:" if collection else ""
+                    yield (prefix + leaf, f"{full}{path}/{jax_leaf}", to_port,
+                           to_jax)
             continue
         own = list(module.named_parameters(recurse=False)) + list(
             module.named_buffers(recurse=False))
@@ -146,18 +186,25 @@ def _leaves(model: nn.Module, root: str):
 
 
 def jax_paths(model: nn.Module, root: str = "") -> Dict[str, str]:
-    """state_dict key -> path of the same leaf in the JAX parameter tree."""
+    """state_dict key -> path of the same leaf in the JAX parameter tree
+    (``batch_stats:`` and the path in the ``batch_stats`` tree for a
+    BatchNorm's running statistics)."""
     return {key: path for key, path, _, _ in _leaves(model, root)}
 
 
-def load_jax_params(model: nn.Module, params, root: str = "") -> nn.Module:
-    """Fills ``model`` from the JAX parameter tree ``params``.
+def load_jax_params(model: nn.Module, params, root: str = "",
+                    batch_stats=None) -> nn.Module:
+    """Fills ``model`` from the JAX parameter tree ``params`` and, for a
+    model with BatchNorm, the ``batch_stats`` tree.
 
     ``root`` is the model's own name inside a whole SAM (``""`` for SAM
     itself or a ViT backbone, ``"image_encoder"``, ``"prompt_encoder"`` or
     ``"mask_decoder"`` for a sub-module loaded from that sub-tree).
     """
     flat = _flatten(params)
+    if batch_stats is not None:
+        flat.update({BATCH_STATS + k: v
+                     for k, v in _flatten(batch_stats).items()})
     state = model.state_dict()
     consumed, filled = set(), set()
     for key, path, to_port, _ in _leaves(model, root):
@@ -182,6 +229,26 @@ def load_jax_params(model: nn.Module, params, root: str = "") -> nn.Module:
     return model
 
 
+def export_jax_batch_stats(model: nn.Module):
+    """The JAX ``batch_stats`` tree (nested dicts of numpy arrays) of
+    ``model``'s BatchNorm running statistics."""
+    tree = {}
+    state = model.state_dict()
+    for key, path, _, _ in _leaves(model, ""):
+        if path.startswith(BATCH_STATS):
+            _put(tree, path[len(BATCH_STATS):],
+                 state[key].detach().float().cpu().numpy())
+    return tree
+
+
+def _put(tree, path, arr):
+    node = tree
+    *parents, leaf = path.split("/")
+    for part in parents:
+        node = node.setdefault(part, {})
+    node[leaf] = np.ascontiguousarray(arr)
+
+
 def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
     """The JAX parameter tree (nested dicts of numpy arrays) of ``model``.
 
@@ -191,7 +258,8 @@ def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
     has no tensor or a tensor has no key of ``model``. A buffer (SAM's
     ``positional_encoding_gaussian_matrix``, a parameter in the JAX tree) has
     no gradient and no moment: it is left out of the tree where ``tensors``
-    does not hold it.
+    does not hold it. BatchNorm running statistics belong to the
+    ``batch_stats`` tree (``export_jax_batch_stats``), never to this one.
     """
     buffers = set()
     if tensors is None:
@@ -200,17 +268,15 @@ def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
         buffers = {name for name, _ in model.named_buffers()}
     tree, used = {}, set()
     for key, path, _, to_jax in _leaves(model, root):
+        if path.startswith(BATCH_STATS):
+            used.add(key)
+            continue
         if key not in tensors:
             if key in buffers:
                 continue
             raise KeyError(f"no tensor for port parameter '{key}'")
         arr = tensors[key].detach().float().cpu().numpy()
-        node = tree
-        *parents, leaf = path.split("/")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(arr if to_jax is None
-                                          else to_jax(arr))
+        _put(tree, path, arr if to_jax is None else to_jax(arr))
         used.add(key)
     extra = sorted(set(tensors) - used)
     if extra:

@@ -11,18 +11,28 @@ casts. Activations keep the JAX package's NHWC layout.
 Parameters are created empty; ``init_params`` fills them from an explicit
 ``torch.Generator``, and ``core.weights.load_jax_params`` or
 ``load_state_dict`` supply trained ones.
+
+``checkpoint`` recomputes a layer in the backward; BatchNorm layers inside
+it (``ConvBnAct``) leave their running statistics alone during the
+recomputation, which flax's ``nn.remat`` never runs twice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
-__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm", "DropPath",
-           "dropout", "resolve_device", "init_params"]
+from ..ops.fused_bn import FusedBatchNorm
+
+__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm", "GroupNorm",
+           "Embed", "ConvBnAct", "max_pool_same", "DropPath", "dropout",
+           "checkpoint", "resolve_device", "init_params"]
 
 
 def resolve_device(device) -> torch.device:
@@ -36,24 +46,36 @@ def resolve_device(device) -> torch.device:
 
 
 class Linear(nn.Module):
-    """flax ``nn.Dense(dtype=...)``: x @ W.T + b computed in ``dtype``."""
+    """flax ``nn.Dense(dtype=...)``: x @ W.T + b computed in ``dtype``.
+
+    Initialisers: lecun normal (flax's default), a truncated normal
+    (``init_std``) or zeros (``zero_weight``); the bias is zero unless
+    ``bias_fill`` (a number or a tensor of the bias's shape) is given."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 init_std: float | None = None):
+                 init_std: float | None = None, zero_weight: bool = False,
+                 bias_fill=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.dtype = dtype
         self.init_std = init_std  # truncated normal instead of lecun normal
+        self.zero_weight = zero_weight
+        self.bias_fill = bias_fill
 
     def reset_parameters(self, generator):
-        if self.init_std is None:
+        if self.zero_weight:
+            nn.init.zeros_(self.weight)
+        elif self.init_std is None:
             _lecun_normal(self.weight, self.weight.shape[1], generator)
         else:
             truncated_normal_(self.weight, self.init_std, generator)
         if self.bias is not None:
-            nn.init.zeros_(self.bias)
+            with torch.no_grad():
+                self.bias.copy_(torch.as_tensor(
+                    0.0 if self.bias_fill is None else self.bias_fill,
+                    dtype=self.bias.dtype).expand_as(self.bias))
 
     def forward(self, x):
         dt = self.dtype
@@ -127,6 +149,102 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
                             self.bias, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon=1e-5)`` on an NHWC tensor, in
+    f32: ``weight`` and ``bias`` are flax's ``scale`` and ``bias``."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                         self.weight, self.bias, self.eps)
+        return y.permute(0, 2, 3, 1)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: rows of ``weight`` (flax's ``embedding``)."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape,
+                                          generator=generator)
+                              / math.sqrt(self.weight.shape[1]))
+
+    def forward(self, ids):
+        return self.weight[ids]
+
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def recomputing() -> bool:
+    """True while ``checkpoint`` recomputes a layer in the backward."""
+    return getattr(_recompute, "active", False)
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``); ``recomputing()`` is True
+    during the recomputation."""
+    return torch_checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
+class ConvBnAct(nn.Module):
+    """conv -> BatchNorm -> ReLU on NHWC tensors (flax ``ConvBnAct``,
+    ``simpleaicv_tpu/models/common.py:97-146``): the convolution in
+    ``dtype`` from f32 parameters, without a bias when there is a BatchNorm;
+    the BatchNorm's statistics in f32 (``ops.fused_bn``); the output in
+    ``dtype``. Padding ``(k - 1) // 2``."""
+
+    def __init__(self, in_planes: int, planes: int, kernel_size: int = 3,
+                 stride: int = 1, has_bn: bool = True, has_act: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = Conv2d(in_planes, planes, kernel_size, stride,
+                           (kernel_size - 1) // 2, bias=not has_bn,
+                           dtype=dtype)
+        self.bn = FusedBatchNorm(planes) if has_bn else None
+        self.has_act, self.dtype = has_act, dtype
+
+    def forward(self, x, train: bool = False):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x, train, update_stats=not recomputing())
+            x = x.to(self.dtype)
+        return F.relu(x) if self.has_act else x
+
+
+def max_pool_same(x, window: int, stride: int):
+    """flax ``max_pool`` with ``(window - 1) // 2`` padding on each side
+    (padding never wins) on an NHWC tensor."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride,
+                     (window - 1) // 2)
+    return y.permute(0, 2, 3, 1)
 
 
 def dropout(x, prob: float, training: bool, generator=None):

@@ -1,6 +1,6 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-f32 compute on the JAX side, seeded numpy parameters for both sides, and
-the tiny SAM configuration."""
+f32 compute on the JAX side, seeded numpy parameters and BatchNorm
+statistics for both sides, and the tiny SAM and DINO-DETR configurations."""
 
 from __future__ import annotations
 
@@ -17,6 +17,12 @@ TINY_SAM = dict(image_encoder_embedding_planes=64, image_encoder_block_nums=2,
                 image_encoder_head_nums=2, image_encoder_window_size=5,
                 image_encoder_global_attn_indexes=(1,),
                 prompt_encoder_embedding_planes=64)
+
+# resnet18_dinodetr at 128^2 (levels 32^2 to 2^2), 1 encoder and 2 decoder
+# layers, hidden 64, 20 queries and 12 denoising slots
+TINY_DINO = dict(num_classes=8, query_nums=20, encoder_layer_nums=1,
+                 decoder_layer_nums=2, hidden_inplanes=64,
+                 feedforward_planes=128, dn_number=6)
 
 
 @contextlib.contextmanager
@@ -57,6 +63,26 @@ def random_params(tree, seed: int):
             else:
                 arr = 0.1 * rng.randn(*shape)
             out[key] = arr.astype(np.float32)
+        return out
+
+    return draw(tree)
+
+
+def random_batch_stats(tree, seed: int):
+    """A numpy copy of a flax ``batch_stats`` tree: running means near 0
+    and running variances in [0.5, 1.5], from a seeded generator."""
+    rng = np.random.RandomState(seed)
+
+    def draw(node):
+        out = {}
+        for key in sorted(node):
+            val = node[key]
+            if hasattr(val, "items"):
+                out[key] = draw(val)
+            elif key == "var":
+                out[key] = (0.5 + rng.rand(*val.shape)).astype(np.float32)
+            else:
+                out[key] = (0.1 * rng.randn(*val.shape)).astype(np.float32)
         return out
 
     return draw(tree)

@@ -16,6 +16,7 @@ from simpleaicv_tpu_torch.ops.flash_attention import (
     flash_attention_reference, flash_attention_relpos,
     flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
+from simpleaicv_tpu_torch.ops import msda
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +159,93 @@ def test_relpos_gradients_survive_checkpointing_on_card():
     assert KERNEL_LAUNCHES["flash_attention_relpos_fwd"] == before + 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# (B, Lq, H, D, levels, P, location range): DINO-DETR's decoder launch at a
+# small batch, D 8 and 48 (a second channel per lane), five levels with a
+# 16x16 tail, locations off the map
+MSDA_SHAPES = [
+    (2, 1100, 8, 32, ((64, 64), (32, 32), (16, 16), (8, 8), (4, 4)), 4,
+     (0.0, 1.0)),
+    (2, 50, 4, 8, ((8, 8), (4, 4)), 3, (-0.1, 1.1)),
+    (1, 77, 8, 48, ((32, 32), (16, 16), (8, 8), (4, 4), (16, 16)), 4,
+     (-0.2, 1.2)),
+]
+
+
+def _msda_inputs(rng, b, lq, h, d, shapes, p, lo, hi):
+    s = sum(hh * ww for hh, ww in shapes)
+    value = _randn(rng, b, s, h, d).cuda()
+    loc = torch.from_numpy(rng.uniform(lo, hi, (b, lq, h, len(shapes), p, 2))
+                           .astype(np.float32)).cuda()
+    wts = torch.from_numpy(rng.rand(b, lq, h, len(shapes), p)
+                           .astype(np.float32)).cuda()
+    return value, loc, wts
+
+
+def _assert_rel(got, want, tol, what):
+    """max |got - want| within ``tol`` of want's largest value: the location
+    gradients carry factors of w_l and h_l, and grad_value's atomic adds
+    come in another order on every run."""
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1e-30)
+    assert err <= tol * scale, f"{what}: {err} of {scale}"
+
+
+def test_msda_kernels_match_plain_versions_on_card():
+    """K7 and K7b through autograd against the plain version and its
+    autograd on the same inputs: output, value, location and weight
+    gradients within 1e-5 of each tensor's largest value."""
+    for i, (b, lq, h, d, shapes, p, (lo, hi)) in enumerate(MSDA_SHAPES):
+        rng = np.random.RandomState(i)
+        leaves = [t.requires_grad_() for t in _msda_inputs(
+            rng, b, lq, h, d, shapes, p, lo, hi)]
+        g_out = _randn(rng, b, lq, h * d).cuda()
+        before = dict(msda.KERNEL_LAUNCHES)
+        out = msda.ms_deform_attn(leaves[0], shapes, *leaves[1:])
+        grads = torch.autograd.grad(out, leaves, g_out)
+        assert msda.KERNEL_LAUNCHES == {k: v + 1 for k, v in before.items()}
+        want = msda.ms_deform_attn_reference(leaves[0], shapes, *leaves[1:])
+        want_grads = msda.ms_deform_attn_backward_reference(
+            *(t.detach() for t in leaves[:1]), shapes,
+            *(t.detach() for t in leaves[1:]), g_out)
+        _assert_rel(out.detach(), want.detach(), 1e-5, f"out {i}")
+        for name, g, w in zip(("value", "loc", "weights"), grads,
+                              want_grads):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            _assert_rel(g, w, 1e-5, f"grad {name} {i}")
+
+
+def test_msda_gradients_survive_checkpointing_on_card():
+    """Under ``torch.utils.checkpoint`` K7 runs twice; the location and
+    weight gradients equal those without it, and the value gradient, summed
+    by atomic adds in no fixed order, agrees to rounding."""
+    from torch.utils.checkpoint import checkpoint
+    shapes = ((16, 16), (8, 8))
+    rng = np.random.RandomState(7)
+    leaves = [t.requires_grad_() for t in _msda_inputs(
+        rng, 2, 40, 8, 32, shapes, 4, 0.0, 1.0)]
+    want = torch.autograd.grad(
+        msda.ms_deform_attn(leaves[0], shapes, *leaves[1:]).square().sum(),
+        leaves)
+    before = dict(msda.KERNEL_LAUNCHES)
+    out = checkpoint(lambda *a: msda.ms_deform_attn(a[0], shapes, *a[1:]),
+                     *leaves, use_reentrant=False)
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    assert msda.KERNEL_LAUNCHES == {"msda_fwd": before["msda_fwd"] + 2,
+                                    "msda_bwd": before["msda_bwd"] + 1}
+    _assert_rel(got[0], want[0], 1e-6, "grad value")
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+def test_msda_launch_raises_for_wide_heads_on_card():
+    """D > 64 has no kernel: the wrapper raises, and launches nothing."""
+    shapes = ((4, 4),)
+    value = torch.zeros(1, 16, 1, 65, device="cuda")
+    loc = torch.zeros(1, 2, 1, 1, 1, 2, device="cuda")
+    wts = torch.zeros(1, 2, 1, 1, 1, device="cuda")
+    before = dict(msda.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="D <= 64"):
+        msda.ms_deform_attn(value, shapes, loc, wts)
+    assert msda.KERNEL_LAUNCHES == before

@@ -202,4 +202,6 @@ def test_registered_variant_has_the_jax_parameter_count(name):
              for k, sub in tree.items()}
     block = count.pop("blocks_0")
     assert got == sum(count.values()) + block * jm.block_nums
-    assert sorted(BACKBONES.names()) == sorted(VARIANTS)
+    # the registry also holds the ResNets; its ViTs are these
+    assert sorted(n for n in BACKBONES.names()
+                  if not n.startswith("resnet")) == sorted(VARIANTS)
