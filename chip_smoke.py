@@ -76,29 +76,12 @@ from simpleaicv_tpu_torch.models.detection import dinodetr
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
+from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
+from simpleaicv_tpu_torch.perf.timing import bound as _bound
+from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
-
-# H100 SXM dense peaks (NVIDIA data sheet) at the full 700 W power limit.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def _cuda_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` launches after a warm-up."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -278,14 +261,6 @@ def _reading(kernel):
         "library_ms")}
 
 
-def _bound(flops, nbytes, dtype):
-    """(bound_ms, bound_by): the larger of the operations over the card's
-    peak rate for their type and the bytes over its memory rate."""
-    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
-
-
 def _flash_inputs(b, h, n, d, dtype, seed):
     """q, k, v as ViT hands them over ([B, H, N, d] views of one fused
     [B, N, 3, H, d] projection) and dO as autograd hands it back (a
@@ -425,7 +400,7 @@ def phase_flash_kernels(card):
 def phase_kernels(card):
     t0 = time.perf_counter()
     logs = _build.build(["flash_relpos_fwd", "flash_relpos_bwd", "flash_fwd",
-                         "flash_bwd", "msda"])
+                         "flash_bwd", "msda", "probes"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -535,7 +510,8 @@ def _serve(pred, kind, image, prompt):
 
 
 def _reset_launches():
-    for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES):
+    for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES,
+                   matmul_probe.KERNEL_LAUNCHES, bw_probe.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1730,6 +1706,460 @@ def phase_dino_training(card, warm_up=3, timed=10):
     return launches
 
 
+PROBE_KERNELS = ("probe_mm", "probe_mm_stats", "probe_scale")
+# the probes' ragged case: 1000 rows, no multiple of the 128-row tile
+PROBE_RAGGED = (1000, 64, 256)
+
+
+def _probe_check(m, k, n):
+    """P1 and P2 against their plain versions on the same inputs: (max
+    |y - plain y| of P1, of P2's y and sums). Raises unless each bf16 output
+    lies within one bf16 spacing of the plain version's f32 product at its
+    magnitude (plus K * 2^-24 * sum |x w|, the f32 sum's rounding in another
+    order) and each sum within 1e-5 of the largest sum."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m)
+    want = x.float() @ w.float()  # the plain versions' f32 product
+    y_plain, s1_plain, s2_plain = matmul_probe.mm_stats_plain(x, w)
+    y = matmul_probe.probe_mm(x, w)
+    y2, s1, s2 = matmul_probe.probe_mm(x, w, stats=True)
+    torch.cuda.synchronize()
+    # one bf16 spacing at each element's magnitude, plus the f32 sum's own
+    # rounding in another order where the terms cancel
+    spacing = (torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
+               + k * 2.0**-24 * (x.float().abs() @ w.float().abs()))
+    in_spacing = all(bool(((t.float() - want).abs() <= spacing).all())
+                     for t in (y, y2))
+    sum_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in ((s1, s1_plain), (s2, s2_plain)))
+    err_p1 = (y.float() - y_plain.float()).abs().max().item()
+    err_p2 = max((y2.float() - y_plain.float()).abs().max().item(),
+                 (s1 - s1_plain).abs().max().item(),
+                 (s2 - s2_plain).abs().max().item())
+    print(f"probe check M={m} K={k} N={n}: P1 max|y-plain|={err_p1:.3e}, "
+          f"P2 max|y,sums-plain|={err_p2:.3e}, sums within {sum_rel:.3e} "
+          f"of their largest value (1e-5), outputs within one bf16 spacing "
+          f"of the f32 product: {in_spacing}", flush=True)
+    if not (in_spacing and sum_rel <= 1e-5):
+        raise RuntimeError(f"P1/P2 disagree with their plain versions at "
+                           f"M={m} K={k} N={n}")
+    return err_p1, err_p2
+
+
+def _probe_entry(name, replaces, reading, err):
+    entry = {"name": name, "route": "cuda",
+             "source": "simpleaicv_tpu_torch/ops/csrc/probes.cu",
+             "replaces": replaces, "launches": None, "max_abs_err": err}
+    entry.update({key: reading[key] for key in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return entry
+
+
+def phase_probes(card):
+    """The roofline probes P1-P3: checked against their plain versions at
+    ResNet-50's layer-1 and layer-2 shapes and a ragged M (launches not
+    counted), then the probe runs (``matmul_probe.case``, ``bw_probe.case``:
+    the kernel, its plain version, the library calls), whose launches are
+    the path's. Returns (kernel entries, launches)."""
+    errs = {}
+    for layer, (m, k, n, _) in matmul_probe.LAYERS.items():
+        errs[layer] = _probe_check(m, k, n)
+    _probe_check(*PROBE_RAGGED)
+    x = torch.randn(bw_probe.SHAPE, device="cuda").to(torch.bfloat16)
+    o = bw_probe.probe_scale(x)
+    p3_err = (o.float() - bw_probe.scale_plain(x).float()).abs().max().item()
+    print(f"probe check P3 {tuple(x.shape)}: max|o-plain|={p3_err:.3e} "
+          f"(exact required)", flush=True)
+    if p3_err != 0.0 or not torch.equal(o, x):
+        raise RuntimeError("P3 disagrees with its plain version")
+    del x, o
+
+    # the path: the probe runs, counted
+    _reset_launches()
+    readings = {(layer, stats): matmul_probe.case(layer, stats)
+                for layer in matmul_probe.LAYERS for stats in (False, True)}
+    p3 = bw_probe.case()
+    launches = {**matmul_probe.KERNEL_LAUNCHES, **bw_probe.KERNEL_LAUNCHES}
+    for (layer, stats), r in readings.items():
+        print(f"{'P2' if stats else 'P1'} {layer} {r['shape']} [{card}]: "
+              f"kernel {r['ms']:.4f} ms ({r['gbytes_per_s']:.1f} GB/s of "
+              f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, "
+              f"{r['library']} {r['library_ms']:.4f} ms"
+              + (f", 1x1 conv2d channels-last {r['conv_ms']:.4f} ms"
+                 if not stats else f", torch.matmul alone "
+                 f"{r['matmul_ms']:.4f} ms")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
+    print(f"P3 {p3['shape']} [{card}]: kernel {p3['ms']:.4f} ms "
+          f"({p3['gbytes_per_s']:.1f} GB/s of {p3['bytes'] / 1e6:.1f} MB), "
+          f"plain {p3['plain_ms']:.4f} ms, {p3['library']} "
+          f"{p3['library_ms']:.4f} ms, bound {p3['bound_ms']:.4f} ms "
+          f"({p3['bound_by']}); launches {launches}", flush=True)
+    source = "perf/pallas_matmul_probe.py"
+    kernels = []
+    for name, stats, line in (("probe_mm", False, 24),
+                              ("probe_mm_stats", True, 30)):
+        entry = _probe_entry(name, f"{source}:{line}",
+                             readings[("layer1", stats)],
+                             errs["layer1"][int(stats)])
+        other = _probe_entry(name, "", readings[("layer2", stats)],
+                             errs["layer2"][int(stats)])
+        entry["other_shapes"] = [_reading(other)]
+        kernels.append(entry)
+    kernels.append(_probe_entry("probe_scale", "perf/pallas_bw_probe.py:21",
+                                p3, p3_err))
+    return kernels, launches
+
+
+RESNET_BATCH = 128
+# bench.py's step: SGD 0.1 / 0.9 / 1e-4, CosineLR over 100 epochs of 1000
+# steps, no skipping of non-finite steps
+RESNET_OPT = OptimizerConfig(name="SGD", lr=0.1, momentum=0.9,
+                             weight_decay=1e-4)
+RESNET_SCHED = SchedulerConfig("CosineLR", lr=0.1, epochs=100)
+RESNET_CFG = EngineConfig(skip_non_finite=False)
+
+
+def _resnet50(dtype=torch.bfloat16, seed=0):
+    model = BACKBONES.create("resnet50", num_classes=1000, dtype=dtype)
+    return init_params(model, torch.Generator().manual_seed(seed))
+
+
+def _resnet_state(model, device="cuda"):
+    optimizer, _ = build_optimizer(RESNET_OPT, RESNET_SCHED, 1000, model,
+                                   device=device)
+    return create_train_state(model, optimizer, RESNET_CFG, device=device)
+
+
+def _row_group(key):
+    """The kind of a profiled device row of the ResNet-50 step."""
+    k = key.lower()
+    if "multi_tensor" in k or "foreach" in k:
+        return "optimizer (multi-tensor)"
+    if any(s in k for s in ("conv", "cudnn", "xmma", "implicit", "wgrad",
+                            "dgrad", "fprop", "gemm", "cutlass", "nchw",
+                            "nhwc")):
+        return "convolutions and GEMMs"
+    if "reduce" in k:
+        return "reductions (BatchNorm statistics, gradient sums)"
+    if "elementwise" in k or "vectorized" in k:
+        return "elementwise passes"
+    return "other"
+
+
+def phase_resnet50_training(card, p2_layer1_ms, warm_up=3, timed=10):
+    """bench.py's ResNet-50 step on the card; returns (hand-kernel launches
+    of the timed run, images per second)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    t0 = time.perf_counter()
+    model = _resnet50()
+    state = _resnet_state(model)
+    if state.device.type != "cuda":
+        raise RuntimeError("the engine did not take the model to the card")
+    step = make_train_step(make_loss_fn(LOSSES.create("CELoss")), RESNET_CFG)
+    print(f"resnet50 224^2 bf16 ({sum(p.numel() for p in model.parameters())}"
+          f" parameters) and its SGD state built on {state.device} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.randn(RESNET_BATCH, 224, 224, 3, generator=g,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, 1000, (RESNET_BATCH,), generator=g,
+                                    device="cuda")}
+
+    # the main path: warm-up and timed steps through the engine
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm_up + timed):
+        if i == warm_up:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch, seed=0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = {**matmul_probe.KERNEL_LAUNCHES, **bw_probe.KERNEL_LAUNCHES,
+                **fa.KERNEL_LAUNCHES, **msda.KERNEL_LAUNCHES}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v.item() for v in losses]
+    steps = warm_up + timed
+    print(f"trained {steps} steps; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; hand-kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} } (none expected: "
+          f"cuDNN convolutions and plain-PyTorch BatchNorm)", flush=True)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss: {losses}")
+    if state.step != steps or state.optimizer.step_count != steps:
+        raise RuntimeError("step counters disagree with the steps taken")
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch, seed=0)
+    flops = counter.get_total_flops()
+    print(f"ResNet-50 224^2 bf16 training, batch {RESNET_BATCH} [{card}]: "
+          f"{RESNET_BATCH / step_ms * 1e3:.1f} images/s, {step_ms:.2f} ms per "
+          f"step over {timed} steps, peak memory {peak_gib:.2f} GiB; "
+          f"{flops / 1e12:.3f} TFLOP per step (flop counter: convolutions "
+          f"and the fc), {flops / step_ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / step_ms / 1e9 / 989:.3f} of the bf16 peak", flush=True)
+
+    # one more step under the profiler: device time by kernel and by kind,
+    # and the idle share of an unprofiled step
+    busy_ms, events = _profile_device(lambda: step(state, batch, seed=0))
+    if busy_ms > 0:
+        print(f"profiled ResNet-50 step [{card}]: device busy {busy_ms:.2f} "
+              f"ms of a {step_ms:.2f} ms step, idle share "
+              f"{1 - busy_ms / step_ms:.3f}", flush=True)
+        groups = {}
+        for e in events:
+            kind = _row_group(e.key)
+            ms, n = groups.get(kind, (0.0, 0))
+            groups[kind] = (ms + e.self_device_time_total / 1e3,
+                            n + e.count)
+        for kind, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {kind}: {ms:.3f} ms, {100 * ms / busy_ms:.1f}%, "
+                  f"{n} launches")
+        _print_rows(events, busy_ms, 20)
+        print(f"  beside them: P2 (layer 1's 1x1 convolution as a matmul "
+              f"with BatchNorm's column statistics in its epilogue, "
+              f"[401408, 64] x [64, 256]) {p2_layer1_ms:.4f} ms", flush=True)
+    else:
+        print("profiled ResNet-50 step: no device time recorded (not "
+              "measured)")
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    _resnet_f32_vs_cpu()
+    return launches, RESNET_BATCH / step_ms * 1e3
+
+
+def _update_and_loss(device, model, batch):
+    """One engine step of ``model`` on ``device``: (loss, each parameter's
+    update as f64 on the CPU)."""
+    state = _resnet_state(model, device)
+    step = make_train_step(make_loss_fn(LOSSES.create("CELoss")), RESNET_CFG)
+    before = [p.detach().clone() for p in state.optimizer.params]
+    batch = {k: v.to(device) for k, v in batch.items()}
+    state, metrics = step(state, batch, seed=0)
+    return metrics["loss"].item(), [
+        (p.detach() - b).double().cpu()
+        for p, b in zip(state.optimizer.params, before)]
+
+
+def _resnet_f32_vs_cpu(batch_size=8):
+    """One f32 engine step at batch 8 on the card (TF32 off) against the
+    same step on the CPU, from the same weights and batch."""
+    t0 = time.perf_counter()
+    cpu_model = _resnet50(torch.float32, seed=1)
+    card_model = _resnet50(torch.float32, seed=1)
+    card_model.load_state_dict(cpu_model.state_dict())
+    g = torch.Generator().manual_seed(2)
+    batch = {"image": torch.randn(batch_size, 224, 224, 3, generator=g),
+             "label": torch.randint(0, 1000, (batch_size,), generator=g)}
+    loss_c, upd_c = _update_and_loss("cuda", card_model, batch)
+    # the CPU side on PyTorch's native convolutions: oneDNN's f32
+    # convolution backward parts from an f64 reference by up to 8% of a
+    # ResNet weight gradient's largest value at small spatial sizes
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss_h, upd_h = _update_and_loss("cpu", cpu_model, batch)
+    flat_c, flat_h = torch.cat([u.flatten() for u in upd_c]), torch.cat(
+        [u.flatten() for u in upd_h])
+    rel = ((flat_c - flat_h).norm() / flat_h.norm()).item()
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.flatten(), b.flatten(), dim=0).item() for a, b in zip(upd_c, upd_h))
+    print(f"ResNet-50 f32 step, batch {batch_size}, card (TF32 off) vs CPU "
+          f"({time.perf_counter() - t0:.1f} s): loss {loss_c:.6f} vs "
+          f"{loss_h:.6f}, update relative L2 difference {rel:.3e} of a norm "
+          f"of {flat_h.norm().item():.5f}, least per-parameter cosine "
+          f"{cos:.6f}", flush=True)
+    # the two sum in other orders, and a ReLU whose input lies within f32
+    # rounding of 0 passes its gradient on one side only; train-mode
+    # BatchNorm at batch 8 spreads each such switch over its channel, and 53
+    # layers add them up. Bounds against scale: the loss within 1e-4 of
+    # itself, the update within 5% in L2 (2.4% measured on an H100 80GB
+    # HBM3 at 700 W) and every parameter's update at a cosine above 0.999
+    if not (abs(loss_c - loss_h) <= 1e-4 * abs(loss_h) and rel <= 5e-2
+            and cos >= 0.999):
+        raise RuntimeError("the f32 step on the card disagrees with the CPU")
+
+
+# The scratch experiment's configs. Like the repository's own configs they
+# import the JAX package's names (``{pkg}`` is filled with
+# "simpleaicv_tpu"); the port's ``load_config`` resolves them to
+# ``simpleaicv_tpu_torch``, so this script imports nothing of the JAX
+# package.
+CLI_TRAIN_CONFIG = '''"""ResNet-50 on ImageNet as
+experiments/0.classification_training/imagenet/resnet50/train_config.py
+states it (resnet50, 1000 classes, 224^2, CELoss, SGD 0.1 / 0.9 / 1e-4,
+CosineLR with 5 warm-up epochs, no EMA), cut to: batch 128 (not 256);
+synthetic data, FakeClassificationDataset of 1280 256^2 images under the
+recipe's train transforms and 256 under its test transforms (no ImageNet
+here); {epochs} epochs (not 100)."""
+
+from {pkg}.core.registry import BACKBONES, LOSSES
+from {pkg}.data.datasets import FakeClassificationDataset
+from {pkg}.data.transforms import (Compose, RandomResizedCrop,
+                                   RandomHorizontalFlip, Resize, CenterCrop,
+                                   Normalize)
+from {pkg}.data.collater import ClassificationCollater
+
+
+class config:
+    network = "resnet50"
+    num_classes = 1000
+    input_image_size = 224
+
+    model = BACKBONES.create(network, num_classes=num_classes)
+    trained_model_path = ""
+
+    train_criterion = LOSSES.create("CELoss")
+    test_criterion = LOSSES.create("CELoss")
+
+    train_dataset = FakeClassificationDataset(
+        num_samples=1280, image_hw=256, num_classes=num_classes,
+        transform=Compose([
+            RandomResizedCrop(resize=input_image_size),
+            RandomHorizontalFlip(prob=0.5),
+            Normalize(),
+        ]))
+    test_dataset = FakeClassificationDataset(
+        num_samples=256, image_hw=256, num_classes=num_classes,
+        transform=Compose([
+            Resize(resize=256),
+            CenterCrop(resize=input_image_size),
+            Normalize(),
+        ]))
+    train_collater = ClassificationCollater()
+    test_collater = ClassificationCollater()
+
+    seed = 0
+    batch_size = 128
+    num_workers = 8
+    accumulation_steps = 1
+
+    optimizer = ("SGD", {{"lr": 0.1, "momentum": 0.9,
+                         "global_weight_decay": False, "weight_decay": 1e-4,
+                         "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 5}})
+
+    epochs = {epochs}
+    print_interval = 5
+
+    use_ema_model = False
+    ema_model_decay = 0.9999
+'''
+
+CLI_TEST_CONFIG = '''import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from train_config import config as _train  # noqa: E402
+
+
+class config:
+    network = _train.network
+    input_image_size = _train.input_image_size
+    model = _train.model
+    trained_model_path = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "checkpoints", "best")
+    test_dataset = _train.test_dataset
+    test_collater = _train.test_collater
+    seed = _train.seed
+    batch_size = _train.batch_size
+    num_workers = _train.num_workers
+'''
+
+CLI_PHASE_LIMIT_S = 600
+
+
+def _run_cli(tool, work_dir, deadline):
+    """Runs ``python -m simpleaicv_tpu_torch.tools.<tool>`` on ``work_dir``
+    from this checkout; returns its log (stderr) and raises on failure."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"simpleaicv_tpu_torch.tools.{tool}",
+         "--work-dir", work_dir], cwd=root, env=env, capture_output=True,
+        text=True, timeout=max(deadline - time.perf_counter(), 1.0))
+    log = proc.stderr
+    lines = [ln for ln in log.splitlines()
+             if " - param " not in ln and not ln.startswith("  ")]
+    print(f"{tool} ({time.perf_counter() - t0:.1f} s, exit "
+          f"{proc.returncode}):", flush=True)
+    for ln in lines[-14:]:
+        print(f"  {ln[:160]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tool} exited {proc.returncode}:\n{log[-4000:]}"
+                           f"\n{proc.stdout[-2000:]}")
+    return log
+
+
+def _logged_rates(log, epoch):
+    import re
+    return [float(m.group(1)) for m in re.finditer(
+        rf"epoch {epoch} iter \d+/\d+ .* imgs/s ([0-9.]+)", log)]
+
+
+def phase_cli(card, resident_ips):
+    """The train and test CLIs on a scratch experiment directory: train 2
+    epochs, resume to a third, evaluate the best checkpoint."""
+    import glob
+    import os
+    import re
+    import tempfile
+    torch.cuda.empty_cache()
+    deadline = time.perf_counter() + CLI_PHASE_LIMIT_S
+    print("CLI experiment: the imagenet/resnet50 recipe cut to batch 128, "
+          "FakeClassificationDataset 1280 train / 256 test samples of 256^2 "
+          "under the recipe's transforms, 2 epochs then 3", flush=True)
+    with tempfile.TemporaryDirectory() as work_dir:
+        def write(name, text):
+            with open(os.path.join(work_dir, name), "w") as f:
+                f.write(text)
+
+        write("train_config.py", CLI_TRAIN_CONFIG.format(
+            epochs=2, pkg="simpleaicv_tpu"))
+        write("test_config.py", CLI_TEST_CONFIG)
+        first = _run_cli("train_classification", work_dir, deadline)
+        ckpt = os.path.join(work_dir, "checkpoints")
+        named = glob.glob(os.path.join(ckpt, "resnet50-metric*"))
+        for path in (os.path.join(ckpt, "latest"),
+                     os.path.join(ckpt, "best")):
+            if not os.path.exists(path):
+                raise RuntimeError(f"the train CLI wrote no {path}")
+        if not named:
+            raise RuntimeError("the train CLI wrote no resnet50-metric* link")
+        if "epoch 2 done" not in first or "resumed" in first:
+            raise RuntimeError("the first run did not train epochs 1 and 2")
+
+        write("train_config.py", CLI_TRAIN_CONFIG.format(
+            epochs=3, pkg="simpleaicv_tpu"))
+        second = _run_cli("train_classification", work_dir, deadline)
+        if ("resumed from epoch 2" not in second
+                or "epoch 3 done" not in second
+                or re.search(r"epoch [12] iter", second)):
+            raise RuntimeError("the second run did not resume after epoch 2 "
+                               "and train epoch 3 alone")
+        test = _run_cli("test_classification", work_dir, deadline)
+        m = re.search(r"top1: ([0-9.]+)% top5: ([0-9.]+)%", test)
+        macs = re.search(r"macs: (\S+), params: (\S+)", test)
+        if m is None or macs is None:
+            raise RuntimeError("the test CLI logged no accuracy or MACs")
+        print(f"test CLI on checkpoints/best [{card}]: top1 {m.group(1)}%, "
+              f"top5 {m.group(2)}%, MACs {macs.group(1)}, parameters "
+              f"{macs.group(2)}", flush=True)
+    rates = {e: _logged_rates(first if e < 3 else second, e)
+             for e in (1, 2, 3)}
+    print(f"train CLI logged images/s [{card}] (cumulative over each epoch "
+          f"at iterations 5 and 10): epoch 1 {rates[1]}, epoch 2 "
+          f"{rates[2]}, epoch 3 (resumed) {rates[3]}; the resident-batch "
+          f"step {resident_ips:.1f} images/s: the gap is the host loader's "
+          f"and the copies' share", flush=True)
+    if not all(rates.values()):
+        raise RuntimeError("the train CLI logged no rate for an epoch")
+
+
 def main():
     card = phase_device()
     kernels = phase_kernels(card)
@@ -1738,11 +2168,20 @@ def main():
     sam = phase_sam_training(card)
     kernels += phase_msda_kernels(card)
     dino = phase_dino_training(card)
+    probes, probe_launches = phase_probes(card)
+    kernels += probes
+    resnet, resident_ips = phase_resnet50_training(
+        card, next(k["ms"] for k in probes if k["name"] == "probe_mm_stats"))
+    phase_cli(card, resident_ips)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
-    # refinement prediction), so its ``launches`` is their sum
+    # refinement prediction), so its ``launches`` is their sum. The ResNet-50
+    # step launches no hand kernel (cuDNN convolutions, plain-PyTorch
+    # BatchNorm); its counts are read all the same, and the CLIs, which run
+    # the same model in their own processes, are checked by their output.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
-             "dino_train": dino}
+             "dino_train": dino, "roofline_probes": probe_launches,
+             "resnet50_train": resnet}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -172,6 +172,35 @@ class Optimizer:
                         for key, tensors in self.moments.items()}
         return self
 
+    def state_dict(self):
+        """The moments (keyed by kind, then parameter name) and the step
+        count; the hyperparameters come from the config."""
+        return {"step_count": self.step_count,
+                "moments": {key: dict(zip(self.names, tensors))
+                            for key, tensors in self.moments.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copies moments and the step count saved by ``state_dict`` into
+        this optimizer, in place, on the moments' own device; raises
+        unless they are this optimizer's kinds, names and shapes."""
+        moments = state["moments"]
+        if set(moments) != set(self.moments):
+            raise ValueError(f"saved moments {sorted(moments)}, this "
+                             f"optimizer has {sorted(self.moments)}")
+        for key, tensors in self.moments.items():
+            saved = moments[key]
+            if list(saved) != self.names:
+                raise ValueError(f"saved {key} moments are for other "
+                                 f"parameters")
+            for name, t in zip(self.names, tensors):
+                if saved[name].shape != t.shape:
+                    raise ValueError(f"{key}[{name}]: saved shape "
+                                     f"{tuple(saved[name].shape)}, here "
+                                     f"{tuple(t.shape)}")
+                t.copy_(saved[name])
+        self.step_count = int(state["step_count"])
+
     def leaf_lrs(self, step: Optional[int] = None):
         """Each parameter's lr at ``step`` (default: the next update's): the
         schedule applied to that leaf's own initial lr."""

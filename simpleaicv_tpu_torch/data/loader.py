@@ -1,0 +1,200 @@
+"""Host input pipeline (counterpart of ``simpleaicv_tpu/data/loader.py``).
+
+Each epoch reshuffles with ``np.random.RandomState(seed + epoch)`` and hands
+process ``rank`` of ``world`` (torch.distributed's, or 0 of 1) its
+contiguous share of the order, as ``DistributedSampler`` does. Within a
+process, workers build the batches ahead of the consumer:
+
+* ``worker_mode="thread"`` (the default): a thread pool with a bounded
+  window of per-sample futures and a bounded queue of collated batches,
+  right where the per-sample work releases the GIL (numpy, the torch
+  resize);
+* ``worker_mode="process"``: a pool of worker processes, one collated batch
+  per task, right for GIL-bound Python augmentation. The workers are
+  started with ``spawn`` (the caller may hold CUDA and threads, which a
+  forked child must not inherit): the dataset and the collater are pickled
+  to each worker, which imports the port afresh. A transform's generator
+  is copied with them, so every worker draws the same sequence from it, as
+  the JAX package's forked workers do from the global state.
+
+Batches come out in the same order in both modes, and a dataset or collater
+exception is raised in the consumer. The producer never blocks on a full
+queue once the consumer has stopped, so neither side can hang.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator
+
+import numpy as np
+
+from ..core.platform import process_count, process_index
+
+__all__ = ["DataLoader"]
+
+# a worker process's dataset and collater, set by its initializer
+_WORKER_DS = None
+_WORKER_COLLATE = None
+
+
+def _proc_init(ds, collate):
+    global _WORKER_DS, _WORKER_COLLATE
+    _WORKER_DS, _WORKER_COLLATE = ds, collate
+
+
+def _proc_fetch_batch(idxs):
+    return _WORKER_COLLATE([_WORKER_DS[int(i)] for i in idxs])
+
+
+class DataLoader:
+
+    def __init__(self, dataset, batch_size: int, collater: Callable,
+                 shuffle: bool = True, drop_last: bool = True,
+                 num_workers: int = 4, seed: int = 0, prefetch: int = 4,
+                 worker_mode: str = "thread"):
+        """``batch_size`` is the global batch; each process takes its
+        ``batch_size / world`` share."""
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode must be 'thread' or 'process', "
+                             f"got {worker_mode!r}")
+        n_proc = process_count()
+        if batch_size % n_proc:
+            raise ValueError(f"batch {batch_size} does not split over "
+                             f"{n_proc} processes")
+        self.dataset = dataset
+        self.local_batch_size = batch_size // n_proc
+        self.collater = collater
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(num_workers, 1)
+        self.seed = seed
+        self.prefetch = prefetch
+        self.worker_mode = worker_mode
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self):
+        n = len(self.dataset) // process_count()
+        if self.drop_last:
+            return n // self.local_batch_size
+        return (n + self.local_batch_size - 1) // self.local_batch_size
+
+    def _local_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            order = rng.permutation(n)
+        else:
+            order = np.arange(n)
+        pid, count = process_index(), process_count()
+        per = n // count
+        return order[pid * per:(pid + 1) * per]
+
+    def _iter_process(self, indices, bs, n_batches) -> Iterator:
+        """One task per collated batch, at most ``prefetch + num_workers``
+        in flight (a semaphore), results in order through ``imap``."""
+        import multiprocessing as mp
+        sem = threading.Semaphore(self.prefetch + self.num_workers)
+        stop = threading.Event()
+
+        def tasks():
+            for b in range(n_batches):
+                while not stop.is_set():
+                    if sem.acquire(timeout=0.05):
+                        break
+                else:
+                    return
+                if stop.is_set():
+                    return
+                yield list(indices[b * bs:min((b + 1) * bs, len(indices))])
+
+        pool = mp.get_context("spawn").Pool(
+            self.num_workers, initializer=_proc_init,
+            initargs=(self.dataset, self.collater))
+        try:
+            for batch in pool.imap(_proc_fetch_batch, tasks()):
+                sem.release()
+                yield batch
+        finally:
+            stop.set()
+            pool.terminate()
+            pool.join()
+
+    def __iter__(self) -> Iterator:
+        indices = self._local_indices()
+        bs = self.local_batch_size
+        n_batches = len(self)
+        n_samples = n_batches * bs if self.drop_last else len(indices)
+        if self.worker_mode == "process":
+            yield from self._iter_process(indices, bs, n_batches)
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put_stoppable(obj):
+            """A put that gives up once the consumer has stopped."""
+            while not stop.is_set():
+                try:
+                    q.put(obj, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+
+        def producer():
+            """Per-sample futures in a bounded window, collated in order; a
+            dataset or collater exception is handed to the consumer, and the
+            end-of-epoch sentinel is always delivered unless the consumer
+            has stopped."""
+            err = None
+            try:
+                window = self.num_workers + bs * max(self.prefetch, 1)
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    inflight: deque = deque()
+                    next_i = 0
+                    cur = []
+                    done = 0
+                    while done < n_samples and not stop.is_set():
+                        while next_i < n_samples and len(inflight) < window:
+                            inflight.append(
+                                pool.submit(self.dataset.__getitem__,
+                                            int(indices[next_i])))
+                            next_i += 1
+                        cur.append(inflight.popleft().result())
+                        done += 1
+                        if len(cur) == bs:
+                            put_stoppable(self.collater(cur))
+                            cur = []
+                    if cur and not self.drop_last and not stop.is_set():
+                        put_stoppable(self.collater(cur))
+                    for f in inflight:
+                        f.cancel()
+            except Exception as e:  # noqa: BLE001 (raised in the consumer)
+                err = e
+            put_stoppable(err if err is not None else StopIteration)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is StopIteration:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            # drain, so that the producer sees ``stop`` and exits
+            while True:
+                try:
+                    if q.get_nowait() is StopIteration:
+                        break
+                except queue.Empty:
+                    break

@@ -6,10 +6,11 @@ max-pool, BasicBlock or Bottleneck stages of 64, 128, 256, 512 planes
 
 Images are NHWC. Convolutions compute in ``dtype`` (bf16 by default) from
 f32 parameters, BatchNorm statistics in f32 (``models.common.ConvBnAct``).
-``train`` selects the BatchNorm's batch statistics and updates the running
-ones. With ``use_gradient_checkpoint`` each block is recomputed in the
-backward. State-dict keys follow the JAX tree: ``stem.conv``, ``stem.bn``,
-``layer1.0.conv1.conv``, ``layer1.0.downsample.bn``, ``fc``.
+``train`` (default: the module's mode) selects the BatchNorm's batch
+statistics and updates the running ones. With ``use_gradient_checkpoint``
+each block is recomputed in the backward. State-dict keys follow the JAX
+tree: ``stem.conv``, ``stem.bn``, ``layer1.0.conv1.conv``,
+``layer1.0.downsample.bn``, ``fc``.
 """
 
 from __future__ import annotations
@@ -98,7 +99,11 @@ class ResNet(nn.Module):
         self.num_stages = len(layer_nums)
         self.fc = None if features_only else Linear(channels, num_classes)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool | None = None, generator=None):
+        """``train`` defaults to the module's mode (``model.train()``), as
+        the engine sets it; ``generator`` is unused (no stochastic layer)."""
+        if train is None:
+            train = self.training
         x = max_pool_same(self.stem(x, train), 3, 2)
         remat = self.use_gradient_checkpoint and torch.is_grad_enabled()
         features = []

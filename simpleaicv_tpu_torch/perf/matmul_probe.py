@@ -1,0 +1,180 @@
+"""How close does a hand matrix product come to the library's at ResNet-50's
+1x1-convolution shapes (M = batch x H x W)? Counterpart of
+``perf/pallas_matmul_probe.py``:
+
+    python -m simpleaicv_tpu_torch.perf.matmul_probe   # on the card
+
+``probe_mm(x, w)`` is P1, ``probe_mm(x, w, stats=True)`` P2, the hand
+kernels of ``ops/csrc/probes.cu``: y = x @ w in f32 accumulation stored in
+x's dtype (bf16), and with ``stats`` the per-column sum and sum of squares
+of the f32 product ([1, N] f32 each), the statistics a fused BatchNorm
+epilogue would need. CUDA tensors launch the kernels; CPU tensors take the
+plain versions ``mm_plain`` and ``mm_stats_plain``. ``case`` times a probe
+beside its plain version, the library calls and its bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import _build
+from .timing import bound, cuda_ms
+
+__all__ = ["probe_mm", "mm_plain", "mm_stats_plain", "case", "LAYERS",
+           "KERNEL_LAUNCHES"]
+
+# Launches of each hand kernel since the caller last set the count to 0; the
+# wrapper adds one where it launches (P2's two launches count once).
+KERNEL_LAUNCHES = {"probe_mm": 0, "probe_mm_stats": 0}
+
+TILE_M = 128  # rows per block of the kernels
+
+# name -> (M, K, N, H): ResNet-50 at batch 128, 224^2: layer 1's 1x1
+# expansion (56^2, 64 -> 256) and layer 2's (28^2, 128 -> 512)
+LAYERS = {"layer1": (128 * 56 * 56, 64, 256, 56),
+          "layer2": (128 * 28 * 28, 128, 512, 28)}
+
+
+def mm_plain(x, w):
+    """P1's plain version: the f32 product rounded to x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def mm_stats_plain(x, w):
+    """P2's plain version: (y, [1, N] column sums, [1, N] sums of squares),
+    the sums of the f32 product."""
+    y = x.float() @ w.float()
+    return (y.to(x.dtype), y.sum(0, keepdim=True),
+            y.square().sum(0, keepdim=True))
+
+
+def _check(x, w):
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"x must be [M, K] and w [K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"the probe is bf16, got {x.dtype} and {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("probes")
+    lib.probe_mm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p])
+    lib.probe_mm.restype = ctypes.c_int
+    lib.probe_scale.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_longlong, ctypes.c_void_p]
+    lib.probe_scale.restype = ctypes.c_int
+    return lib
+
+
+def _mm_cuda(x, w, stats):
+    m, k = x.shape
+    n = w.shape[1]
+    if k % 16 or not 16 <= k <= 128 or n % 64 or m > 65535 * TILE_M:
+        raise ValueError(f"the kernel takes K in 16..128 in steps of 16, N a "
+                         f"multiple of 64 and M up to {65535 * TILE_M}, got "
+                         f"M={m} K={k} N={n}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ptrs = [None, None, None]
+    if stats:
+        partial = torch.empty((2, (m + TILE_M - 1) // TILE_M, n),
+                              dtype=torch.float32, device=x.device)
+        s1 = torch.empty((1, n), dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
+        ptrs = [partial.data_ptr(), s1.data_ptr(), s2.data_ptr()]
+    name = "probe_mm_stats" if stats else "probe_mm"
+    with torch.cuda.device(x.device):
+        err = _lib().probe_mm(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), *ptrs, m, k, n,
+            int(stats), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES[name] += 1
+    return (y, s1, s2) if stats else y
+
+
+def probe_mm(x, w, stats: bool = False):
+    """x [M, K] @ w [K, N] in bf16 with f32 accumulation -> y [M, N] bf16,
+    or with ``stats`` (y, column sums, column sums of squares) of the f32
+    product, [1, N] f32 each. CUDA tensors run P1 / P2 (K 16..128 in steps
+    of 16, N a multiple of 64, M up to 65535 x 128), CPU tensors the plain
+    versions."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return mm_stats_plain(x, w) if stats else mm_plain(x, w)
+    return _mm_cuda(x, w, stats)
+
+
+def probe_inputs(m, k, n, device="cuda", seed=0):
+    """x ~ N(0, 1) [M, K] and w ~ N(0, 0.03^2) [K, N], bf16, as the JAX
+    probe draws them (from a torch generator here)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+    w = (0.03 * torch.randn(k, n, generator=g, device=device)).to(
+        torch.bfloat16)
+    return x, w
+
+
+def case(layer: str, stats: bool, iters: int = 50) -> dict:
+    """Times P1 (or P2 with ``stats``) at ``LAYERS[layer]`` on the card:
+    the kernel, its plain version, the library calls (``torch.matmul``; for
+    P1 also the 1x1 ``F.conv2d`` on channels-last NHWC, the JAX probe's
+    ``xla_conv``; for P2 the matmul and the two column sums, which are
+    three calls, not one) and the bound. Times in ms."""
+    m, k, n, h = LAYERS[layer]
+    x, w = probe_inputs(m, k, n)
+    ms = cuda_ms(lambda: probe_mm(x, w, stats), iters)
+    plain = mm_stats_plain if stats else mm_plain
+    plain_ms = cuda_ms(lambda: plain(x, w), max(iters // 5, 1))
+    matmul_ms = cuda_ms(lambda: torch.matmul(x, w), iters)
+    out = {"shape": f"M={m} K={k} N={n} bf16", "ms": ms, "plain_ms": plain_ms}
+    if stats:
+        def library():
+            y = torch.matmul(x, w)
+            yf = y.float()
+            return yf.sum(0), yf.square().sum(0)
+        out["library_ms"] = cuda_ms(library, iters)
+        out["library"] = "torch.matmul, then the two column sums"
+    else:
+        x4 = x.reshape(m // (h * h), h, h, k).permute(0, 3, 1, 2)
+        w4 = w.t().reshape(n, k, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        out["conv_ms"] = cuda_ms(lambda: F.conv2d(x4, w4), iters)
+        out["library_ms"] = matmul_ms
+        out["library"] = "torch.matmul"
+    out["matmul_ms"] = matmul_ms
+    nbytes = (m * k + k * n + m * n) * 2 + (2 * n * 4 if stats else 0)
+    flops = 2.0 * m * k * n + (3.0 * m * n if stats else 0.0)
+    out["bound_ms"], out["bound_by"] = bound(flops, nbytes, torch.bfloat16)
+    out["bytes"] = nbytes
+    out["gbytes_per_s"] = nbytes / ms / 1e6
+    return out
+
+
+def main():
+    name = torch.cuda.get_device_name(0)
+    for layer in LAYERS:
+        for stats in (False, True):
+            r = case(layer, stats)
+            print(f"{'P2' if stats else 'P1'} {layer} {r['shape']} [{name}]: "
+                  f"kernel {r['ms']:.4f} ms ({r['gbytes_per_s']:.1f} GB/s), "
+                  f"plain {r['plain_ms']:.4f} ms, {r['library']} "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+
+
+if __name__ == "__main__":
+    main()

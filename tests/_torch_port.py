@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 f32 compute on the JAX side, seeded numpy parameters and BatchNorm
-statistics for both sides, and the tiny SAM and DINO-DETR configurations."""
+statistics for both sides, the tiny SAM and DINO-DETR configurations, and
+a tiny port classifier for the runtime's tests."""
 
 from __future__ import annotations
 
@@ -8,8 +9,11 @@ import contextlib
 
 import jax.numpy as jnp
 import numpy as np
+import torch
+from torch import nn
 
 from simpleaicv_tpu.models import common as jax_common
+from simpleaicv_tpu_torch.models.common import ConvBnAct, Linear
 
 # sam_b at 256^2, 64 wide: the 16x16 token grid pads to 20 for 5x5 windows,
 # and the one global layer has n = 256 tokens, so it takes the flash path.
@@ -98,3 +102,18 @@ def flatten_tree(tree, prefix=""):
         else:
             out[path] = np.asarray(val)
     return out
+
+
+class TinyClassifier(nn.Module):
+    """conv-BatchNorm-ReLU, a global mean and a linear head in f32 on NHWC
+    images: parameters, BatchNorm buffers and the classification task's
+    call signature at a fraction of ResNet-18's cost, for the tests of the
+    Trainer's and the checkpoints' bookkeeping."""
+
+    def __init__(self, num_classes: int = 4):
+        super().__init__()
+        self.stem = ConvBnAct(3, 8, 3, 2, dtype=torch.float32)
+        self.fc = Linear(8, num_classes)
+
+    def forward(self, x, generator=None):
+        return self.fc(self.stem(x, self.training).mean(dim=(1, 2)))

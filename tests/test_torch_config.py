@@ -1,0 +1,100 @@
+"""``simpleaicv_tpu_torch.core.config.load_config`` on the repository's own
+experiment directories, written for the JAX package: the configs build the
+port's objects, a config that names something the port lacks raises naming
+it, and loading one leaves the JAX package unimported."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from simpleaicv_tpu_torch.core.config import (MissingCounterpartError,
+                                              config_repr, load_config)
+from simpleaicv_tpu_torch.data.collater import ClassificationCollater
+from simpleaicv_tpu_torch.data.datasets import FakeClassificationDataset
+from simpleaicv_tpu_torch.losses import CELoss
+from simpleaicv_tpu_torch.models.backbones.resnet import ResNet
+
+REPO = Path(__file__).resolve().parent.parent
+EXP = REPO / "experiments/0.classification_training"
+
+
+@pytest.mark.parametrize("module", ["train_config", "test_config"])
+def test_fake_synthetic_resnet18_builds_port_objects(module):
+    cfg = load_config(str(EXP / "fake_synthetic/resnet18"), module)
+    assert isinstance(cfg.model, ResNet)
+    assert isinstance(cfg.model, torch.nn.Module)
+    assert cfg.model.fc.weight.shape == (10, 512)
+    assert isinstance(cfg.test_dataset, FakeClassificationDataset)
+    assert isinstance(cfg.test_collater, ClassificationCollater)
+    assert cfg.batch_size == 64 and cfg.network == "resnet18"
+    if module == "train_config":
+        assert isinstance(cfg.train_criterion, CELoss)
+        assert len(cfg.train_dataset) == 512
+        assert cfg.optimizer[0] == "SGD" and cfg.use_ema_model is True
+
+
+def test_each_load_builds_new_objects_and_leaves_sys_path_alone():
+    path = str(EXP / "fake_synthetic/resnet18")
+    before = list(sys.path)
+    assert load_config(path, "test_config").model is not load_config(
+        path, "test_config").model
+    assert sys.path == before
+
+
+def test_deviceaug_names_the_missing_counterpart():
+    with pytest.raises(MissingCounterpartError,
+                       match="DeviceAugmentPipeline.*device_augment"):
+        load_config(str(EXP / "fake_synthetic/resnet18_deviceaug"))
+
+
+def test_imagenet_resnet50_names_the_missing_dataset():
+    with pytest.raises(MissingCounterpartError, match="ILSVRC2012Dataset"):
+        load_config(str(EXP / "imagenet/resnet50"))
+
+
+def test_a_failure_inside_a_counterpart_is_not_masked(tmp_path):
+    (tmp_path / "train_config.py").write_text(
+        "import no_such_module_anywhere\n")
+    with pytest.raises(ModuleNotFoundError) as err:
+        load_config(str(tmp_path))
+    assert not isinstance(err.value, MissingCounterpartError)
+
+
+def test_plain_module_imports_of_the_jax_package_resolve(tmp_path):
+    (tmp_path / "train_config.py").write_text(
+        "import simpleaicv_tpu.core.registry\n"
+        "from simpleaicv_tpu.data import transforms\n"
+        "class config:\n"
+        "    registry = simpleaicv_tpu.core.registry\n"
+        "    transforms = transforms\n")
+    cfg = load_config(str(tmp_path))
+    assert cfg.registry.__name__ == "simpleaicv_tpu_torch.core.registry"
+    assert cfg.transforms.__name__ == "simpleaicv_tpu_torch.data.transforms"
+
+
+def test_config_repr():
+    cfg = load_config(str(EXP / "fake_synthetic/resnet18"))
+    text = config_repr(cfg)
+    assert text.startswith("config:\n")
+    assert "  batch_size: 64" in text and "  network: 'resnet18'" in text
+    assert all(len(row) <= 200 for row in text.splitlines())
+
+
+def test_loading_leaves_the_jax_package_unimported():
+    code = (
+        "import sys\n"
+        "from simpleaicv_tpu_torch.core.config import load_config\n"
+        f"cfg = load_config({str(EXP / 'fake_synthetic/resnet18')!r}, "
+        "'test_config')\n"
+        "module = type(cfg.model).__module__\n"
+        "assert module.startswith('simpleaicv_tpu_torch')\n"
+        "bad = [m for m in sys.modules if m == 'simpleaicv_tpu'\n"
+        "       or m.startswith('simpleaicv_tpu.') or m == 'jax']\n"
+        "print('JAX-PACKAGE-MODULES', bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX-PACKAGE-MODULES []" in proc.stdout

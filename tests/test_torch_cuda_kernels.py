@@ -17,6 +17,7 @@ from simpleaicv_tpu_torch.ops.flash_attention import (
     flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
 from simpleaicv_tpu_torch.ops import msda
+from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +250,74 @@ def test_msda_launch_raises_for_wide_heads_on_card():
     with pytest.raises(ValueError, match="D <= 64"):
         msda.ms_deform_attn(value, shapes, loc, wts)
     assert msda.KERNEL_LAUNCHES == before
+
+
+def _mm_bound(x, w, want):
+    """How far a bf16 product may lie from the f32 product ``want``: one
+    bf16 spacing at each element's magnitude, plus the f32 sum's own
+    rounding in another order (K * 2^-24 * sum |x w|), which matters where
+    the terms cancel."""
+    spacing = torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
+    return spacing + x.shape[1] * 2.0**-24 * (x.float().abs()
+                                             @ w.float().abs())
+
+
+@pytest.mark.parametrize("m,k,n", [(401408, 64, 256), (100352, 128, 512),
+                                   (1000, 64, 256), (77, 16, 64),
+                                   (300, 48, 128)])
+def test_probe_mm_matches_plain_version_on_card(m, k, n):
+    """P1 and P2 at ResNet-50's layer-1 and layer-2 shapes and at ragged M
+    (1000, 77 and 300 rows: no multiple of the 128-row tile). The bf16
+    output lies within one bf16 spacing of the f32 product at each
+    element's magnitude (``_mm_bound``); the column sums within 1e-5 of
+    their largest value (f32 sums in another order)."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m)
+    want = x.float() @ w.float()
+    before = dict(matmul_probe.KERNEL_LAUNCHES)
+    y = matmul_probe.probe_mm(x, w)
+    y2, s1, s2 = matmul_probe.probe_mm(x, w, stats=True)
+    torch.cuda.synchronize()
+    assert matmul_probe.KERNEL_LAUNCHES == {
+        "probe_mm": before["probe_mm"] + 1,
+        "probe_mm_stats": before["probe_mm_stats"] + 1}
+    for got in (y, y2):
+        assert got.shape == (m, n) and got.dtype == torch.bfloat16
+        assert bool(((got.float() - want).abs()
+                     <= _mm_bound(x, w, want)).all())
+    for got, ref in [(s1, want.sum(0, keepdim=True)),
+                     (s2, want.square().sum(0, keepdim=True))]:
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def test_probe_mm_stats_are_reproducible_on_card():
+    """No atomics: two P2 calls give the same bits."""
+    x, w = matmul_probe.probe_inputs(100352, 128, 512)
+    a = matmul_probe.probe_mm(x, w, stats=True)
+    b = matmul_probe.probe_mm(x, w, stats=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("shape", [(401408, 256), (1001, 3), (5,)])
+def test_probe_scale_exact_on_card(shape):
+    """P3 at the layer-1 activation, at a size with a tail of fewer than 8
+    values, and below one vector: equal to the plain version."""
+    x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    before = bw_probe.KERNEL_LAUNCHES["probe_scale"]
+    o = bw_probe.probe_scale(x)
+    torch.cuda.synchronize()
+    assert bw_probe.KERNEL_LAUNCHES["probe_scale"] == before + 1
+    assert torch.equal(o, bw_probe.scale_plain(x))
+    assert torch.equal(o, x)
+
+
+def test_probe_mm_raises_for_shapes_it_does_not_take_on_card():
+    x = torch.zeros(128, 40, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="K in 16..128"):
+        matmul_probe.probe_mm(x, torch.zeros(40, 64, dtype=torch.bfloat16,
+                                             device="cuda"))
+    x = torch.zeros(128, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="N a multiple of 64"):
+        matmul_probe.probe_mm(x, torch.zeros(64, 96, dtype=torch.bfloat16,
+                                             device="cuda"))
