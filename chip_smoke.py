@@ -51,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import json
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -77,6 +78,7 @@ from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
+from simpleaicv_tpu_torch.perf.timing import alternating_ms as _alternating
 from simpleaicv_tpu_torch.perf.timing import bound as _bound
 from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
@@ -258,15 +260,19 @@ def _reading(kernel):
     """The measured part of a kernel's entry, for a second shape."""
     return {key: kernel[key] for key in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+        "library_ms", "ms_rounds", "library_ms_rounds",
+        "mma_sync_variant_ms") if key in kernel}
 
 
-def _flash_inputs(b, h, n, d, dtype, seed):
+def _flash_inputs(b, h, n, d, dtype, seed, offset=0):
     """q, k, v as ViT hands them over ([B, H, N, d] views of one fused
-    [B, N, 3, H, d] projection) and dO as autograd hands it back (a
-    [B, H, N, d] view of [B, N, H, d] storage)."""
+    [B, N, 3, H, d] projection, whose storage starts ``offset`` elements
+    into its buffer) and dO as autograd hands it back (a [B, H, N, d] view
+    of [B, N, H, d] storage)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3, h, d, generator=g, device="cuda").to(dtype)
+    if offset:
+        qkv = _unaligned(qkv, offset)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
     do = torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
     return q, k, v, do.transpose(1, 2)
@@ -305,15 +311,21 @@ def _flash_atol(key, want, dtype):
 def phase_flash_kernels(card):
     """K1-K3 (flash forward, dq, dk/dv) against their plain versions, then
     their times at the ViT-B/16 batch-128 training shape."""
-    # (name, B, H, N, d): ViT-B/16 at batch 128, ViT-H/14 (d 80, N 257), a
-    # multiple of the tiles, and a tail (N = 5, d = 40 padded in the kernel)
-    shapes = [("vit_b_b128", 128, 12, 197, 64), ("vit_h", 8, 16, 257, 80),
-              ("n256", 2, 4, 256, 64), ("tail_n5", 2, 3, 5, 40)]
+    # (name, B, H, N, d, offset): ViT-B/16 at batch 128, ViT-H/14 (d 80, N
+    # 257), a multiple of the tiles, a tail (N = 5, d = 40 padded in the
+    # kernel), and ViT-B/16's inputs 4 bytes off 16-byte alignment, which
+    # the bf16 forward reads with its narrow variant (4-byte copies)
+    shapes = [("vit_b_b128", 128, 12, 197, 64, 0), ("vit_h", 8, 16, 257, 80, 0),
+              ("n256", 2, 4, 256, 64, 0), ("tail_n5", 2, 3, 5, 40, 0),
+              ("vit_b_unaligned", 16, 12, 197, 64, 2)]
     names = ("o", "lse", "dq", "dk", "dv")
     main_errs, failed = None, []
-    for i, (name, b, h, n, d) in enumerate(shapes):
+    for i, (name, b, h, n, d, offset) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
-            args = _flash_inputs(b, h, n, d, dtype, seed=20 + i)
+            args = _flash_inputs(b, h, n, d, dtype, seed=20 + i,
+                                 offset=offset)
+            if dtype == torch.bfloat16:
+                assert fa._vector_loads(*args[:3]) == (offset == 0)
             got = _flash_all(*args)
             want = _flash_all_plain(*args)
             torch.cuda.synchronize()
@@ -335,7 +347,7 @@ def phase_flash_kernels(card):
                            f"plain versions at {failed}")
 
     # times at the training shape: ViT-B/16, batch 128, bf16
-    _, b, h, n, d = shapes[0]
+    _, b, h, n, d, _ = shapes[0]
     bh, dtype = b * h, torch.bfloat16
     q, k, v, do = _flash_inputs(b, h, n, d, dtype, seed=29)
     o, lse = fa._flash_fwd_cuda(q, k, v)
@@ -343,7 +355,14 @@ def phase_flash_kernels(card):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     o_lib = sdpa(ql, kl, vl)
-    lib_fwd = _cuda_ms(lambda: sdpa(q, k, v), 20)
+    # the forward kernel, its narrow variant and SDPA's forward in turns
+    narrow = _flash_inputs(b, h, n, d, dtype, seed=29, offset=2)[:3]
+    fwd_times = _alternating({
+        "kernel": lambda: fa._flash_fwd_cuda(q, k, v),
+        "library": lambda: sdpa(q, k, v),
+        "narrow": lambda: fa._flash_fwd_cuda(*narrow)})
+    del narrow
+    lib_fwd = statistics.median(fwd_times["library"])
     lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
         o_lib, (ql, kl, vl), do, retain_graph=True), 20)
     tensor, rows = bh * n * d * 2, bh * n * 4  # one bf16 tensor, one f32 row
@@ -379,14 +398,21 @@ def phase_flash_kernels(card):
     kernels = []
     for name, source, line, kernel_fn, plain_fn, flops, nbytes, lib, err in \
             cases:
-        ms = _cuda_ms(kernel_fn, 20)
+        forward = name == "flash_attention_fwd"
+        ms = (statistics.median(fwd_times["kernel"]) if forward
+              else _cuda_ms(kernel_fn, 20))
         plain_ms = _cuda_ms(plain_fn, 5)
         bound_ms, bound_by = _bound(flops, nbytes, dtype)
         print(f"{name} ViT-B/16 b128 bf16 [{card}]: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} "
               f"({nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.1f} "
-              f"TFLOP/s)", flush=True)
+              f"TFLOP/s, {bound_ms / ms:.3f} of the bound)", flush=True)
+        if forward:
+            print(f"  in 5 rounds of 20: kernel {_spread(fwd_times['kernel'])}"
+                  f", sdpa forward {_spread(fwd_times['library'])}, narrow "
+                  f"variant (4-byte copies) {_spread(fwd_times['narrow'])}",
+                  flush=True)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"simpleaicv_tpu_torch/ops/csrc/{source}",
@@ -394,6 +420,11 @@ def phase_flash_kernels(card):
             "launches": None, "shape": f"BH={bh} N={n} d={d} bf16",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib})
+        if forward:
+            kernels[-1].update(
+                ms_rounds=fwd_times["kernel"],
+                library_ms_rounds=fwd_times["library"],
+                narrow_variant_ms=statistics.median(fwd_times["narrow"]))
     return kernels
 
 
@@ -404,7 +435,8 @@ def phase_kernels(card):
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  {name}: {line.strip()}")
 
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -445,6 +477,27 @@ def phase_kernels(card):
             del p, o_f32p, q, k, v, rel_h, rel_w
         del args, o, lse, o_ref, lse_ref
 
+    # the narrow variant (mma.sync, 4-byte copies): inputs whose rows are
+    # 4-byte but not 16-byte aligned, and a d that is no multiple of 8
+    for name, bh, k_h, k_w, d, offset in (("sam_b_unaligned", 12, 64, 64, 64,
+                                           2),
+                                          ("d42_8x14", 5, 8, 14, 42, 0)):
+        args = _relpos_inputs(bh, k_h, k_w, d, torch.bfloat16, 11)
+        args = (*(_unaligned(t, offset) for t in args[:3]), *args[3:])
+        assert not fa._vector_loads(*args[:3])
+        o, lse = fa.flash_attention_relpos(*args)
+        o_ref, lse_ref = fa.flash_attention_relpos_reference(*args)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        print(f"kernel check {name} (mma.sync variant) BH={bh} "
+              f"grid={k_h}x{k_w} d={d} bfloat16: max|o-ref|={err_o:.3e} "
+              f"max|lse-ref|={err_lse:.3e} (atol 0.02)", flush=True)
+        if not (err_o <= 2e-2 and err_lse <= 2e-2):
+            raise RuntimeError(f"flash_attention_relpos_fwd's narrow variant "
+                               f"disagrees with its plain version at {name}")
+        del args, o, lse, o_ref, lse_ref
+
     # the forward rel-pos kernel lies on two paths: its entry reads the
     # served shape (one image) and carries the training path's beside it
     relpos = _relpos_fwd_times(card, 12, shape_errs["sam_b"])
@@ -454,36 +507,64 @@ def phase_kernels(card):
             + phase_relpos_bwd_kernels(card))
 
 
+def _unaligned(t, offset=2):
+    """A copy of ``t`` whose storage starts ``offset`` elements into its
+    buffer (4 bytes for bf16 at the default), so that its rows are 4-byte
+    but not 16-byte aligned: the wrappers send it to the kernels' narrow
+    variants, with 4-byte copies."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _spread(rounds):
+    return (f"{statistics.median(rounds):.4f} ms [{min(rounds):.4f}, "
+            f"{max(rounds):.4f}]")
+
+
 def _relpos_fwd_times(card, bh, err):
     """K4 at SAM-B's global layer (bf16, N 4096, d 64) with ``bh`` heads in
-    one launch: kernel, plain version, library call, bound."""
+    one launch: the kernel, its mma.sync variant (the narrow path, fed
+    4-byte aligned copies) and the library call timed in turns, 5 rounds
+    of 20 launches (medians, with each reading's rounds), then the plain
+    version and the bound."""
     k_h = k_w = d = 64
     n = k_h * k_w
     args = _relpos_inputs(bh, k_h, k_w, d, torch.bfloat16, 9)
     q, k, v, rel_h, rel_w = args
-    ms = _cuda_ms(lambda: fa.flash_attention_relpos(*args), 20)
-    plain_ms = _cuda_ms(lambda: _by_head_chunks(
-        fa.flash_attention_relpos_reference, args), 5)
+    narrow = (*(_unaligned(t) for t in (q, k, v)), rel_h, rel_w)
     bias = _sdpa_bias(rel_h, rel_w, bh, n)
     ql, kl, vl = (t.reshape(bh // 12, 12, n, d) for t in (q, k, v))
-    library_ms = _cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=bias), 10)
-    del bias
+    times = _alternating({
+        "kernel": lambda: fa.flash_attention_relpos(*args),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=bias),
+        "mma_sync": lambda: fa.flash_attention_relpos(*narrow)})
+    del bias, narrow
+    plain_ms = _cuda_ms(lambda: _by_head_chunks(
+        fa.flash_attention_relpos_reference, args), 5)
+    ms, library_ms, sync_ms = (statistics.median(times[key]) for key in (
+        "kernel", "library", "mma_sync"))
     flops = 4.0 * n * n * d * bh
     nbytes = 4 * bh * n * d * 2 + bh * n * (k_h + k_w + 1) * 4
     bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
     print(f"flash_attention_relpos_fwd SAM-B bf16 BH={bh} [{card}]: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa+bias {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
-          flush=True)
+          f"{_spread(times['kernel'])} ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the bound), sdpa+bias "
+          f"{_spread(times['library'])}, mma.sync variant "
+          f"{_spread(times['mma_sync'])} ({flops / sync_ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}", flush=True)
     return {"name": "flash_attention_relpos_fwd", "route": "cuda",
             "source": "simpleaicv_tpu_torch/ops/csrc/flash_relpos_fwd.cu",
             "replaces": "simpleaicv_tpu/ops/flash_attention.py:247",
             "launches": None, "shape": f"BH={bh} N={n} d={d} bf16",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "ms_rounds": times["kernel"],
+            "library_ms_rounds": times["library"],
+            "mma_sync_variant_ms": sync_ms}
 
 
 def _requests():

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from .config import MissingCounterpartError
+
 
 class Registry:
     """A name -> factory mapping with decorator registration."""
@@ -30,9 +32,12 @@ class Registry:
         return deco
 
     def create(self, key: str, **kwargs):
+        """Builds ``key``; a name the JAX package registers but the port
+        has not ported raises ``MissingCounterpartError`` naming it."""
         if key not in self._factories:
-            raise KeyError(
-                f"unknown {self.kind} '{key}'. known: {sorted(self._factories)}")
+            raise MissingCounterpartError(
+                f"{self.kind} '{key}' has no counterpart in the PyTorch port. "
+                f"known: {sorted(self._factories)}")
         return self._factories[key](**kwargs)
 
     def __contains__(self, name: str) -> bool:

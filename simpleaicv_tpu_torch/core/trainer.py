@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import random
 import time
 from typing import Callable, Optional
 
@@ -129,6 +130,9 @@ class Trainer:
         self.model = config.model
         self.seed = getattr(config, "seed", 0)
         np.random.seed(self.seed)
+        # the transforms draw crops and flips from the global ``random``;
+        # the JAX package's Trainer leaves it unseeded
+        random.seed(self.seed)
         init_params(self.model, torch.Generator().manual_seed(self.seed))
         trained_path = getattr(config, "trained_model_path", "")
         if trained_path:

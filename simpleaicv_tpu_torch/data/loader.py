@@ -13,9 +13,15 @@ process, workers build the batches ahead of the consumer:
   per task, right for GIL-bound Python augmentation. The workers are
   started with ``spawn`` (the caller may hold CUDA and threads, which a
   forked child must not inherit): the dataset and the collater are pickled
-  to each worker, which imports the port afresh. A transform's generator
-  is copied with them, so every worker draws the same sequence from it, as
-  the JAX package's forked workers do from the global state.
+  to each worker, which imports the port afresh. Before it builds a batch,
+  the worker seeds its global ``random`` and ``numpy.random`` from (seed,
+  epoch, batch index), so the transforms that draw from the global state
+  give the same batches on every run, whichever worker takes which batch,
+  and other draws in other epochs. This departs from the JAX package: its
+  forked workers inherit an unseeded ``random`` (CPython reseeds it in each
+  child) and a copy of the parent's numpy state, so every worker draws the
+  same numpy sequence. A transform's own generator is copied to each worker
+  as it is.
 
 Batches come out in the same order in both modes, and a dataset or collater
 exception is raised in the consumer. The producer never blocks on a full
@@ -25,6 +31,7 @@ queue once the consumer has stopped, so neither side can hang.
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -36,17 +43,31 @@ from ..core.platform import process_count, process_index
 
 __all__ = ["DataLoader"]
 
-# a worker process's dataset and collater, set by its initializer
+# a worker process's dataset, collater, seed and epoch, set by its
+# initializer
 _WORKER_DS = None
 _WORKER_COLLATE = None
+_WORKER_SEED = (0, 0)
 
 
-def _proc_init(ds, collate):
-    global _WORKER_DS, _WORKER_COLLATE
+def _proc_init(ds, collate, seed, epoch):
+    global _WORKER_DS, _WORKER_COLLATE, _WORKER_SEED
     _WORKER_DS, _WORKER_COLLATE = ds, collate
+    _WORKER_SEED = (seed, epoch)
 
 
-def _proc_fetch_batch(idxs):
+def _batch_seeds(seed: int, epoch: int, batch: int) -> tuple[int, int]:
+    """The seeds of ``random`` and ``numpy.random`` for one batch of one
+    epoch."""
+    py, nps = np.random.SeedSequence([seed, epoch, batch]).generate_state(2)
+    return int(py), int(nps)
+
+
+def _proc_fetch_batch(task):
+    batch, idxs = task
+    py, nps = _batch_seeds(*_WORKER_SEED, batch)
+    random.seed(py)
+    np.random.seed(nps)
     return _WORKER_COLLATE([_WORKER_DS[int(i)] for i in idxs])
 
 
@@ -112,11 +133,12 @@ class DataLoader:
                     return
                 if stop.is_set():
                     return
-                yield list(indices[b * bs:min((b + 1) * bs, len(indices))])
+                yield b, list(indices[b * bs:min((b + 1) * bs,
+                                                  len(indices))])
 
         pool = mp.get_context("spawn").Pool(
             self.num_workers, initializer=_proc_init,
-            initargs=(self.dataset, self.collater))
+            initargs=(self.dataset, self.collater, self.seed, self.epoch))
         try:
             for batch in pool.imap(_proc_fetch_batch, tasks()):
                 sem.release()

@@ -129,16 +129,30 @@ _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 @functools.lru_cache(maxsize=None)
 def _flash_kernels():
-    """(flash_fwd, flash_dq, flash_dkv), both libraries built together."""
+    """(flash_fwd, flash_fwd_narrow, flash_dq, flash_dkv), both libraries
+    built together."""
     _build.build(["flash_fwd", "flash_bwd"])
-    fwd = _build.load("flash_fwd").flash_fwd
+    lib = _build.load("flash_fwd")
     bwd = _build.load("flash_bwd")
-    fwd.argtypes = _VIEW * 4 + [ctypes.c_void_p] + _TAIL
+    for fn in (lib.flash_fwd, lib.flash_fwd_narrow):
+        fn.argtypes = _VIEW * 4 + [ctypes.c_void_p] + _TAIL
     bwd.flash_dq.argtypes = _VIEW * 5 + [ctypes.c_void_p] * 2 + _TAIL
     bwd.flash_dkv.argtypes = _VIEW * 6 + [ctypes.c_void_p] * 2 + _TAIL
-    for fn in (fwd, bwd.flash_dq, bwd.flash_dkv):
+    for fn in (lib.flash_fwd, lib.flash_fwd_narrow, bwd.flash_dq,
+               bwd.flash_dkv):
         fn.restype = ctypes.c_int
-    return fwd, bwd.flash_dq, bwd.flash_dkv
+    return lib.flash_fwd, lib.flash_fwd_narrow, bwd.flash_dq, bwd.flash_dkv
+
+
+def _vector_loads(*tensors) -> bool:
+    """Whether the bf16 forward kernels may move ``tensors`` 16 bytes a
+    thread: every row 16-byte aligned (the data pointer, and every stride
+    but the last a multiple of 8 elements) and d a multiple of 8. Tensors
+    that miss it take the kernels' narrow variants, with 4-byte copies."""
+    return all(t.dtype == torch.bfloat16 and t.shape[-1] % 8 == 0
+               and t.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in t.stride()[:-1])
+               for t in tensors)
 
 
 def _readable(t):
@@ -182,10 +196,12 @@ def _launch(name, fn, args):
 
 
 def _flash_fwd_cuda(q, k, v):
-    fwd, _, _ = _flash_kernels()
+    fwd, fwd_narrow, _, _ = _flash_kernels()
     q, k, v = _readable(q), _readable(k), _readable(v)
     o = _empty_bnhd(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16 and not _vector_loads(q, k, v, o):
+        fwd = fwd_narrow
     with torch.cuda.device(q.device):
         _launch("flash_attention_fwd", fwd,
                 _view(q) + _view(k) + _view(v) + _view(o) + [lse.data_ptr()]
@@ -205,7 +221,7 @@ def _bwd_args(q, k, v, do, lse, delta):
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta):
-    _, dq_fn, _ = _flash_kernels()
+    _, _, dq_fn, _ = _flash_kernels()
     held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
     dq = _empty_bnhd(q)
     with torch.cuda.device(q.device):
@@ -215,7 +231,7 @@ def _flash_dq_cuda(q, k, v, do, lse, delta):
 
 
 def _flash_dkv_cuda(q, k, v, do, lse, delta):
-    _, _, dkv_fn = _flash_kernels()
+    _, _, _, dkv_fn = _flash_kernels()
     held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
     dk, dv = _empty_bnhd(q), _empty_bnhd(q)
     with torch.cuda.device(q.device):
@@ -364,11 +380,13 @@ _RELPOS_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _relpos_fwd_kernel():
-    fn = _build.load("flash_relpos_fwd").flash_relpos_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + _RELPOS_TAIL
-    fn.restype = ctypes.c_int
-    return fn
+def _relpos_fwd_kernels():
+    """(flash_relpos_fwd, flash_relpos_fwd_narrow)."""
+    lib = _build.load("flash_relpos_fwd")
+    for fn in (lib.flash_relpos_fwd, lib.flash_relpos_fwd_narrow):
+        fn.argtypes = [ctypes.c_void_p] * 7 + _RELPOS_TAIL
+        fn.restype = ctypes.c_int
+    return lib.flash_relpos_fwd, lib.flash_relpos_fwd_narrow
 
 
 @functools.lru_cache(maxsize=None)
@@ -413,8 +431,11 @@ def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     args = _relpos_kernel_args(
         dict(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w), (o, lse))
+    fwd, fwd_narrow = _relpos_fwd_kernels()
+    if q.dtype == torch.bfloat16 and not _vector_loads(q, k, v):
+        fwd = fwd_narrow
     with torch.cuda.device(q.device):
-        _launch("flash_attention_relpos_fwd", _relpos_fwd_kernel(), args)
+        _launch("flash_attention_relpos_fwd", fwd, args)
     return o, lse
 
 

@@ -35,3 +35,16 @@ def bound(flops: float, nbytes: float, dtype):
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def alternating_ms(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
+    """Device times of each of ``fns`` (name -> callable), taken in turns:
+    every round times each function once, in the dict's order, as the mean
+    of ``iters`` launches after a warm-up (``cuda_ms``). Returns
+    {name: [ms of each round]}, so that a reading carries its spread and
+    a drift of the card between rounds falls on every function alike."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(cuda_ms(fn, iters))
+    return out

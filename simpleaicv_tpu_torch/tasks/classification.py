@@ -36,8 +36,11 @@ def make_eval_fn() -> Callable:
         del generator, train
         logits = model(batch["image"])
         labels = batch["label"]
-        # with fewer than 5 classes every class is in the top 5
-        top5 = logits.topk(min(5, logits.shape[-1]), dim=-1).indices
+        # the last five of a stable ascending sort, highest first, as the
+        # JAX package takes them: among tied logits the highest index wins.
+        # With fewer than 5 classes every class is in the top 5.
+        top5 = torch.argsort(logits, dim=-1, stable=True)[
+            :, -min(5, logits.shape[-1]):].flip(-1)
         correct1 = (top5[:, 0] == labels).float()
         correct5 = (top5 == labels[:, None]).any(dim=-1).float()
         valid = (labels >= 0).float()

@@ -221,6 +221,28 @@ def test_loader_matches_jax_over_two_epochs(worker_mode, drop_last):
         not np.array_equal(got[0][0]["image"], got[1][0]["image"])
 
 
+def _augmented_batches(seed, epoch):
+    """The batches of one process-mode epoch over tiny images whose
+    transforms draw from the workers' global ``random`` and ``numpy.random``
+    (no generator is passed, as in the experiment configs)."""
+    transform = pt.Compose([pt.RandomHorizontalFlip(prob=0.5),
+                            pt.RandomErasing(prob=0.9)])
+    loader = DataLoader(FakeClassificationDataset(8, 6, 10, transform), 2,
+                        ClassificationCollater(), shuffle=False,
+                        num_workers=2, seed=seed, worker_mode="process")
+    loader.set_epoch(epoch)
+    return np.stack([b["image"] for b in loader])
+
+
+def test_process_workers_are_seeded_per_epoch():
+    """Two seeded runs give the same batches; another seed or another epoch
+    gives other ones."""
+    first = _augmented_batches(seed=5, epoch=1)
+    np.testing.assert_array_equal(first, _augmented_batches(seed=5, epoch=1))
+    assert not np.array_equal(first, _augmented_batches(seed=6, epoch=1))
+    assert not np.array_equal(first, _augmented_batches(seed=5, epoch=2))
+
+
 def test_loader_without_shuffle_keeps_the_order():
     loader = DataLoader(FakeClassificationDataset(10, 4, 10), 4,
                         ClassificationCollater(), shuffle=False,

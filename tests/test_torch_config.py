@@ -50,6 +50,14 @@ def test_deviceaug_names_the_missing_counterpart():
         load_config(str(EXP / "fake_synthetic/resnet18_deviceaug"))
 
 
+def test_an_unported_registry_name_raises_missing_counterpart():
+    """The config builds its backbone through the registry, which has no
+    ``vit_moe_tiny_patch16`` in the port."""
+    with pytest.raises(MissingCounterpartError,
+                       match="backbone 'vit_moe_tiny_patch16'"):
+        load_config(str(EXP / "fake_synthetic/vit_moe_tiny"))
+
+
 def test_imagenet_resnet50_names_the_missing_dataset():
     with pytest.raises(MissingCounterpartError, match="ILSVRC2012Dataset"):
         load_config(str(EXP / "imagenet/resnet50"))

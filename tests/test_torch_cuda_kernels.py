@@ -16,6 +16,7 @@ from simpleaicv_tpu_torch.ops.flash_attention import (
     flash_attention_reference, flash_attention_relpos,
     flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
+from simpleaicv_tpu_torch.ops import flash_attention as fa_ops
 from simpleaicv_tpu_torch.ops import msda
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
 
@@ -52,6 +53,91 @@ def test_kernel_matches_plain_version_on_card(dtype, atol):
         torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
                                    rtol=0)
         torch.testing.assert_close(lse, lse_ref, atol=atol, rtol=0)
+
+
+def _unaligned(t, offset=2):
+    """A copy of ``t`` whose storage starts ``offset`` elements into its
+    buffer: its rows are 4-byte but not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (BH, k_h, k_w, d) at the edges of the forward kernel's tiles: BH no
+# multiple of anything, k_w padded to 16 or 64, d padded to 32, 64, 80 or
+# 128, N no multiple of the 128-query block
+RELPOS_FWD_EDGES = [(3, 6, 10, 32), (5, 8, 14, 40), (3, 16, 16, 64),
+                    (5, 4, 64, 80), (3, 8, 64, 128), (5, 10, 10, 64),
+                    (3, 3, 64, 40)]
+
+
+@pytest.mark.parametrize("bh,k_h,k_w,d", RELPOS_FWD_EDGES)
+def test_relpos_forward_tiling_edges_on_card(bh, k_h, k_w, d):
+    """The bf16 rel-pos forward (wgmma) and its narrow variant (mma.sync,
+    4-byte copies, for rows that are not 16-byte aligned) against the plain
+    version, one launch each."""
+    rng = np.random.RandomState(bh * 100 + k_w)
+    n = k_h * k_w
+    q, k, v = (_randn(rng, bh, n, d).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    rh, rw = _randn(rng, bh, n, k_h).cuda(), _randn(rng, bh, n, k_w).cuda()
+    o_ref, lse_ref = flash_attention_relpos_reference(q, k, v, rh, rw)
+    for args in ((q, k, v), tuple(_unaligned(t) for t in (q, k, v))):
+        launches = KERNEL_LAUNCHES["flash_attention_relpos_fwd"]
+        o, lse = flash_attention_relpos(*args, rh, rw)
+        assert KERNEL_LAUNCHES["flash_attention_relpos_fwd"] == launches + 1
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2,
+                                   rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+@pytest.mark.parametrize("n", [1, 5, 197, 257, 300])
+def test_flash_forward_tiling_edges_on_card(n, d):
+    """The bf16 flash forward on q, k, v sliced from one fused projection,
+    at token counts below, at and past the 128-query block and the
+    256-key ring, and at every padded head width."""
+    rng = np.random.RandomState(n + d)
+    qkv = _randn(rng, 2, n, 3, 3, d).to("cuda", torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    launches = KERNEL_LAUNCHES["flash_attention_fwd"]
+    o = flash_attention(q, k, v)
+    assert KERNEL_LAUNCHES["flash_attention_fwd"] == launches + 1
+    o_ref, _ = flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=8e-3, rtol=0)
+
+
+@pytest.mark.parametrize("offset", [2, 4])
+def test_flash_forward_unaligned_view_on_card(offset):
+    """A fused projection 4 or 8 bytes off 16-byte alignment: the forward
+    takes its narrow variant (4-byte copies) and still matches."""
+    rng = np.random.RandomState(offset)
+    qkv = _unaligned(_randn(rng, 2, 197, 3, 12, 64).to("cuda",
+                                                       torch.bfloat16),
+                     offset)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    assert not fa_ops._vector_loads(q, k, v)
+    launches = KERNEL_LAUNCHES["flash_attention_fwd"]
+    o = flash_attention(q, k, v)
+    assert KERNEL_LAUNCHES["flash_attention_fwd"] == launches + 1
+    o_ref, _ = flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=8e-3, rtol=0)
+
+
+def test_forward_kernels_repeat_bitwise_on_card():
+    """No atomics: two launches of K4 and of K1 give the same bits."""
+    rng = np.random.RandomState(5)
+    q, k, v = (_randn(rng, 3, 1024, 64).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    rh, rw = _randn(rng, 3, 1024, 32).cuda(), _randn(rng, 3, 1024, 32).cuda()
+    first, second = (flash_attention_relpos(q, k, v, rh, rw)
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    qkv = _randn(rng, 4, 197, 3, 12, 64).to("cuda", torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    first, second = (fa_ops._flash_fwd_cuda(q, k, v) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _grad_atol(want, dtype):

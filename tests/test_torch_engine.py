@@ -321,6 +321,45 @@ def test_eval_step_counts_match_jax():
                       "key_metric": pytest.approx(200 / 3)}
 
 
+class _JaxIdentity:
+    """A JAX model whose logits are its input."""
+
+    @staticmethod
+    def apply(variables, x, train):
+        return x
+
+
+def test_top_k_breaks_ties_as_jax():
+    """Among tied logits the highest index wins, in top-1 and top-5."""
+    step = port_engine.make_eval_step(port_task.make_eval_fn(), device="cpu")
+    jax_eval = jax.jit(jax.vmap(
+        lambda x, y: jax_task.make_eval_fn(_JaxIdentity())(
+            {}, {}, {"image": x[None], "label": y[None]}, None, False)))
+    logits = torch.tensor([[0.5, 2, 2, 1, 2, -1, 0]])
+    top1 = [float(step(nn.Identity(), {"image": logits,
+                                       "label": torch.tensor([c])})
+                  ["acc1_correct"]) for c in range(7)]
+    want = jax_eval(jnp.asarray(logits.numpy()), jnp.array([4]))
+    assert top1 == [0, 0, 0, 0, 1, 0, 0]
+    assert float(want["acc1_correct"][0]) == 1.0
+
+    # the whole top-1 and top-5 masks on a seeded bf16 batch with ties:
+    # every (row, class) pair is one example
+    rows, classes = 6, 9
+    x = np.random.RandomState(7).randint(0, 4, (rows, classes)) * 0.5
+    image = np.repeat(x, classes, axis=0)
+    label = np.tile(np.arange(classes), rows)
+    want = jax_eval(jnp.asarray(image, jnp.bfloat16), jnp.asarray(label))
+    for key in ("acc1_correct", "acc5_correct"):
+        got = [float(step(nn.Identity(), {
+            "image": torch.tensor(image[i:i + 1], dtype=torch.bfloat16),
+            "label": torch.tensor(label[i:i + 1])})[key])
+            for i in range(rows * classes)]
+        np.testing.assert_array_equal(
+            np.reshape(got, (rows, classes)),
+            np.asarray(want[key]).reshape(rows, classes), err_msg=key)
+
+
 def _toy_optimizer(model, device):
     return port_optim.build_optimizer(
         port_optim.OptimizerConfig(name="AdamW", lr=0.1),

@@ -158,3 +158,33 @@ def test_relpos_gradient_guard():
     with torch.no_grad():
         o, _ = flash_attention_relpos(q, k, v, rh, rw)
     assert not o.requires_grad
+
+
+def _offset_view(shape, offset, dtype=torch.bfloat16):
+    """A [B, H, N, d] view of [B, N, H, d] storage that starts ``offset``
+    elements into its buffer."""
+    b, h, n, d = shape
+    buf = torch.zeros(b * n * h * d + offset, dtype=dtype)
+    return buf[offset:].view(b, n, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 3, 5, 64), 0, True),     # the layout ViT hands over
+    ((2, 3, 197, 40), 0, True),   # d 40: rows 80 bytes apart
+    ((2, 3, 5, 64), 8, True),     # 16 bytes in: still aligned
+    ((2, 3, 5, 64), 2, False),    # 4 bytes in
+    ((2, 3, 5, 64), 4, False),    # 8 bytes in
+    ((2, 3, 5, 42), 0, False),    # d no multiple of 8
+])
+def test_vector_or_narrow_loads(shape, offset, want):
+    """The bf16 forward kernels move 16 bytes a thread only where every row
+    is 16-byte aligned; other views take the 4-byte variant."""
+    q = _offset_view(shape, offset)
+    aligned = _offset_view(shape, 0)
+    assert port_fa._vector_loads(q, aligned, aligned) is want
+    assert port_fa._vector_loads(aligned, aligned, q) is want
+    # f32 tensors never take the bf16 kernels' vector path
+    assert not port_fa._vector_loads(_offset_view(shape, 0, torch.float32))
+    # a contiguous [BH, N, d] tensor, as the rel-pos kernel takes it
+    flat = torch.zeros(6, 16, shape[-1], dtype=torch.bfloat16)
+    assert port_fa._vector_loads(flat) is (shape[-1] % 8 == 0)
