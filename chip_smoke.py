@@ -155,11 +155,18 @@ def _sdpa_bias(rel_h, rel_w, bh, n):
 
 def _relpos_bwd_times(card, bh, errs):
     """K5 and K6 at SAM-B's global layer (bf16, N 4096, d 64) with ``bh``
-    heads in one launch: kernel, plain version, library call, bound."""
+    heads in one launch: the kernels, their narrow variants (the mma.sync
+    kernels, fed 4-byte aligned copies) and the library call timed in
+    turns, 5 rounds of 20 launches (medians, with each reading's rounds),
+    then the plain versions and the bounds."""
     k_h = k_w = d = 64
     n, dtype = k_h * k_w, torch.bfloat16
     args = _relpos_bwd_inputs(bh, k_h, k_w, d, dtype, seed=49)
     q, k, v, rel_h, rel_w, do = args[:6]
+    narrow = (*(_unaligned(t) for t in (q, k, v)), rel_h, rel_w,
+              _unaligned(do), *args[6:])
+    if (_bwd_variant(args), _bwd_variant(narrow)) != ("tma", "narrow"):
+        raise RuntimeError("the timed inputs miss the kernels' variants")
     # the library call: SDPA with the materialised bf16 bias and its autograd
     # backward, which gives dq, dk, dv and the bias gradient in one call
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -167,33 +174,44 @@ def _relpos_bwd_times(card, bh, errs):
                   for t in (q, k, v))
     bias = _sdpa_bias(rel_h, rel_w, bh, n).requires_grad_()
     o_lib = sdpa(ql, kl, vl, attn_mask=bias)
-    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
-        o_lib, (ql, kl, vl, bias), do.reshape(ql.shape), retain_graph=True),
-        10)
-    del o_lib, bias, ql, kl, vl
+    times = _alternating({
+        "dq": lambda: fa._flash_relpos_dq_cuda(*args),
+        "dkv": lambda: fa._flash_relpos_dkv_cuda(*args),
+        "library": lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl, bias), do.reshape(ql.shape),
+            retain_graph=True),
+        "dq_narrow": lambda: fa._flash_relpos_dq_cuda(*narrow),
+        "dkv_narrow": lambda: fa._flash_relpos_dkv_cuda(*narrow)})
+    del o_lib, bias, ql, kl, vl, narrow
+    library_ms = statistics.median(times["library"])
     tensor = bh * n * d * 2                       # one bf16 [BH, N, d]
     tables = bh * n * (k_h + k_w) * 4             # rel_h and rel_w, f32
     rows = bh * n * 4                             # one f32 [BH, N]
     pairs = 2.0 * n * n * d * bh                  # one product's operations
     cases = [
-        ("flash_attention_relpos_dq", 276, fa._flash_relpos_dq_cuda,
+        ("flash_attention_relpos_dq", "dq", 276,
          fa.flash_attention_relpos_dq_reference,
          3 * pairs, 5 * tensor + 2 * tables + 2 * rows,
          max(errs[key] for key in ("dq", "drh", "drw"))),
-        ("flash_attention_relpos_dkv", 312, fa._flash_relpos_dkv_cuda,
+        ("flash_attention_relpos_dkv", "dkv", 312,
          fa.flash_attention_relpos_dkv_reference,
          4 * pairs, 6 * tensor + tables + 2 * rows,
          max(errs["dk"], errs["dv"])),
     ]
     kernels = []
-    for name, line, kernel_fn, plain_fn, flops, nbytes, err in cases:
-        ms = _cuda_ms(lambda: kernel_fn(*args), 20)
+    for name, key, line, plain_fn, flops, nbytes, err in cases:
+        ms = statistics.median(times[key])
+        narrow_ms = statistics.median(times[f"{key}_narrow"])
         plain_ms = _cuda_ms(lambda: _by_head_chunks(plain_fn, args), 5)
         bound_ms, bound_by = _bound(flops, nbytes, dtype)
-        print(f"{name} SAM-B bf16 BH={bh} [{card}]: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa+bias backward {lib_bwd:.4f} "
-              f"ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+        print(f"{name} SAM-B bf16 BH={bh} [{card}]: kernel "
+              f"{_spread(times[key])} ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound), sdpa+bias backward "
+              f"{_spread(times['library'])}, narrow variant (mma.sync) "
+              f"{_spread(times[f'{key}_narrow'])} "
+              f"({flops / narrow_ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}",
+              flush=True)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "simpleaicv_tpu_torch/ops/csrc/flash_relpos_bwd.cu",
@@ -201,16 +219,68 @@ def _relpos_bwd_times(card, bh, errs):
             "launches": None, "shape": f"BH={bh} N={n} d={d} bf16",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_bwd})
+            "library_ms": library_ms, "ms_rounds": times[key],
+            "library_ms_rounds": times["library"],
+            "narrow_variant_ms": narrow_ms})
     return kernels
+
+
+def _bwd_variant(args):
+    """The rel-pos backward kernels' variant for (q, k, v, rel_h, rel_w,
+    dO, lse, delta)."""
+    q, k, v, _, rel_w, do = args[:6]
+    return fa._relpos_bwd_variant(q, k, v, do, rel_w)
+
+
+def _relpos_bwd_check(name, args, want_variant, errs_out=None):
+    """K5 and K6 on ``args`` against their plain versions: launched twice,
+    the two giving the same bits, through the variant ``want_variant``.
+    Returns the names of the outputs that disagree."""
+    names = ("dq", "drh", "drw", "dk", "dv")
+    if _bwd_variant(args) != want_variant:
+        raise RuntimeError(f"{name}: the backward takes the "
+                           f"{_bwd_variant(args)} kernels, not "
+                           f"{want_variant}")
+    narrow_before = dict(fa.NARROW_LAUNCHES)
+    got = (*fa._flash_relpos_dq_cuda(*args),
+           *fa._flash_relpos_dkv_cuda(*args))
+    again = (*fa._flash_relpos_dq_cuda(*args),
+             *fa._flash_relpos_dkv_cuda(*args))
+    narrow = {k: fa.NARROW_LAUNCHES[k] - narrow_before[k]
+              for k in ("flash_attention_relpos_dq",
+                        "flash_attention_relpos_dkv")}
+    if set(narrow.values()) != {2 if want_variant == "narrow" else 0}:
+        raise RuntimeError(f"{name}: narrow launches {narrow}")
+    want = (*_by_head_chunks(fa.flash_attention_relpos_dq_reference, args),
+            *_by_head_chunks(fa.flash_attention_relpos_dkv_reference, args))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = {key: (a.float() - w.float()).abs().max().item()
+            for key, a, w in zip(names, got, want)}
+    # drh and drw are f32 whatever the inputs: 1e-4; dq, dk, dv as the
+    # plain flash kernels' gradients
+    tols = {key: _flash_atol(key, w, w.dtype) for key, w in zip(names, want)}
+    q, d = args[0], args[0].shape[-1]
+    k_h, k_w = args[3].shape[-1], args[4].shape[-1]
+    print(f"kernel check relpos bwd {name} ({want_variant}) "
+          f"BH={q.shape[0]} grid={k_h}x{k_w} d={d} {str(q.dtype)[6:]}: "
+          + " ".join(f"max|{key}-ref|={e:.3e} (atol {tols[key]:.3e})"
+                     for key, e in errs.items())
+          + f"; two launches {'the same' if same else 'DIFFERENT'} bits",
+          flush=True)
+    if errs_out is not None:
+        errs_out.update(errs)
+    return ([f"{name} {q.dtype} {key}" for key, e in errs.items()
+             if not e <= tols[key]] + ([] if same else [f"{name} repeat"]))
 
 
 def phase_relpos_bwd_kernels(card):
     """K5 and K6 (rel-pos dq with drh and drw, and dk/dv) against their plain
     versions at the four rel-pos shapes and at the training path's (SAM-B's
-    global layer for a batch of 8, bf16), then their times at the training
-    path's shape and, beside them, for one image."""
-    names = ("dq", "drh", "drw", "dk", "dv")
+    global layer for a batch of 8, bf16), and their narrow variants on rows
+    4 bytes off 16-byte alignment and at d 42; each case launched twice for
+    the same bits. Then their times at the training path's shape and,
+    beside them, for one image."""
     shape_errs, failed = {}, []
     cases = [(*shape, dtype, 40 + i)
              for i, shape in enumerate(RELPOS_SHAPES)
@@ -219,28 +289,25 @@ def phase_relpos_bwd_kernels(card):
                   48))
     for name, bh, k_h, k_w, d, dtype, seed in cases:
         args = _relpos_bwd_inputs(bh, k_h, k_w, d, dtype, seed)
-        got = (*fa._flash_relpos_dq_cuda(*args),
-               *fa._flash_relpos_dkv_cuda(*args))
-        want = (*_by_head_chunks(fa.flash_attention_relpos_dq_reference,
-                                 args),
-                *_by_head_chunks(fa.flash_attention_relpos_dkv_reference,
-                                 args))
-        torch.cuda.synchronize()
-        errs = {key: (a.float() - w.float()).abs().max().item()
-                for key, a, w in zip(names, got, want)}
-        # drh and drw are f32 whatever the inputs: 1e-4; dq, dk, dv as
-        # the plain flash kernels' gradients
-        tols = {key: _flash_atol(key, w, w.dtype)
-                for key, w in zip(names, want)}
-        print(f"kernel check relpos bwd {name} BH={bh} grid={k_h}x{k_w} "
-              f"d={d} {str(dtype)[6:]}: " + " ".join(
-                  f"max|{key}-ref|={e:.3e} (atol {tols[key]:.3e})"
-                  for key, e in errs.items()), flush=True)
-        failed += [f"{name} {dtype} {key}" for key, e in errs.items()
-                   if not e <= tols[key]]
+        errs = {}
+        # SAM-B's global layers (k_w 64, d 64) take the TMA kernels
+        want = ("f32" if dtype == torch.float32 else
+                "tma" if k_w == 64 and d <= 64 else "narrow")
+        failed += _relpos_bwd_check(name, args, want, errs)
         if dtype == torch.bfloat16:
             shape_errs[name] = errs
-        del args, got, want
+        del args
+    # the narrow variants (mma.sync, 4-byte staging): inputs whose rows are
+    # 4-byte but not 16-byte aligned, and a d that is no multiple of 8
+    for name, bh, k_h, k_w, d, offset in (("sam_b_unaligned", 12, 64, 64, 64,
+                                           2),
+                                          ("d42_8x14", 5, 8, 14, 42, 0)):
+        args = _relpos_bwd_inputs(bh, k_h, k_w, d, torch.bfloat16, 50)
+        if offset:
+            args = (*(_unaligned(t, offset) for t in args[:3]), *args[3:5],
+                    _unaligned(args[5], offset), *args[6:])
+        failed += _relpos_bwd_check(name, args, "narrow")
+        del args
     if failed:
         raise RuntimeError(f"the rel-pos backward kernels disagree with "
                            f"their plain versions at {failed}")
@@ -261,7 +328,7 @@ def _reading(kernel):
     return {key: kernel[key] for key in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "ms_rounds", "library_ms_rounds",
-        "mma_sync_variant_ms") if key in kernel}
+        "mma_sync_variant_ms", "narrow_variant_ms") if key in kernel}
 
 
 def _flash_inputs(b, h, n, d, dtype, seed, offset=0):
@@ -362,25 +429,30 @@ def phase_flash_kernels(card):
         "library": lambda: sdpa(q, k, v),
         "narrow": lambda: fa._flash_fwd_cuda(*narrow)})
     del narrow
-    lib_fwd = statistics.median(fwd_times["library"])
-    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
-        o_lib, (ql, kl, vl), do, retain_graph=True), 20)
+    # the backward kernels and SDPA's backward in turns
+    bwd_times = _alternating({
+        "dq": lambda: fa._flash_dq_cuda(q, k, v, do, lse, delta),
+        "dkv": lambda: fa._flash_dkv_cuda(q, k, v, do, lse, delta),
+        "library": lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), do, retain_graph=True)})
     tensor, rows = bh * n * d * 2, bh * n * 4  # one bf16 tensor, one f32 row
     pairs = 2.0 * n * n * d * bh               # one product's operations
+    # (name, source, line, rounds, library rounds, plain version, flops,
+    # bytes, error)
     cases = [
-        ("flash_attention_fwd", "flash_fwd.cu", 34,
-         lambda: fa._flash_fwd_cuda(q, k, v),
+        ("flash_attention_fwd", "flash_fwd.cu", 34, fwd_times["kernel"],
+         fwd_times["library"],
          lambda: fa.flash_attention_reference(q, k, v),
-         2 * pairs, 4 * tensor + rows, lib_fwd,
+         2 * pairs, 4 * tensor + rows,
          max(main_errs["o"], main_errs["lse"])),
-        ("flash_attention_dq", "flash_bwd.cu", 64,
-         lambda: fa._flash_dq_cuda(q, k, v, do, lse, delta),
+        ("flash_attention_dq", "flash_bwd.cu", 64, bwd_times["dq"],
+         bwd_times["library"],
          lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta),
-         3 * pairs, 5 * tensor + 2 * rows, lib_bwd, main_errs["dq"]),
-        ("flash_attention_dkv", "flash_bwd.cu", 88,
-         lambda: fa._flash_dkv_cuda(q, k, v, do, lse, delta),
+         3 * pairs, 5 * tensor + 2 * rows, main_errs["dq"]),
+        ("flash_attention_dkv", "flash_bwd.cu", 88, bwd_times["dkv"],
+         bwd_times["library"],
          lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse, delta),
-         4 * pairs, 6 * tensor + 2 * rows, lib_bwd,
+         4 * pairs, 6 * tensor + 2 * rows,
          max(main_errs["dk"], main_errs["dv"])),
     ]
     print("library call: scaled_dot_product_attention forward for the "
@@ -396,11 +468,9 @@ def phase_flash_kernels(card):
           f"{stack_ms:.4f} ms", flush=True)
     del dq, dk, dv
     kernels = []
-    for name, source, line, kernel_fn, plain_fn, flops, nbytes, lib, err in \
-            cases:
-        forward = name == "flash_attention_fwd"
-        ms = (statistics.median(fwd_times["kernel"]) if forward
-              else _cuda_ms(kernel_fn, 20))
+    for name, source, line, rounds, lib_rounds, plain_fn, flops, nbytes, \
+            err in cases:
+        ms, lib = statistics.median(rounds), statistics.median(lib_rounds)
         plain_ms = _cuda_ms(plain_fn, 5)
         bound_ms, bound_by = _bound(flops, nbytes, dtype)
         print(f"{name} ViT-B/16 b128 bf16 [{card}]: kernel {ms:.4f} ms, "
@@ -408,23 +478,24 @@ def phase_flash_kernels(card):
               f"{bound_ms:.4f} ms by {bound_by} "
               f"({nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.1f} "
               f"TFLOP/s, {bound_ms / ms:.3f} of the bound)", flush=True)
-        if forward:
-            print(f"  in 5 rounds of 20: kernel {_spread(fwd_times['kernel'])}"
-                  f", sdpa forward {_spread(fwd_times['library'])}, narrow "
-                  f"variant (4-byte copies) {_spread(fwd_times['narrow'])}",
-                  flush=True)
+        if name == "flash_attention_fwd":
+            print(f"  in 5 rounds of 20: kernel {_spread(rounds)}, sdpa "
+                  f"forward {_spread(lib_rounds)}, narrow variant (4-byte "
+                  f"copies) {_spread(fwd_times['narrow'])}", flush=True)
+        else:
+            print(f"  in 5 rounds of 20: kernel {_spread(rounds)}, sdpa "
+                  f"backward {_spread(lib_rounds)}", flush=True)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"simpleaicv_tpu_torch/ops/csrc/{source}",
             "replaces": f"simpleaicv_tpu/ops/flash_attention.py:{line}",
             "launches": None, "shape": f"BH={bh} N={n} d={d} bf16",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib})
-        if forward:
-            kernels[-1].update(
-                ms_rounds=fwd_times["kernel"],
-                library_ms_rounds=fwd_times["library"],
-                narrow_variant_ms=statistics.median(fwd_times["narrow"]))
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "ms_rounds": rounds, "library_ms_rounds": lib_rounds})
+        if name == "flash_attention_fwd":
+            kernels[-1]["narrow_variant_ms"] = statistics.median(
+                fwd_times["narrow"])
     return kernels
 
 
@@ -591,10 +662,20 @@ def _serve(pred, kind, image, prompt):
 
 
 def _reset_launches():
-    for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES,
-                   matmul_probe.KERNEL_LAUNCHES, bw_probe.KERNEL_LAUNCHES):
+    for counts in (fa.KERNEL_LAUNCHES, fa.NARROW_LAUNCHES,
+                   msda.KERNEL_LAUNCHES, matmul_probe.KERNEL_LAUNCHES,
+                   bw_probe.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def _wide_kernels_only(path):
+    """Fails if a flash kernel took its narrow variant since the counts were
+    last set to 0: a main path's inputs are aligned and of the shapes the
+    wide kernels serve."""
+    narrow = {k: v for k, v in fa.NARROW_LAUNCHES.items() if v}
+    if narrow:
+        raise RuntimeError(f"{path} launched narrow variants: {narrow}")
 
 
 def _profile_device(run):
@@ -649,6 +730,7 @@ def phase_serving(card, rounds=2):
     if launches["flash_attention_relpos_fwd"] != 4 * served:
         raise RuntimeError("the served path did not launch the rel-pos "
                            "kernel 4 times per image encode")
+    _wide_kernels_only("the served path")
     print(f"SAM-B 1024^2 bf16 request latency [{card}]: median "
           f"{float(np.median(latencies)):.2f} ms, min "
           f"{min(latencies):.2f} ms, max {max(latencies):.2f} ms over "
@@ -789,6 +871,7 @@ def phase_training(card, warm_up=3, timed=10):
     if any(launches[k] != 12 * steps for k in TRAIN_KERNELS):
         raise RuntimeError("the train step did not launch each flash "
                            "kernel 12 times")
+    _wide_kernels_only("the ViT train step")
     if not all(np.isfinite(losses)) or float(skipped) != 0.0:
         raise RuntimeError(f"non-finite loss or skipped step: {losses}, "
                            f"skipped {float(skipped)}")
@@ -1014,6 +1097,7 @@ def phase_sam_training(card, timed_batches=6):
     if state.step != len(steps) or \
             state.optimizer.step_count != len(steps) or len(timed_steps) < 6:
         raise RuntimeError("step counters disagree with the steps taken")
+    _wide_kernels_only("the SAM train step")
     by_kind = {}
     for kind, what, ms, _ in records:
         by_kind.setdefault(kind if what == "step" else "refinement",

@@ -1,7 +1,8 @@
-// Device helpers of the Hopper (sm_90a) forward kernels (flash_fwd.cu,
-// flash_relpos_fwd.cu): 16- and 4-byte cp.async copies into shared-memory
-// tiles, ldmatrix.x4, base-2 exponentials, and wgmma with its shared-memory
-// descriptors, fences and waits. The backward kernels keep flash_mma.cuh.
+// Device helpers of the Hopper (sm_90a) kernels (flash_fwd.cu,
+// flash_relpos_fwd.cu, flash_relpos_bwd.cu): 16- and 4-byte cp.async copies
+// into shared-memory tiles, mbarriers, TMA and its tensor maps, ldmatrix.x4,
+// base-2 exponentials, and wgmma with its shared-memory descriptors, fences
+// and waits. flash_bwd.cu keeps flash_mma.cuh alone.
 //
 // Two layouts of a [ROWS][COLS] bf16 tile in shared memory:
 //   Padded<STR>: row-major with a row stride of STR elements (COLS + 8), so
@@ -130,16 +131,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
-// Host: the tensor map of a bf16 tensor of `rank` dimensions (dims from the
+// Host: the tensor map of a tensor of `rank` dimensions (dims from the
 // innermost, which is contiguous; byte strides of the others, multiples of
-// 16) read in boxes of `box` elements whose first dimension is 64 (128
-// bytes, 128-byte swizzle); elements outside the tensor read zero.
+// 16) read in boxes of `box` elements whose first dimension spans 128 bytes
+// (128-byte swizzle); elements outside the tensor read zero.
 // cuTensorMapEncodeTiled is reached through the runtime's driver entry
 // point, so nothing links against libcuda.
-inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
-                                   int rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+inline cudaError_t tensor_map_sw128(CUtensorMap* map,
+                                    CUtensorMapDataType type,
+                                    const void* base, int rank,
+                                    const cuuint64_t* dims,
+                                    const cuuint64_t* strides,
+                                    const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -157,11 +160,30 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16: boxes of 64 elements across
+inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
+                                   int rank, const cuuint64_t* dims,
+                                   const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return tensor_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                          dims, strides, box);
+}
+
+// f32: boxes of 32 elements across. In shared memory element (r, c) of a
+// box lands at r * 128 + (((c / 4) ^ (r % 8)) * 16) + (c % 4) * 4 bytes
+// from the box's 1024-byte aligned start.
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const void* base,
+                                  int rank, const cuuint64_t* dims,
+                                  const cuuint64_t* strides,
+                                  const cuuint32_t* box) {
+  return tensor_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank,
+                          dims, strides, box);
 }
 
 // Moves registers between warpgroups: a producer gives up what it does not

@@ -42,7 +42,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "attention_recompute",
            "flash_attention_relpos", "flash_attention_relpos_reference",
            "flash_attention_relpos_dq_reference",
-           "flash_attention_relpos_dkv_reference", "KERNEL_LAUNCHES"]
+           "flash_attention_relpos_dkv_reference", "KERNEL_LAUNCHES",
+           "NARROW_LAUNCHES"]
 
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches, and nowhere else.
@@ -50,6 +51,12 @@ KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0,
                    "flash_attention_relpos_dq": 0,
                    "flash_attention_relpos_dkv": 0, "flash_attention_fwd": 0,
                    "flash_attention_dq": 0, "flash_attention_dkv": 0}
+# Those of the launches above that took a kernel's narrow variant (bf16 rows
+# not 16-byte aligned, or a shape the wide kernels do not serve), so that a
+# run can show that its main path took the wide kernels.
+NARROW_LAUNCHES = {"flash_attention_relpos_fwd": 0,
+                   "flash_attention_relpos_dq": 0,
+                   "flash_attention_relpos_dkv": 0, "flash_attention_fwd": 0}
 
 
 # ------------------------- plain flash attention -------------------------
@@ -145,10 +152,11 @@ def _flash_kernels():
 
 
 def _vector_loads(*tensors) -> bool:
-    """Whether the bf16 forward kernels may move ``tensors`` 16 bytes a
-    thread: every row 16-byte aligned (the data pointer, and every stride
-    but the last a multiple of 8 elements) and d a multiple of 8. Tensors
-    that miss it take the kernels' narrow variants, with 4-byte copies."""
+    """Whether the bf16 kernels may move ``tensors`` 16 bytes a thread (the
+    forward kernels by 16-byte copies or TMA, the rel-pos backward by TMA):
+    every row 16-byte aligned (the data pointer, and every stride but the
+    last a multiple of 8 elements) and d a multiple of 8. Tensors that miss
+    it take the kernels' narrow variants, with 4-byte copies."""
     return all(t.dtype == torch.bfloat16 and t.shape[-1] % 8 == 0
                and t.data_ptr() % 16 == 0
                and all(s % 8 == 0 for s in t.stride()[:-1])
@@ -188,11 +196,13 @@ def _kernel_tail(q):
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
-def _launch(name, fn, args):
+def _launch(name, fn, args, narrow=False):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
+    if narrow:
+        NARROW_LAUNCHES[name] += 1
 
 
 def _flash_fwd_cuda(q, k, v):
@@ -200,12 +210,11 @@ def _flash_fwd_cuda(q, k, v):
     q, k, v = _readable(q), _readable(k), _readable(v)
     o = _empty_bnhd(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16 and not _vector_loads(q, k, v, o):
-        fwd = fwd_narrow
+    narrow = q.dtype == torch.bfloat16 and not _vector_loads(q, k, v, o)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_fwd", fwd,
+        _launch("flash_attention_fwd", fwd_narrow if narrow else fwd,
                 _view(q) + _view(k) + _view(v) + _view(o) + [lse.data_ptr()]
-                + _kernel_tail(q))
+                + _kernel_tail(q), narrow)
     return o, lse
 
 
@@ -391,13 +400,33 @@ def _relpos_fwd_kernels():
 
 @functools.lru_cache(maxsize=None)
 def _relpos_bwd_kernels():
-    """(flash_relpos_dq, flash_relpos_dkv)."""
+    """{(side, narrow): C function}: ``flash_relpos_dq`` and
+    ``flash_relpos_dkv`` (sides "dq" and "dkv") and their ``_narrow``
+    variants."""
     lib = _build.load("flash_relpos_bwd")
-    lib.flash_relpos_dq.argtypes = [ctypes.c_void_p] * 11 + _RELPOS_TAIL
-    lib.flash_relpos_dkv.argtypes = [ctypes.c_void_p] * 10 + _RELPOS_TAIL
-    for fn in (lib.flash_relpos_dq, lib.flash_relpos_dkv):
-        fn.restype = ctypes.c_int
-    return lib.flash_relpos_dq, lib.flash_relpos_dkv
+    kernels = {}
+    for side, pointers in (("dq", 11), ("dkv", 10)):
+        for narrow in (False, True):
+            fn = getattr(lib, f"flash_relpos_{side}"
+                         + ("_narrow" if narrow else ""))
+            fn.argtypes = [ctypes.c_void_p] * pointers + _RELPOS_TAIL
+            fn.restype = ctypes.c_int
+            kernels[side, narrow] = fn
+    return kernels
+
+
+def _relpos_bwd_variant(q, k, v, do, rel_w) -> str:
+    """Which rel-pos backward kernels (K5, K6) take these inputs, as
+    ``csrc/flash_relpos_bwd.cu`` documents: "tma" (the wgmma kernels fed by
+    TMA: bf16 with k_w 64, d <= 64 and every row 16-byte aligned, SAM's
+    global layers), "narrow" (the mma.sync kernels: other bf16 inputs) or
+    "f32" (the FMA kernels). Launches nothing."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    if (rel_w.shape[-1] == 64 and q.shape[-1] <= 64
+            and _vector_loads(q, k, v, do)):
+        return "tma"
+    return "narrow"
 
 
 def _relpos_kernel_args(inputs, outputs):
@@ -432,10 +461,10 @@ def _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w):
     args = _relpos_kernel_args(
         dict(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w), (o, lse))
     fwd, fwd_narrow = _relpos_fwd_kernels()
-    if q.dtype == torch.bfloat16 and not _vector_loads(q, k, v):
-        fwd = fwd_narrow
+    narrow = q.dtype == torch.bfloat16 and not _vector_loads(q, k, v)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_relpos_fwd", fwd, args)
+        _launch("flash_attention_relpos_fwd", fwd_narrow if narrow else fwd,
+                args, narrow)
     return o, lse
 
 
@@ -445,8 +474,10 @@ def _flash_relpos_dq_cuda(q, k, v, rel_h, rel_w, do, lse, delta):
     args = _relpos_kernel_args(
         dict(q=q, k=k, v=v, do=do, rel_h=rel_h, rel_w=rel_w, lse=lse,
              delta=delta), (dq, drh, drw))
+    narrow = _relpos_bwd_variant(q, k, v, do, rel_w) == "narrow"
     with torch.cuda.device(q.device):
-        _launch("flash_attention_relpos_dq", _relpos_bwd_kernels()[0], args)
+        _launch("flash_attention_relpos_dq",
+                _relpos_bwd_kernels()["dq", narrow], args, narrow)
     return dq, drh, drw
 
 
@@ -455,8 +486,10 @@ def _flash_relpos_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta):
     args = _relpos_kernel_args(
         dict(q=q, k=k, v=v, do=do, rel_h=rel_h, rel_w=rel_w, lse=lse,
              delta=delta), (dk, dv))
+    narrow = _relpos_bwd_variant(q, k, v, do, rel_w) == "narrow"
     with torch.cuda.device(q.device):
-        _launch("flash_attention_relpos_dkv", _relpos_bwd_kernels()[1], args)
+        _launch("flash_attention_relpos_dkv",
+                _relpos_bwd_kernels()["dkv", narrow], args, narrow)
     return dk, dv
 
 

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from simpleaicv_tpu_torch.ops.flash_attention import (
-    KERNEL_LAUNCHES, flash_attention, flash_attention_backward_reference,
+    KERNEL_LAUNCHES, NARROW_LAUNCHES, flash_attention,
+    flash_attention_backward_reference,
     flash_attention_reference, flash_attention_relpos,
     flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
@@ -225,6 +226,94 @@ def test_relpos_gradients_match_plain_versions_on_card(dtype):
             torch.testing.assert_close(
                 g.float(), w.float(), rtol=0, msg=f"{name} {bh, k_h, k_w, d}",
                 atol=_grad_atol(w, w.dtype))
+
+
+def _by_heads(plain_fn, args, chunk=16):
+    """The plain version ``chunk`` heads at a time, the outputs joined: its
+    f32 [BH, N, N] tensors would crowd the card at 96 heads of SAM-B. The
+    heads are independent, so the result is the plain version's own."""
+    outs = [plain_fn(*(a[i:i + chunk] for a in args))
+            for i in range(0, args[0].shape[0], chunk)]
+    return tuple(torch.cat(col) for col in zip(*outs))
+
+
+def _relpos_bwd_inputs(rng, bh, k_h, k_w, d, offset=0):
+    """(q, k, v, rel_h, rel_w, dO, lse, delta) in bf16 as the backward gets
+    them; q, k, v and dO start ``offset`` elements into their buffers."""
+    n = k_h * k_w
+    q, k, v, do = (_randn(rng, bh, n, d).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    rh, rw = _randn(rng, bh, n, k_h).cuda(), _randn(rng, bh, n, k_w).cuda()
+    o, lse = flash_attention_relpos(q, k, v, rh, rw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if offset:
+        q, k, v, do = (_unaligned(t, offset) for t in (q, k, v, do))
+    return q, k, v, rh, rw, do, lse, delta
+
+
+def _relpos_bwd_launch(args):
+    return (*fa_ops._flash_relpos_dq_cuda(*args),
+            *fa_ops._flash_relpos_dkv_cuda(*args))
+
+
+def _check_relpos_bwd(args, variant):
+    """One launch of K5 and of K6 through ``variant`` against the plain
+    versions on the same inputs: bf16 dq, dk, dv within ``_grad_atol``, the
+    f32 drh and drw within 1e-4."""
+    q, k, v, _, rw, do = args[:6]
+    assert fa_ops._relpos_bwd_variant(q, k, v, do, rw) == variant
+    before, narrow_before = dict(KERNEL_LAUNCHES), dict(NARROW_LAUNCHES)
+    got = _relpos_bwd_launch(args)
+    for name in ("flash_attention_relpos_dq", "flash_attention_relpos_dkv"):
+        assert KERNEL_LAUNCHES[name] == before[name] + 1
+        assert NARROW_LAUNCHES[name] == (narrow_before[name]
+                                         + (variant == "narrow"))
+    want = (*_by_heads(flash_attention_relpos_dq_reference, args),
+            *_by_heads(flash_attention_relpos_dkv_reference, args))
+    for name, g, w in zip(("dq", "drh", "drw", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, msg=name,
+                                   atol=_grad_atol(w, w.dtype))
+
+
+# (BH, k_h, k_w, d) at the edges of the backward's tiling: SAM-B's global
+# layer at a training batch of 8 and for one image, one head with an odd
+# number of 128-query (K5) and 128-key (K6) tiles, the widths past 64 and
+# the key rows below 64 that take the narrow kernels
+RELPOS_BWD_EDGES = [(96, 64, 64, 64), (12, 64, 64, 64), (1, 3, 64, 64),
+                    (2, 8, 64, 80), (2, 8, 64, 128), (3, 6, 10, 64),
+                    (3, 8, 16, 64), (2, 8, 24, 64)]
+
+
+@pytest.mark.parametrize("bh,k_h,k_w,d", RELPOS_BWD_EDGES)
+def test_relpos_backward_tiling_edges_on_card(bh, k_h, k_w, d):
+    """K5 and K6 at the edges of their tiling: the wgmma kernels fed by TMA
+    where k_w is 64 and d at most 64, the narrow kernels elsewhere."""
+    rng = np.random.RandomState(bh * 100 + k_w + d)
+    _check_relpos_bwd(_relpos_bwd_inputs(rng, bh, k_h, k_w, d),
+                      "tma" if k_w == 64 and d <= 64 else "narrow")
+
+
+@pytest.mark.parametrize("bh,k_h,k_w,d,offset", [(3, 8, 64, 64, 2),
+                                                 (5, 8, 14, 42, 0)])
+def test_relpos_backward_narrow_variants_on_card(bh, k_h, k_w, d, offset):
+    """Rows 4 bytes off 16-byte alignment, and a d that is no multiple of
+    8, take the narrow kernels (mma.sync, 4-byte staging) and match."""
+    rng = np.random.RandomState(d + offset)
+    _check_relpos_bwd(_relpos_bwd_inputs(rng, bh, k_h, k_w, d, offset),
+                      "narrow")
+
+
+def test_relpos_backward_kernels_repeat_bitwise_on_card():
+    """No atomics: two launches of K5 and of K6 give the same bits, through
+    the TMA kernels and through the narrow ones."""
+    rng = np.random.RandomState(6)
+    for offset, variant in ((0, "tma"), (2, "narrow")):
+        args = _relpos_bwd_inputs(rng, 3, 5, 64, 64, offset)
+        q, k, v, _, rw, do = args[:6]
+        assert fa_ops._relpos_bwd_variant(q, k, v, do, rw) == variant
+        first, second = (_relpos_bwd_launch(args) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_relpos_gradients_survive_checkpointing_on_card():

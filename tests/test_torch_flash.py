@@ -188,3 +188,32 @@ def test_vector_or_narrow_loads(shape, offset, want):
     # a contiguous [BH, N, d] tensor, as the rel-pos kernel takes it
     flat = torch.zeros(6, 16, shape[-1], dtype=torch.bfloat16)
     assert port_fa._vector_loads(flat) is (shape[-1] % 8 == 0)
+
+
+@pytest.mark.parametrize("k_w,d,offset,dtype,want", [
+    (64, 64, 0, torch.bfloat16, "tma"),     # SAM's global layers
+    (64, 40, 0, torch.bfloat16, "tma"),     # d padded to 64 by TMA's zeros
+    (64, 80, 0, torch.bfloat16, "narrow"),  # d past 64
+    (16, 64, 0, torch.bfloat16, "narrow"),  # key rows below 64
+    (64, 64, 2, torch.bfloat16, "narrow"),  # 4 bytes off 16-byte alignment
+    (64, 64, 8, torch.bfloat16, "tma"),     # 16 bytes in: still aligned
+    (64, 42, 0, torch.bfloat16, "narrow"),  # d no multiple of 8
+    (64, 64, 0, torch.float32, "f32"),
+])
+def test_relpos_backward_variant(k_w, d, offset, dtype, want):
+    """The rel-pos backward (K5, K6) picks its kernels from the shapes and
+    the alignment of q, k, v and dO alone, as ``csrc/flash_relpos_bwd.cu``
+    documents, and launches nothing to do so."""
+    n = 2 * k_w
+
+    def rows(off):
+        buf = torch.zeros(3 * n * d + off, dtype=dtype)
+        return buf[off:].view(3, n, d)
+
+    aligned, moved = rows(0), rows(offset)
+    rel_w = torch.zeros(3, n, k_w)
+    before = dict(port_fa.KERNEL_LAUNCHES)
+    for args in ((moved, aligned, aligned, aligned),
+                 (aligned, aligned, aligned, moved)):
+        assert port_fa._relpos_bwd_variant(*args, rel_w) == want
+    assert port_fa.KERNEL_LAUNCHES == before
