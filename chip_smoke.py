@@ -375,9 +375,79 @@ def _flash_atol(key, want, dtype):
     return 2 * 2.0**-7 * want.float().abs().max().item()
 
 
+def _flash_bwd_check(name, args, want_variant):
+    """K2 and K3 on (q, k, v, dO, lse, delta) against their plain versions:
+    launched twice, the two giving the same bits, through the variant
+    ``want_variant``. Returns the names of the outputs that disagree."""
+    if fa._flash_bwd_variant(*args[:4]) != want_variant:
+        raise RuntimeError(f"{name}: the backward takes the "
+                           f"{fa._flash_bwd_variant(*args[:4])} kernels, "
+                           f"not {want_variant}")
+    narrow_before = dict(fa.NARROW_LAUNCHES)
+    got = (fa._flash_dq_cuda(*args), *fa._flash_dkv_cuda(*args))
+    again = (fa._flash_dq_cuda(*args), *fa._flash_dkv_cuda(*args))
+    narrow = {k: fa.NARROW_LAUNCHES[k] - narrow_before[k]
+              for k in ("flash_attention_dq", "flash_attention_dkv")}
+    if set(narrow.values()) != {2 if want_variant == "narrow" else 0}:
+        raise RuntimeError(f"{name}: narrow launches {narrow}")
+    want = (fa.flash_attention_dq_reference(*args),
+            *fa.flash_attention_dkv_reference(*args))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    keys = ("dq", "dk", "dv")
+    errs = {key: (a.float() - w.float()).abs().max().item()
+            for key, a, w in zip(keys, got, want)}
+    # at N 1 the softmax runs over one key, so dq and dk are 0: the plain
+    # version and the kernels both give the f32 rounding of dP - delta,
+    # which two bf16 steps at that largest value do not resolve; there they
+    # are held to the f32 tolerance
+    q = args[0]
+    one_key = q.shape[-2] == 1
+    tols = {key: 1e-4 if one_key and key != "dv"
+            else _flash_atol(key, w, w.dtype) for key, w in zip(keys, want)}
+    print(f"kernel check flash bwd {name} ({want_variant}) "
+          f"B={q.shape[0]} H={q.shape[1]} N={q.shape[2]} d={q.shape[3]}: "
+          + " ".join(f"max|{key}-ref|={e:.3e} (atol {tols[key]:.3e})"
+                     for key, e in errs.items())
+          + f"; two launches {'the same' if same else 'DIFFERENT'} bits",
+          flush=True)
+    return ([f"{name} {key}" for key, e in errs.items() if not e <= tols[key]]
+            + ([] if same else [f"{name} repeat"]))
+
+
+def _flash_bwd_edges():
+    """K2 and K3 at the edges of their tiling (token counts below, at and
+    past the 64-row tiles of the other side and the 128-row items, at d
+    40 and 64; one head, 133 heads, ViT-B/16's 1536), all through the
+    persistent wgmma kernels, and their narrow variants at d 80, d 128 and
+    a fused projection 4 bytes off 16-byte alignment; each case launched
+    twice for the same bits."""
+    cases = [(f"n{n}_d{d}", 2, 3, n, d, 0, "tma")
+             for n in (1, 5, 16, 17, 64, 65, 128, 129, 197, 208, 257, 300)
+             for d in (40, 64)]
+    cases += [("bh1", 1, 1, 197, 64, 0, "tma"),
+              ("bh133", 7, 19, 197, 64, 0, "tma"),
+              ("vit_b_b128", 128, 12, 197, 64, 0, "tma"),
+              ("vit_h_d80", 1, 16, 257, 80, 0, "narrow"),
+              ("d128", 1, 2, 130, 128, 0, "narrow"),
+              ("vit_b_unaligned", 2, 12, 197, 64, 2, "narrow")]
+    failed = []
+    for i, (name, b, h, n, d, offset, variant) in enumerate(cases):
+        q, k, v, do = _flash_inputs(b, h, n, d, torch.bfloat16, seed=60 + i,
+                                    offset=offset)
+        o, lse = fa.flash_attention_reference(q, k, v)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        failed += _flash_bwd_check(name, (q, k, v, do, lse, delta), variant)
+        del q, k, v, do, o, lse, delta
+    if failed:
+        raise RuntimeError(f"the flash backward kernels disagree with their "
+                           f"plain versions at {failed}")
+
+
 def phase_flash_kernels(card):
-    """K1-K3 (flash forward, dq, dk/dv) against their plain versions, then
-    their times at the ViT-B/16 batch-128 training shape."""
+    """K1-K3 (flash forward, dq, dk/dv) against their plain versions, K2
+    and K3 also at the edges of their tiling, then their times at the
+    ViT-B/16 batch-128 training shape."""
     # (name, B, H, N, d, offset): ViT-B/16 at batch 128, ViT-H/14 (d 80, N
     # 257), a multiple of the tiles, a tail (N = 5, d = 40 padded in the
     # kernel), and ViT-B/16's inputs 4 bytes off 16-byte alignment, which
@@ -412,6 +482,7 @@ def phase_flash_kernels(card):
     if failed:
         raise RuntimeError(f"flash attention kernels disagree with their "
                            f"plain versions at {failed}")
+    _flash_bwd_edges()
 
     # times at the training shape: ViT-B/16, batch 128, bf16
     _, b, h, n, d, _ = shapes[0]
@@ -423,18 +494,24 @@ def phase_flash_kernels(card):
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     o_lib = sdpa(ql, kl, vl)
     # the forward kernel, its narrow variant and SDPA's forward in turns
-    narrow = _flash_inputs(b, h, n, d, dtype, seed=29, offset=2)[:3]
+    narrow = _flash_inputs(b, h, n, d, dtype, seed=29, offset=2)
     fwd_times = _alternating({
         "kernel": lambda: fa._flash_fwd_cuda(q, k, v),
         "library": lambda: sdpa(q, k, v),
-        "narrow": lambda: fa._flash_fwd_cuda(*narrow)})
-    del narrow
-    # the backward kernels and SDPA's backward in turns
+        "narrow": lambda: fa._flash_fwd_cuda(*narrow[:3])})
+    # the backward kernels, their narrow variants (the mma.sync kernels, fed
+    # 4-byte aligned copies) and SDPA's backward in turns
+    if (fa._flash_bwd_variant(q, k, v, do),
+            fa._flash_bwd_variant(*narrow)) != ("tma", "narrow"):
+        raise RuntimeError("the timed inputs miss the kernels' variants")
     bwd_times = _alternating({
         "dq": lambda: fa._flash_dq_cuda(q, k, v, do, lse, delta),
         "dkv": lambda: fa._flash_dkv_cuda(q, k, v, do, lse, delta),
         "library": lambda: torch.autograd.grad(
-            o_lib, (ql, kl, vl), do, retain_graph=True)})
+            o_lib, (ql, kl, vl), do, retain_graph=True),
+        "dq_narrow": lambda: fa._flash_dq_cuda(*narrow, lse, delta),
+        "dkv_narrow": lambda: fa._flash_dkv_cuda(*narrow, lse, delta)})
+    del narrow
     tensor, rows = bh * n * d * 2, bh * n * 4  # one bf16 tensor, one f32 row
     pairs = 2.0 * n * n * d * bh               # one product's operations
     # (name, source, line, rounds, library rounds, plain version, flops,
@@ -483,8 +560,11 @@ def phase_flash_kernels(card):
                   f"forward {_spread(lib_rounds)}, narrow variant (4-byte "
                   f"copies) {_spread(fwd_times['narrow'])}", flush=True)
         else:
+            key = name.split("_")[-1]
             print(f"  in 5 rounds of 20: kernel {_spread(rounds)}, sdpa "
-                  f"backward {_spread(lib_rounds)}", flush=True)
+                  f"backward {_spread(lib_rounds)}, narrow variant "
+                  f"(mma.sync) {_spread(bwd_times[f'{key}_narrow'])}",
+                  flush=True)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"simpleaicv_tpu_torch/ops/csrc/{source}",
@@ -493,9 +573,16 @@ def phase_flash_kernels(card):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
             "ms_rounds": rounds, "library_ms_rounds": lib_rounds})
-        if name == "flash_attention_fwd":
-            kernels[-1]["narrow_variant_ms"] = statistics.median(
-                fwd_times["narrow"])
+        narrow_rounds = (fwd_times["narrow"] if name == "flash_attention_fwd"
+                         else bwd_times[f"{name.split('_')[-1]}_narrow"])
+        kernels[-1]["narrow_variant_ms"] = statistics.median(narrow_rounds)
+    # K2 + K3 against the one library call that computes dq, dk and dv
+    pair = [a + b for a, b in zip(bwd_times["dq"], bwd_times["dkv"])]
+    ratio = statistics.median(pair) / statistics.median(bwd_times["library"])
+    print(f"K2 + K3 ViT-B/16 b128 bf16 [{card}]: {_spread(pair)} (each "
+          f"round's two readings summed) against SDPA's backward "
+          f"{_spread(bwd_times['library'])}: {ratio:.3f} times it",
+          flush=True)
     return kernels
 
 

@@ -1,8 +1,8 @@
-// Device helpers of the Hopper (sm_90a) kernels (flash_fwd.cu,
+// Device helpers of the Hopper (sm_90a) kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_relpos_fwd.cu, flash_relpos_bwd.cu): 16- and 4-byte cp.async copies
 // into shared-memory tiles, mbarriers, TMA and its tensor maps, ldmatrix.x4,
 // base-2 exponentials, and wgmma with its shared-memory descriptors, fences
-// and waits. flash_bwd.cu keeps flash_mma.cuh alone.
+// and waits.
 //
 // Two layouts of a [ROWS][COLS] bf16 tile in shared memory:
 //   Padded<STR>: row-major with a row stride of STR elements (COLS + 8), so
@@ -420,10 +420,12 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[16] += A (64x16, registers) * B (16x32, shared, MN-major)
+// d[16] (+)= A (64x16, registers) * B (16x32, shared, MN-major); d = A B
+// where accumulate is 0, as for the products below
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
+                                             uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -434,13 +436,15 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
-// d[32] += A (64x16, registers) * B (16x64, shared, MN-major)
+// d[32] (+)= A (64x16, registers) * B (16x64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
+                                             uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -455,13 +459,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
-// d[40] += A (64x16, registers) * B (16x80, shared, MN-major)
+// d[40] (+)= A (64x16, registers) * B (16x80, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
+                                             uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
@@ -478,13 +484,15 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
-// d[64] += A (64x16, registers) * B (16x128, shared, MN-major)
+// d[64] (+)= A (64x16, registers) * B (16x128, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
+                                             uint64_t db,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -508,7 +516,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // The products by width: wgmma_ss<N> for N in {64, 128}, wgmma_rs<N> for N
@@ -527,16 +536,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate = 1) {
   if constexpr (N == 32) {
-    wgmma_rs_n32(d, a, db);
+    wgmma_rs_n32(d, a, db, accumulate);
   } else if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64(d, a, db, accumulate);
   } else if constexpr (N == 80) {
-    wgmma_rs_n80(d, a, db);
+    wgmma_rs_n80(d, a, db, accumulate);
   } else {
     static_assert(N == 128, "wgmma_rs: N 32, 64, 80 or 128");
-    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n128(d, a, db, accumulate);
   }
 }
 

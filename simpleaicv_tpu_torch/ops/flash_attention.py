@@ -56,7 +56,8 @@ KERNEL_LAUNCHES = {"flash_attention_relpos_fwd": 0,
 # run can show that its main path took the wide kernels.
 NARROW_LAUNCHES = {"flash_attention_relpos_fwd": 0,
                    "flash_attention_relpos_dq": 0,
-                   "flash_attention_relpos_dkv": 0, "flash_attention_fwd": 0}
+                   "flash_attention_relpos_dkv": 0, "flash_attention_fwd": 0,
+                   "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
 # ------------------------- plain flash attention -------------------------
@@ -136,24 +137,26 @@ _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 @functools.lru_cache(maxsize=None)
 def _flash_kernels():
-    """(flash_fwd, flash_fwd_narrow, flash_dq, flash_dkv), both libraries
+    """{name: C function} of ``flash_fwd`` ("fwd", "fwd_narrow") and
+    ``flash_bwd`` ("dq", "dq_narrow", "dkv", "dkv_narrow"), both libraries
     built together."""
     _build.build(["flash_fwd", "flash_bwd"])
     lib = _build.load("flash_fwd")
     bwd = _build.load("flash_bwd")
-    for fn in (lib.flash_fwd, lib.flash_fwd_narrow):
-        fn.argtypes = _VIEW * 4 + [ctypes.c_void_p] + _TAIL
-    bwd.flash_dq.argtypes = _VIEW * 5 + [ctypes.c_void_p] * 2 + _TAIL
-    bwd.flash_dkv.argtypes = _VIEW * 6 + [ctypes.c_void_p] * 2 + _TAIL
-    for fn in (lib.flash_fwd, lib.flash_fwd_narrow, bwd.flash_dq,
-               bwd.flash_dkv):
-        fn.restype = ctypes.c_int
-    return lib.flash_fwd, lib.flash_fwd_narrow, bwd.flash_dq, bwd.flash_dkv
+    kernels = {}
+    # (name, strided views, then f32 row pointers: lse, or lse and delta)
+    for name, views, rows in (("fwd", 4, 1), ("dq", 5, 2), ("dkv", 6, 2)):
+        for key in (name, f"{name}_narrow"):
+            fn = getattr(lib if name == "fwd" else bwd, f"flash_{key}")
+            fn.argtypes = _VIEW * views + [ctypes.c_void_p] * rows + _TAIL
+            fn.restype = ctypes.c_int
+            kernels[key] = fn
+    return kernels
 
 
 def _vector_loads(*tensors) -> bool:
     """Whether the bf16 kernels may move ``tensors`` 16 bytes a thread (the
-    forward kernels by 16-byte copies or TMA, the rel-pos backward by TMA):
+    forward kernels by 16-byte copies or TMA, the backward kernels by TMA):
     every row 16-byte aligned (the data pointer, and every stride but the
     last a multiple of 8 elements) and d a multiple of 8. Tensors that miss
     it take the kernels' narrow variants, with 4-byte copies."""
@@ -206,16 +209,29 @@ def _launch(name, fn, args, narrow=False):
 
 
 def _flash_fwd_cuda(q, k, v):
-    fwd, fwd_narrow, _, _ = _flash_kernels()
     q, k, v = _readable(q), _readable(k), _readable(v)
     o = _empty_bnhd(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     narrow = q.dtype == torch.bfloat16 and not _vector_loads(q, k, v, o)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_fwd", fwd_narrow if narrow else fwd,
+        _launch("flash_attention_fwd",
+                _flash_kernels()["fwd_narrow" if narrow else "fwd"],
                 _view(q) + _view(k) + _view(v) + _view(o) + [lse.data_ptr()]
                 + _kernel_tail(q), narrow)
     return o, lse
+
+
+def _flash_bwd_variant(q, k, v, do) -> str:
+    """Which backward kernels (K2, K3) take these inputs, as
+    ``csrc/flash_bwd.cu`` documents: "tma" (the persistent wgmma kernels fed
+    by TMA: bf16 with d <= 64 and every row 16-byte aligned, ViT-B/16's
+    layers), "narrow" (the mma.sync kernels: other bf16 inputs, d 80 and
+    128 among them) or "f32" (the FMA kernels). Launches nothing."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    if q.shape[-1] <= 64 and _vector_loads(q, k, v, do):
+        return "tma"
+    return "narrow"
 
 
 def _bwd_args(q, k, v, do, lse, delta):
@@ -230,22 +246,25 @@ def _bwd_args(q, k, v, do, lse, delta):
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta):
-    _, _, dq_fn, _ = _flash_kernels()
     held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
+    narrow = _flash_bwd_variant(*held[:4]) == "narrow"
     dq = _empty_bnhd(q)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_dq", dq_fn, inputs + _view(dq) + tail)
+        _launch("flash_attention_dq",
+                _flash_kernels()["dq_narrow" if narrow else "dq"],
+                inputs + _view(dq) + tail, narrow)
     del held
     return dq
 
 
 def _flash_dkv_cuda(q, k, v, do, lse, delta):
-    _, _, _, dkv_fn = _flash_kernels()
     held, inputs, tail = _bwd_args(q, k, v, do, lse, delta)
+    narrow = _flash_bwd_variant(*held[:4]) == "narrow"
     dk, dv = _empty_bnhd(q), _empty_bnhd(q)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_dkv", dkv_fn,
-                inputs + _view(dk) + _view(dv) + tail)
+        _launch("flash_attention_dkv",
+                _flash_kernels()["dkv_narrow" if narrow else "dkv"],
+                inputs + _view(dk) + _view(dv) + tail, narrow)
     del held
     return dk, dv
 

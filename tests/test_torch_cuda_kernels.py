@@ -13,7 +13,8 @@ import torch
 
 from simpleaicv_tpu_torch.ops.flash_attention import (
     KERNEL_LAUNCHES, NARROW_LAUNCHES, flash_attention,
-    flash_attention_backward_reference,
+    flash_attention_backward_reference, flash_attention_dkv_reference,
+    flash_attention_dq_reference,
     flash_attention_reference, flash_attention_relpos,
     flash_attention_relpos_dkv_reference, flash_attention_relpos_dq_reference,
     flash_attention_relpos_reference)
@@ -187,6 +188,96 @@ def test_flash_kernels_copy_what_they_cannot_read_in_place():
     o = flash_attention(q, k, v)
     o_ref, _ = flash_attention_reference(q, k, v)
     torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
+
+
+def _flash_bwd_inputs(rng, b, h, n, d, offset=0, fused=True):
+    """(q, k, v, dO, lse, delta) in bf16 as the backward gets them: q, k, v
+    [B, H, N, d] views of one fused [B, N, 3, H, d] projection whose storage
+    starts ``offset`` elements into its buffer (or, not ``fused``, three
+    contiguous [B, H, N, d] tensors), dO a view of [B, N, H, d] storage,
+    lse from the plain forward and delta = rowsum(dO * o) in f32."""
+    if fused:
+        qkv = _randn(rng, b, n, 3, h, d).to("cuda", torch.bfloat16)
+        if offset:
+            qkv = _unaligned(qkv, offset)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    else:
+        q, k, v = (_randn(rng, b, h, n, d).to("cuda", torch.bfloat16)
+                   for _ in range(3))
+    do = _randn(rng, b, n, h, d).to("cuda", torch.bfloat16).transpose(1, 2)
+    o, lse = flash_attention_reference(q, k, v)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return q, k, v, do, lse, delta
+
+
+def _flash_bwd_launch(args):
+    return (fa_ops._flash_dq_cuda(*args), *fa_ops._flash_dkv_cuda(*args))
+
+
+def _check_flash_bwd(args, variant):
+    """One launch of K2 and of K3 through ``variant`` against the plain
+    versions on the same inputs, dq, dk, dv within ``_grad_atol``. At N 1
+    the softmax runs over one key, so dq and dk are 0: the plain version
+    and the kernels both give the f32 rounding of dP - delta (1e-9 and
+    1e-7 of inputs near 1), which two bf16 steps at that largest value do
+    not resolve; there they are held to the f32 tolerance, 1e-4."""
+    assert fa_ops._flash_bwd_variant(*args[:4]) == variant
+    before, narrow_before = dict(KERNEL_LAUNCHES), dict(NARROW_LAUNCHES)
+    got = _flash_bwd_launch(args)
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        assert KERNEL_LAUNCHES[name] == before[name] + 1
+        assert NARROW_LAUNCHES[name] == (narrow_before[name]
+                                         + (variant == "narrow"))
+    want = (flash_attention_dq_reference(*args),
+            *flash_attention_dkv_reference(*args))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        one_key = args[0].shape[-2] == 1 and name != "dv"
+        atol = 1e-4 if one_key else _grad_atol(w, w.dtype)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, msg=name,
+                                   atol=atol)
+
+
+# (B, H, N, d, fused) at the edges of the backward's tiling: token counts
+# below, at and past the 64-row tiles of the other side (tails of 1 to 63
+# rows) and the 128-row items, at a padded and the full head width; one
+# head, 133 heads (no multiple of the persistent grid) and ViT-B/16's 1536
+# at batch 128; and three contiguous [B, H, N, d] tensors in place of the
+# fused projection
+FLASH_BWD_EDGES = ([(2, 3, n, d, True)
+                    for n in (1, 5, 16, 17, 64, 65, 128, 129, 197, 208, 257,
+                              300) for d in (40, 64)]
+                   + [(1, 1, 197, 64, True), (7, 19, 197, 64, True),
+                      (128, 12, 197, 64, True), (2, 3, 197, 64, False)])
+
+
+@pytest.mark.parametrize("b,h,n,d,fused", FLASH_BWD_EDGES)
+def test_flash_backward_tiling_edges_on_card(b, h, n, d, fused):
+    """K2 and K3 at the edges of their tiling, through the persistent wgmma
+    kernels fed by TMA, without a narrow launch."""
+    rng = np.random.RandomState(b * h + n + d)
+    _check_flash_bwd(_flash_bwd_inputs(rng, b, h, n, d, fused=fused), "tma")
+
+
+@pytest.mark.parametrize("b,h,n,d,offset", [(1, 16, 257, 80, 0),
+                                            (1, 2, 130, 128, 0),
+                                            (2, 12, 197, 64, 2)])
+def test_flash_backward_narrow_variants_on_card(b, h, n, d, offset):
+    """d 80 (ViT-H) and 128, and a fused projection 4 bytes off 16-byte
+    alignment, take the narrow kernels (mma.sync) and match."""
+    rng = np.random.RandomState(d + offset)
+    _check_flash_bwd(_flash_bwd_inputs(rng, b, h, n, d, offset), "narrow")
+
+
+def test_flash_backward_kernels_repeat_bitwise_on_card():
+    """No atomics: two launches of K2 and of K3 give the same bits, through
+    the wgmma kernels and through the narrow ones."""
+    rng = np.random.RandomState(7)
+    for offset, variant in ((0, "tma"), (2, "narrow")):
+        args = _flash_bwd_inputs(rng, 2, 12, 197, 64, offset)
+        assert fa_ops._flash_bwd_variant(*args[:4]) == variant
+        first, second = (_flash_bwd_launch(args) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 RELPOS_SHAPES = [(3, 16, 16, 32), (2, 8, 16, 40), (3, 10, 10, 40),

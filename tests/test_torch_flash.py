@@ -217,3 +217,37 @@ def test_relpos_backward_variant(k_w, d, offset, dtype, want):
                  (aligned, aligned, aligned, moved)):
         assert port_fa._relpos_bwd_variant(*args, rel_w) == want
     assert port_fa.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,d,offset,n,want", [
+    (torch.bfloat16, 64, 0, 197, "tma"),     # ViT-B/16's layers
+    (torch.bfloat16, 40, 0, 197, "tma"),     # d padded to 64 by TMA's zeros
+    (torch.bfloat16, 64, 0, 1, "tma"),       # one token: a 1-row tile
+    (torch.bfloat16, 64, 0, 300, "tma"),     # a 44-row last tile
+    (torch.bfloat16, 80, 0, 257, "narrow"),  # ViT-H's d 80
+    (torch.bfloat16, 128, 0, 197, "narrow"),  # d past 64
+    (torch.bfloat16, 64, 2, 197, "narrow"),  # 4 bytes off 16-byte alignment
+    (torch.bfloat16, 64, 8, 197, "tma"),     # 16 bytes in: still aligned
+    (torch.bfloat16, 42, 0, 197, "narrow"),  # d no multiple of 8
+    (torch.float32, 64, 0, 197, "f32"),
+])
+def test_flash_backward_variant(dtype, d, offset, n, want):
+    """The flash backward (K2, K3) picks its kernels from the head width and
+    the alignment of q, k, v and dO alone, as ``csrc/flash_bwd.cu``
+    documents, and launches nothing to do so: each tensor a [B, H, N, d]
+    view of a fused [B, N, 3, H, d] projection (dO of [B, N, H, d]), one of
+    them ``offset`` elements into its buffer."""
+    b, h = 2, 3
+
+    def fused(off):
+        buf = torch.zeros(b * n * 3 * h * d + off, dtype=dtype)
+        return [t.transpose(1, 2)
+                for t in buf[off:].view(b, n, 3, h, d).unbind(2)]
+
+    aligned, moved = fused(0), fused(offset)
+    do = _offset_view((b, h, n, d), 0, dtype)
+    do_moved = _offset_view((b, h, n, d), offset, dtype)
+    before = dict(port_fa.KERNEL_LAUNCHES)
+    for args in ((moved[0], *aligned[1:], do), (*aligned, do_moved)):
+        assert port_fa._flash_bwd_variant(*args) == want
+    assert port_fa.KERNEL_LAUNCHES == before
