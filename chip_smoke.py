@@ -30,11 +30,12 @@ Phases, each of which raises (exit code 1) on failure:
      every step, profiles one step, and compares one more step's loss and
      gradients with the einsum attention path;
   6. MSDA kernels: holds the multi-scale deformable attention kernels (K7
-     and its backward) against their plain versions at edge shapes, through
-     the module with 2-D and 4-D reference points, and at DINO-DETR's
-     encoder launch at batch 2 (the plain version run over chunks of
-     queries), and times them there beside their bound and the reference's
-     grid_sample composition;
+     and its backward, tiled or its narrow variant) against their plain
+     versions at edge shapes, through the module with 2-D and 4-D reference
+     points, and at DINO-DETR's encoder and decoder launches at batch 2
+     (the plain version run over chunks of queries), and times them there
+     beside their bound, the reference's grid_sample composition and the
+     backward's narrow variant;
   7. DINO-DETR training: takes resnet50_dinodetr 1024x1024 train steps at
      batch 2 through ``make_train_step`` (the res50_dinodetr_yoloresize1024
      recipe's DINODETRLoss, AdamW with the backbone at 1e-5 and clipping at
@@ -78,6 +79,8 @@ from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
+from simpleaicv_tpu_torch.perf.msda_split import (DINO_BATCH, DINO_LEVELS,
+                                                  DINO_POINTS, launch_inputs)
 from simpleaicv_tpu_torch.perf.timing import alternating_ms as _alternating
 from simpleaicv_tpu_torch.perf.timing import bound as _bound
 from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
@@ -415,39 +418,73 @@ def _flash_bwd_check(name, args, want_variant):
             + ([] if same else [f"{name} repeat"]))
 
 
-def _flash_bwd_edges():
-    """K2 and K3 at the edges of their tiling (token counts below, at and
-    past the 64-row tiles of the other side and the 128-row items, at d
-    40 and 64; one head, 133 heads, ViT-B/16's 1536), all through the
-    persistent wgmma kernels, and their narrow variants at d 80, d 128 and
-    a fused projection 4 bytes off 16-byte alignment; each case launched
-    twice for the same bits."""
-    cases = [(f"n{n}_d{d}", 2, 3, n, d, 0, "tma")
+def _flash_fwd_check(name, q, k, v, want_variant):
+    """K1 on (q, k, v) against its plain version: launched twice, the two
+    giving the same bits, through the variant ``want_variant``, with a
+    narrow launch counted exactly when that variant is the narrow one.
+    Returns the names of the outputs that disagree."""
+    if fa._flash_fwd_variant(q, k, v) != want_variant:
+        raise RuntimeError(f"{name}: the forward takes its "
+                           f"{fa._flash_fwd_variant(q, k, v)} kernel, not "
+                           f"{want_variant}")
+    narrow_before = fa.NARROW_LAUNCHES["flash_attention_fwd"]
+    got, again = fa._flash_fwd_cuda(q, k, v), fa._flash_fwd_cuda(q, k, v)
+    narrow = fa.NARROW_LAUNCHES["flash_attention_fwd"] - narrow_before
+    if narrow != (2 if want_variant == "narrow" else 0):
+        raise RuntimeError(f"{name}: {narrow} narrow forward launches")
+    want = fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = {key: (a.float() - w.float()).abs().max().item()
+            for key, a, w in zip(("o", "lse"), got, want)}
+    tols = {key: _flash_atol(key, w, q.dtype)
+            for key, w in zip(("o", "lse"), want)}
+    print(f"kernel check flash fwd {name} ({want_variant}) B={q.shape[0]} "
+          f"H={q.shape[1]} N={q.shape[2]} d={q.shape[3]}: "
+          + " ".join(f"max|{key}-ref|={e:.3e} (atol {tols[key]:.3e})"
+                     for key, e in errs.items())
+          + f"; two launches {'the same' if same else 'DIFFERENT'} bits",
+          flush=True)
+    return ([f"{name} {key}" for key, e in errs.items() if not e <= tols[key]]
+            + ([] if same else [f"{name} fwd repeat"]))
+
+
+def _flash_edges():
+    """K1, K2 and K3 at the edges of their tiling (token counts below, at
+    and past the 64-row tiles and the 128- and 256-row items, at d 40 and
+    64; one
+    head, 133 heads, ViT-B/16's 1536), all through the persistent wgmma
+    kernels, and their other variants at d 80 and d 128 (K1's mma.sync
+    kernel with 16-byte copies, K2's and K3's narrow ones) and at a fused
+    projection 4 bytes off 16-byte alignment (the narrow variants); each
+    case launched twice for the same bits."""
+    cases = [(f"n{n}_d{d}", 2, 3, n, d, 0, "tma", "tma")
              for n in (1, 5, 16, 17, 64, 65, 128, 129, 197, 208, 257, 300)
              for d in (40, 64)]
-    cases += [("bh1", 1, 1, 197, 64, 0, "tma"),
-              ("bh133", 7, 19, 197, 64, 0, "tma"),
-              ("vit_b_b128", 128, 12, 197, 64, 0, "tma"),
-              ("vit_h_d80", 1, 16, 257, 80, 0, "narrow"),
-              ("d128", 1, 2, 130, 128, 0, "narrow"),
-              ("vit_b_unaligned", 2, 12, 197, 64, 2, "narrow")]
+    cases += [("bh1", 1, 1, 197, 64, 0, "tma", "tma"),
+              ("bh133", 7, 19, 197, 64, 0, "tma", "tma"),
+              ("vit_b_b128", 128, 12, 197, 64, 0, "tma", "tma"),
+              ("vit_h_d80", 1, 16, 257, 80, 0, "wide_sync", "narrow"),
+              ("d128", 1, 2, 130, 128, 0, "wide_sync", "narrow"),
+              ("vit_b_unaligned", 2, 12, 197, 64, 2, "narrow", "narrow")]
     failed = []
-    for i, (name, b, h, n, d, offset, variant) in enumerate(cases):
+    for i, (name, b, h, n, d, offset, fwd, bwd) in enumerate(cases):
         q, k, v, do = _flash_inputs(b, h, n, d, torch.bfloat16, seed=60 + i,
                                     offset=offset)
+        failed += _flash_fwd_check(name, q, k, v, fwd)
         o, lse = fa.flash_attention_reference(q, k, v)
         delta = (do.float() * o.float()).sum(dim=-1)
-        failed += _flash_bwd_check(name, (q, k, v, do, lse, delta), variant)
+        failed += _flash_bwd_check(name, (q, k, v, do, lse, delta), bwd)
         del q, k, v, do, o, lse, delta
     if failed:
-        raise RuntimeError(f"the flash backward kernels disagree with their "
-                           f"plain versions at {failed}")
+        raise RuntimeError(f"the flash kernels disagree with their plain "
+                           f"versions at {failed}")
 
 
 def phase_flash_kernels(card):
-    """K1-K3 (flash forward, dq, dk/dv) against their plain versions, K2
-    and K3 also at the edges of their tiling, then their times at the
-    ViT-B/16 batch-128 training shape."""
+    """K1-K3 (flash forward, dq, dk/dv) against their plain versions, also
+    at the edges of their tiling, then their times at the ViT-B/16
+    batch-128 training shape."""
     # (name, B, H, N, d, offset): ViT-B/16 at batch 128, ViT-H/14 (d 80, N
     # 257), a multiple of the tiles, a tail (N = 5, d = 40 padded in the
     # kernel), and ViT-B/16's inputs 4 bytes off 16-byte alignment, which
@@ -482,7 +519,7 @@ def phase_flash_kernels(card):
     if failed:
         raise RuntimeError(f"flash attention kernels disagree with their "
                            f"plain versions at {failed}")
-    _flash_bwd_edges()
+    _flash_edges()
 
     # times at the training shape: ViT-B/16, batch 128, bf16
     _, b, h, n, d, _ = shapes[0]
@@ -493,17 +530,20 @@ def phase_flash_kernels(card):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     o_lib = sdpa(ql, kl, vl)
-    # the forward kernel, its narrow variant and SDPA's forward in turns
+    # the forward kernel, its narrow variant (4-byte copies) and SDPA's
+    # forward in turns
     narrow = _flash_inputs(b, h, n, d, dtype, seed=29, offset=2)
+    if (fa._flash_fwd_variant(q, k, v), fa._flash_fwd_variant(*narrow[:3]),
+            fa._flash_bwd_variant(q, k, v, do),
+            fa._flash_bwd_variant(*narrow)) != ("tma", "narrow", "tma",
+                                                 "narrow"):
+        raise RuntimeError("the timed inputs miss the kernels' variants")
     fwd_times = _alternating({
         "kernel": lambda: fa._flash_fwd_cuda(q, k, v),
         "library": lambda: sdpa(q, k, v),
         "narrow": lambda: fa._flash_fwd_cuda(*narrow[:3])})
     # the backward kernels, their narrow variants (the mma.sync kernels, fed
     # 4-byte aligned copies) and SDPA's backward in turns
-    if (fa._flash_bwd_variant(q, k, v, do),
-            fa._flash_bwd_variant(*narrow)) != ("tma", "narrow"):
-        raise RuntimeError("the timed inputs miss the kernels' variants")
     bwd_times = _alternating({
         "dq": lambda: fa._flash_dq_cuda(q, k, v, do, lse, delta),
         "dkv": lambda: fa._flash_dkv_cuda(q, k, v, do, lse, delta),
@@ -750,17 +790,18 @@ def _serve(pred, kind, image, prompt):
 
 def _reset_launches():
     for counts in (fa.KERNEL_LAUNCHES, fa.NARROW_LAUNCHES,
-                   msda.KERNEL_LAUNCHES, matmul_probe.KERNEL_LAUNCHES,
-                   bw_probe.KERNEL_LAUNCHES):
+                   msda.KERNEL_LAUNCHES, msda.NARROW_LAUNCHES,
+                   matmul_probe.KERNEL_LAUNCHES, bw_probe.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _wide_kernels_only(path):
-    """Fails if a flash kernel took its narrow variant since the counts were
-    last set to 0: a main path's inputs are aligned and of the shapes the
-    wide kernels serve."""
-    narrow = {k: v for k, v in fa.NARROW_LAUNCHES.items() if v}
+    """Fails if a flash or MSDA kernel took its narrow variant since the
+    counts were last set to 0: a main path's inputs are aligned and of the
+    shapes the wide (tiled) kernels serve."""
+    narrow = {k: v for counts in (fa.NARROW_LAUNCHES, msda.NARROW_LAUNCHES)
+              for k, v in counts.items() if v}
     if narrow:
         raise RuntimeError(f"{path} launched narrow variants: {narrow}")
 
@@ -1277,31 +1318,39 @@ def phase_sam_training(card, timed_batches=6):
 # DINO-DETR at the res50_dinodetr_yoloresize1024 recipe's 1024^2 and one
 # card's batch of 2: levels C2-C5 and a stride-64 convolution, 8 heads of
 # 32 channels, 4 points per level
-DINO_BATCH = 2
 DINO_IMAGE = 1024
-DINO_LEVELS = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))
-DINO_HEADS, DINO_HEAD_DIM, DINO_POINTS = 8, 32, 4
 DINO_QUERIES = 900 + 200  # the decoder's queries and denoising slots
 MSDA_KERNELS = ("msda_fwd", "msda_bwd")
 
 
-def _msda_case(b, lq, h, d, shapes, p, lo, hi, seed, on_centres=False):
+def _msda_case(b, lq, h, d, shapes, p, lo, hi, seed, where="uniform"):
     """value, locations, weights and grad_out on the card from a seeded CPU
-    generator. ``on_centres`` puts every location on a cell centre, where
-    the pixel coordinate x = loc * w - 0.5 is an integer and the sample
-    lies on the border between two bilinear cells."""
+    generator. Locations (``where``): uniform in [lo, hi]; on cell centres
+    ("centres", where the pixel coordinate x = loc * w - 0.5 is an integer
+    and the sample lies on the border between two bilinear cells); around
+    each query's own cell, the queries a grid over every level as in
+    DINO-DETR's encoder ("grid", lq = S, up to 2 cells off); or inside
+    random boxes ("boxes", as the decoder's queries sample)."""
     g = torch.Generator().manual_seed(seed)
     n_levels = len(shapes)
     s = sum(hh * ww for hh, ww in shapes)
     value = torch.randn(b, s, h, d, generator=g)
     loc = lo + (hi - lo) * torch.rand(b, lq, h, n_levels, p, 2, generator=g)
-    if on_centres:
-        wh = torch.tensor([[ww, hh] for hh, ww in shapes],
-                          dtype=torch.float32)[None, None, None, :, None]
+    wh = torch.tensor([[ww, hh] for hh, ww in shapes],
+                      dtype=torch.float32)[None, None, None, :, None]
+    if where == "centres":
         loc = (torch.floor(loc * wh).clamp(min=0) + 0.5) / wh
+    elif where == "grid":
+        centres = torch.cat([dinodetr._grid_centres(hh, ww, "cpu")
+                             for hh, ww in shapes])
+        loc = (centres[None, :, None, None, None, :]
+               + 4 * (loc - 0.5) / wh)
+    elif where == "boxes":
+        box = torch.rand(b, lq, 1, 1, 1, 4, generator=g)
+        loc = box[..., :2] + (loc - 0.5) * (0.05 + 0.3 * box[..., 2:])
     wts = torch.rand(b, lq, h, n_levels, p, generator=g)
     grad_out = torch.randn(b, lq, h * d, generator=g)
-    return tuple(t.cuda() for t in (value, loc, wts, grad_out))
+    return tuple(t.cuda() for t in (value, loc.contiguous(), wts, grad_out))
 
 
 def _rel_err(got, want):
@@ -1362,38 +1411,6 @@ def _grid_sample_msda(value, shapes, loc, wts):
     return out.view(b, h * d, lq).transpose(1, 2)
 
 
-def _launch_inputs(lq, seed, boxes):
-    """K7's inputs at a DINO-DETR launch at batch 2, on the card: value
-    [2, S, 8, 32]; locations as the model forms them at its initial
-    offsets (the directional bias, up to 4 cells, plus noise): around every
-    cell centre of every level (the encoder, ``boxes`` False) or around
-    ``lq`` random boxes (the decoder's 4-D form); softmax weights."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    b, h, d, p = DINO_BATCH, DINO_HEADS, DINO_HEAD_DIM, DINO_POINTS
-    n_levels = len(DINO_LEVELS)
-    s = sum(hh * ww for hh, ww in DINO_LEVELS)
-    value = torch.randn(b, s, h, d, generator=g, device="cuda")
-    offsets = (dinodetr._offsets_bias(h, n_levels, p).cuda().reshape(
-        h, n_levels, p, 2) + 0.5 * torch.randn(
-        b, lq, h, n_levels, p, 2, generator=g, device="cuda"))
-    if boxes:
-        ref = torch.rand(b, lq, 1, 1, 1, 4, generator=g, device="cuda")
-        ref_wh = 0.05 + 0.3 * ref[..., 2:]
-        loc = ref[..., :2] + offsets / p * ref_wh * 0.5
-    else:
-        centres = torch.cat([dinodetr._grid_centres(hh, ww, "cuda")
-                             for hh, ww in DINO_LEVELS])
-        wh = torch.tensor([[ww, hh] for hh, ww in DINO_LEVELS],
-                          dtype=torch.float32, device="cuda")
-        loc = (centres[None, :, None, None, None, :]
-               + offsets / wh[None, None, None, :, None, :])
-    wts = torch.softmax(torch.randn(b, lq, h, n_levels * p, generator=g,
-                                    device="cuda"), -1).reshape(
-        b, lq, h, n_levels, p)
-    grad_out = torch.randn(b, lq, h * d, generator=g, device="cuda")
-    return value, loc.contiguous(), wts, grad_out
-
-
 def _corners(shapes, loc):
     """(inside, rows): how many of the samples' bilinear corners lie inside
     their level (the corners both kernels read, and K7b's atomic adds per
@@ -1425,7 +1442,7 @@ def _msda_times(card, name, lq, seed, boxes):
     (over chunks of queries), times beside the plain version, the
     grid_sample composition and its autograd backward, and the bounds."""
     shapes = DINO_LEVELS
-    value, loc, wts, grad_out = _launch_inputs(lq, seed, boxes)
+    value, loc, wts, grad_out = launch_inputs(lq, seed, boxes)
     out = msda._msda_fwd_cuda(value, shapes, loc, wts)
     grads = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
     want = _by_query_chunks(value, shapes, loc, wts)
@@ -1455,6 +1472,15 @@ def _msda_times(card, name, lq, seed, boxes):
                       20)
     ms_bwd = _cuda_ms(lambda: msda._msda_bwd_cuda(value, shapes, loc, wts,
                                                   grad_out), 20)
+    # the narrow variant (the previous design) on the same inputs, fed a
+    # value 4 bytes off 16-byte alignment
+    moved = _unaligned(value, 1)
+    if (msda._msda_bwd_variant(value, shapes, loc),
+            msda._msda_bwd_variant(moved, shapes, loc)) != ("tiled", "narrow"):
+        raise RuntimeError("the timed inputs miss the backward's variants")
+    ms_narrow = _cuda_ms(lambda: msda._msda_bwd_cuda(moved, shapes, loc, wts,
+                                                     grad_out), 20)
+    del moved
     plain_fwd = _cuda_ms(lambda: _by_query_chunks(value, shapes, loc, wts),
                          3)
     plain_bwd = _cuda_ms(lambda: _by_query_chunks(value, shapes, loc, wts,
@@ -1505,6 +1531,12 @@ def _msda_times(card, name, lq, seed, boxes):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
+        if kname == "msda_bwd":
+            kernels[-1]["narrow_variant_ms"] = ms_narrow
+            print(f"  the narrow variant (a warp per (b, q, h), the "
+                  f"previous design) on the same inputs: {ms_narrow:.4f} ms, "
+                  f"{ms_narrow / ms:.3f} times the tiled kernel's",
+                  flush=True)
     return kernels
 
 
@@ -1552,38 +1584,83 @@ def _module_check():
                            "plain version")
 
 
+def _msda_check(name, value, shapes, loc, wts, grad_out, want_variant):
+    """K7 and K7b on one case against their plain versions: the backward
+    launched twice through ``want_variant`` (its location and weight
+    gradients the same bits both times), with a narrow launch counted
+    exactly when that variant is the narrow one. Returns the relative
+    errors of out, grad_value, grad_loc and grad_weights."""
+    if msda._msda_bwd_variant(value, shapes, loc) != want_variant:
+        raise RuntimeError(f"{name}: the backward takes its "
+                           f"{msda._msda_bwd_variant(value, shapes, loc)} "
+                           f"kernel, not {want_variant}")
+    narrow_before = msda.NARROW_LAUNCHES["msda_bwd"]
+    out = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    got = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
+    again = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
+    narrow = msda.NARROW_LAUNCHES["msda_bwd"] - narrow_before
+    if narrow != (2 if want_variant == "narrow" else 0):
+        raise RuntimeError(f"{name}: {narrow} narrow backward launches")
+    want = (msda.ms_deform_attn_reference(value, shapes, loc, wts),
+            *msda.ms_deform_attn_backward_reference(value, shapes, loc, wts,
+                                                    grad_out))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+        raise RuntimeError(f"{name}: two launches gave different location "
+                           f"or weight gradients")
+    return [_rel_err(a, w) for a, w in zip((out, *got), want)]
+
+
 def phase_msda_kernels(card):
-    """K7 and K7b against their plain versions at edge shapes (D 8, 16, 32,
-    48; 1 to 5 levels with a 16x16 tail; locations in [-0.1, 1.1] and on
-    cell centres), through the module with 2-D and 4-D reference points, and
-    at DINO-DETR's encoder and decoder launches, timed there."""
+    """K7 and K7b against their plain versions at edge shapes (D 8 to 48; 1
+    to 5 levels with a 16x16 tail, levels too large for shared memory;
+    locations in [-0.1, 1.1], on cell centres, around each query's own cell
+    and inside random boxes; B 1 and 2, query counts that no chunk divides)
+    through the tiled backward, and at shapes it does not serve through its
+    narrow variant; through the module with 2-D and 4-D reference points;
+    and at DINO-DETR's encoder and decoder launches, timed there beside the
+    narrow variant."""
+    # (name, B, Lq, H, D, levels, P, location range, where, variant)
     cases = [
-        ("d32_one_level", 2, 50, 8, 32, ((16, 16),), 4, 0.0, 1.0, False),
+        ("d32_one_level", 2, 50, 8, 32, ((16, 16),), 4, 0.0, 1.0, "uniform",
+         "tiled"),
         ("d8_two_levels", 2, 50, 8, 8, ((8, 8), (4, 4)), 3, -0.1, 1.1,
-         False),
+         "uniform", "tiled"),
         ("d16_five_levels", 1, 77, 4, 16,
          ((32, 32), (16, 16), (8, 8), (4, 4), (16, 16)), 4, -0.1, 1.1,
-         False),
+         "uniform", "tiled"),
         ("d48_odd_levels", 2, 40, 8, 48, ((12, 10), (5, 7)), 4, -0.1, 1.1,
-         False),
+         "uniform", "tiled"),
         ("d32_centres", 2, 40, 8, 32, ((12, 10), (5, 7), (16, 16)), 4, -0.1,
-         1.1, True),
-        ("d32_dino_levels", 1, 64, 8, 32, DINO_LEVELS, 4, -0.1, 1.1, False),
+         1.1, "centres", "tiled"),
+        ("d32_dino_levels", 1, 64, 8, 32, DINO_LEVELS, 4, -0.1, 1.1,
+         "uniform", "tiled"),
+        ("d32_grid", 2, 1360, 8, 32, ((32, 32), (16, 16), (8, 8), (4, 4)), 4,
+         0.0, 1.0, "grid", "tiled"),
+        ("d32_boxes", 1, 1100, 8, 32, ((64, 64), (32, 32), (16, 16)), 4, 0.0,
+         1.0, "boxes", "tiled"),
+        ("d32_large_levels", 1, 3001, 2, 32, ((96, 96), (72, 72)), 4, 0.0,
+         1.0, "uniform", "tiled"),
+        ("d6_narrow", 2, 30, 4, 6, ((8, 8), (4, 4)), 4, -0.1, 1.1, "uniform",
+         "narrow"),
+        ("p9_narrow", 1, 30, 4, 32, ((8, 8), (4, 4), (2, 2), (1, 1)), 9, 0.0,
+         1.0, "uniform", "narrow"),
+        ("unaligned_narrow", 1, 30, 4, 32, ((8, 8), (4, 4)), 4, 0.0, 1.0,
+         "uniform", "narrow"),
     ]
     failed = []
-    for i, (name, b, lq, h, d, shapes, p, lo, hi, centres) in enumerate(cases):
+    for i, (name, b, lq, h, d, shapes, p, lo, hi, where,
+            variant) in enumerate(cases):
         value, loc, wts, grad_out = _msda_case(b, lq, h, d, shapes, p, lo, hi,
-                                               60 + i, centres)
-        got = (msda._msda_fwd_cuda(value, shapes, loc, wts),
-               *msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out))
-        want = (msda.ms_deform_attn_reference(value, shapes, loc, wts),
-                *msda.ms_deform_attn_backward_reference(value, shapes, loc,
-                                                        wts, grad_out))
-        errs = [_rel_err(a, w) for a, w in zip(got, want)]
-        print(f"kernel check msda {name} B={b} Lq={lq} H={h} D={d} levels "
-              f"{shapes} P={p}: max error over each tensor's largest value "
-              f"out {errs[0]:.3e} grad_value {errs[1]:.3e} grad_loc "
-              f"{errs[2]:.3e} grad_weights {errs[3]:.3e} (tolerance 1e-5)",
+                                               60 + i, where)
+        if name.startswith("unaligned"):
+            value = _unaligned(value, 1)   # 4 bytes off 16-byte alignment
+        errs = _msda_check(name, value, shapes, loc, wts, grad_out, variant)
+        print(f"kernel check msda {name} ({variant}) B={b} Lq={lq} H={h} "
+              f"D={d} levels {shapes} P={p}: max error over each tensor's "
+              f"largest value out {errs[0]:.3e} grad_value {errs[1]:.3e} "
+              f"grad_loc {errs[2]:.3e} grad_weights {errs[3]:.3e} (tolerance "
+              f"1e-5); two launches the same location and weight gradients",
               flush=True)
         if max(errs) > 1e-5:
             failed.append(name)
@@ -1805,6 +1882,7 @@ def phase_dino_training(card, warm_up=3, timed=10):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / timed
     launches = dict(msda.KERNEL_LAUNCHES)
+    _wide_kernels_only("the DINO-DETR train step")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [v.item() for v in losses]
     steps = warm_up + timed
@@ -1837,8 +1915,9 @@ def phase_dino_training(card, warm_up=3, timed=10):
     busy_ms, events = _profile_device(lambda: _dino_step(
         step, state, batches[1], DINO_STEP_LAUNCHES))
     if busy_ms > 0:
+        # device kernels msda_fwd_kernel, msda_bwd_tiled (msda_bwd_narrow)
         kern = {k: sum(e.self_device_time_total for e in events
-                       if f"{k}_kernel" in e.key) / 1e3
+                       if f"{k}_" in e.key) / 1e3
                 for k in MSDA_KERNELS}
         print(f"profiled DINO-DETR step [{card}]: device busy {busy_ms:.2f} "
               f"ms of a {step_ms:.2f} ms step, idle share "

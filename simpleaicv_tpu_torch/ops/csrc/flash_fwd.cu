@@ -1,5 +1,5 @@
-// Flash attention forward for Hopper (sm_90a). Replaces the Pallas kernel
-// simpleaicv_tpu/ops/flash_attention.py::_fwd_kernel.
+// Flash attention forward for Hopper (sm_90a), K1. Replaces the Pallas
+// kernel simpleaicv_tpu/ops/flash_attention.py::_fwd_kernel.
 //
 // For q, k, v [B, H, N, d] (any N) it computes
 //   s   = d^-0.5 * q k^T
@@ -13,27 +13,44 @@
 // 4*N*N*d*BH = 15.3 GFLOP and moves 155 MB, so it is bound by bytes: 0.0466
 // ms at 3.35 TB/s. q, k and v are read in place from the strided qkv
 // projection and o is written in the [B, N, H, d] layout the output
-// projection reads. The previous design (64 queries a block, so four
-// blocks per head each read the head's K and V; 4-byte synchronous
-// staging) took 0.3371 ms on an H100 at 700 W.
+// projection reads. Earlier designs on an H100 at 700 W: 64-query blocks
+// with 4-byte synchronous staging 0.3371 ms; a wgmma kernel of 3072 blocks
+// of two warpgroups, each loading Q, walking its head's K and V and storing
+// o in sequence, two blocks an SM, 0.1351 ms, 1.5 times SDPA's forward.
 //
-// bf16 blocks of 256 threads own 128 queries of one head, so at N 197 a
-// head takes two blocks, side by side in the grid so that the second reads
-// K and V from L2; 208 of their 256 query rows are real.
-//   - d <= 64, 16-byte rows (flash_fwd_wgmma, the path's kernel): two
-//     warpgroups of 64 rows. Thread 0 puts the key tiles of 64 keys into a
-//     4-stage ring by TMA (K and V as 4-D tensor maps over (d, head,
-//     token, batch) on the strided views, 128-byte swizzle, keys past N
-//     read zero), so N <= 256 is in flight at once and a longer walk
-//     refills the stage of tile u - 2; Q comes once by 16-byte cp.async.
-//     S = Q K_u and O += P_{u-1} V_{u-1} run on wgmma (P from registers, V
-//     MN-major through its descriptor), issued together, the warpgroups
-//     taking turns, tile u's softmax beside the P V in flight; mbarriers
-//     count the bytes in and the warps out. o is staged through the
-//     warpgroup's rows of the Q tile and stored 16 bytes a thread.
-//   - d 80 and 128, 16-byte rows (flash_fwd_bf16): 8 warps of 16 rows on
-//     mma.sync.m16n8k16, Q and a 2-tile ring of 64-key tiles filled by
-//     16-byte cp.async.cg copies into padded rows, fragments by
+// bf16, d <= 64 with 16-byte rows (flash_fwd_tma, the path's kernel): a
+// persistent kernel on the plan of flash_bwd.cu's K2 and K3. A grid of one
+// block an SM walks (head, 256-row tile) items in a fixed order
+// (flash_items.cuh), so every launch gives the same bits; at N <= 256 an
+// item is a whole head, so its K and V pass through shared memory once.
+//   - A producer warpgroup gives its registers to four consumer warpgroups
+//     (setmaxnreg, 24 and 112 a thread); one thread loads each item's Q by
+//     TMA into one of two slots (4-D tensor maps over (d, head, token,
+//     batch) on the strided views, 128-byte swizzle, rows past N read
+//     zero), so item i + 1's Q arrives while item i runs, and K and V
+//     through a 6-stage ring of 64-key tiles that runs on across items
+//     (its mbarrier parities carry over).
+//   - Consumer warpgroup w owns the item's rows 64w .. 64w + 63. It walks
+//     the block's items as one stream of key tiles: step v issues S = Q K^T
+//     of tile v and O += P V of tile v - 1 (P from registers, V read
+//     MN-major) and computes tile v's softmax while the latter is in
+//     flight; at an item's first step the P V product completes the
+//     previous item. Every product is issued on every step (the last
+//     step's scores read a stale stage and are not used): ptxas serialises
+//     all of a kernel's products when one sits under a condition. The
+//     warpgroups issue independently: taking turns, as K2 and K3 do,
+//     measured slower here, and four warpgroups of one 64-row tile beat two
+//     of two (ptxas serialised the products at 104 registers a thread, not
+//     at 112).
+//   - o is rounded to bf16 into the finished item's Q slot and stored from
+//     there by TMA (rows past N are not written), one thread of each
+//     warpgroup issuing, while the next item's products run; the slot is
+//     released once the stores have read it. lse is written with plain
+//     stores.
+// bf16 otherwise (chosen by ops/flash_attention.py::_flash_fwd_variant):
+//   - d 80 and 128 with 16-byte rows (flash_fwd_bf16, "wide_sync"): 8 warps
+//     of 16 rows on mma.sync.m16n8k16, Q and a 2-tile ring of 64-key tiles
+//     filled by 16-byte cp.async.cg copies into padded rows, fragments by
 //     ldmatrix.x4 (.trans for V, read as stored), a key tile's 16-key
 //     slices past N skipped and so are the products of a warp whose rows
 //     all lie past N, o staged and stored 16 bytes a thread; one block an
@@ -44,21 +61,18 @@
 // Every bf16 kernel takes the softmax in base 2 (one FMA per score folds
 // d^-0.5 * log2 e into the exponent, ex2.approx) and writes lse as
 // (m + log2 l) * ln 2, the natural log that the backward kernels read. The
-// kernel is bound by bytes, yet the mma.sync version of the path's plan
-// measured slower than the wgmma one (PERF.md): what holds a block back is
-// its serial load, walk and store, not the tensor cores. The f32 kernel is
-// a plain FMA loop kept for full-precision checks.
+// f32 kernel is a plain FMA loop kept for full-precision checks.
 //
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8):
-// flash_fwd_wgmma 106 registers, no spills, 83,008 bytes of dynamic shared
-// memory (two blocks an SM); the narrow d-64 variant 128 registers, no
-// spills, 55,296 bytes.
+// flash_fwd_tma 96 registers at entry (640 threads; setmaxnreg then gives
+// each consumer thread 112 and the producer 24), no spills, 164,992 bytes
+// of dynamic shared memory, no ptxas note C75xx; the narrow d-64 variant
+// 128 registers, no spills.
 //
 // Plain C interface, loaded with ctypes; the caller passes PyTorch's current
 // stream and element strides (unit stride over d).
 
-#include "flash_mma.cuh"
-#include "sm90_tiles.cuh"
+#include "flash_items.cuh"
 
 namespace {
 
@@ -66,7 +80,6 @@ constexpr int kBlockQ = 64;    // queries per block of the f32 kernel
 constexpr int kTileQ = 128;    // queries per block of the bf16 kernel
 constexpr int kTileK = 64;     // keys per shared-memory tile
 constexpr int kThreads = 256;  // threads per block of the bf16 kernel
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kStages = 2;     // key tiles in the ring
@@ -282,204 +295,268 @@ flash_fwd_bf16(View q, View k, View v, View o, float* __restrict__ lse,
   }
 }
 
-// ------------------------- bf16, wgmma (the path) --------------------------
+// ---------------- bf16, persistent wgmma + TMA (the path) -----------------
 
-constexpr int kWgStages = 4;  // K/V tiles in the ring: N <= 256 at once
-constexpr int kWgDPad = 64;   // the head width the wgmma kernel takes
+constexpr int kConsumers = 512;               // four consumer warpgroups
+constexpr int kWsThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kItemRows = 256;                // an item: 4 tiles of 64 rows
+// 64-row tiles of an item a consumer warpgroup owns
+constexpr int kTiles = kItemRows / 64 / (kConsumers / 128);
+// registers of a producer and a consumer thread after setmaxnreg: the
+// producer's release (from the 96 a thread of 640 starts with) covers the
+// consumers' growth
+constexpr int kProducerRegs = 24, kConsumerRegs = 112;
+constexpr int kRing = 6;                      // K/V stages of the ring
+constexpr uint32_t kQSlot = 4 * kBox;         // an item's Q, [256][64]
+// 1024 bytes to align the swizzled tiles, two Q slots, the ring of K/V
+// stages and the mbarriers
+constexpr int kTmaSmem =
+    1024 + 2 * kQSlot + kRing * 2 * kBox + (2 * kRing + 4) * 8;
 
-constexpr int wg_smem_bytes() {
-  return (kTileQ + 2 * kWgStages * kTileK) * kWgDPad * 2 + 1024 +
-         2 * kWgStages * 8;
+// The online softmax of one 64-key tile in place of its scores: keys from
+// kv on score -inf; m and l of the thread's rows a (accumulators i % 4 < 2)
+// and b are the running maximum in base-2 units and the per-lane partial
+// row sum. Returns the factors by which the rows' earlier output shrinks.
+__device__ __forceinline__ float2 softmax_tile(float (&s)[32], int kv,
+                                               int t, float scale_log2,
+                                               float2& m, float2& l) {
+  if (kv < 64) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i / 4) + 2 * t + (i % 2) >= kv) s[i] = -INFINITY;
+  }
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if ((i % 4) < 2)
+      mx_a = fmaxf(mx_a, s[i]);
+    else
+      mx_b = fmaxf(mx_b, s[i]);
+  }
+  // the row maximum in base-2 units (the scale is positive)
+  const float mn_a = fmaxf(m.x, quad_max(mx_a) * scale_log2);
+  const float mn_b = fmaxf(m.y, quad_max(mx_b) * scale_log2);
+  const float2 alpha = make_float2(exp2_approx(m.x - mn_a),
+                                   exp2_approx(m.y - mn_b));
+  m = make_float2(mn_a, mn_b);
+  float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if ((i % 4) < 2) {
+      s[i] = exp2_approx(fmaf(s[i], scale_log2, -mn_a));
+      ls_a += s[i];
+    } else {
+      s[i] = exp2_approx(fmaf(s[i], scale_log2, -mn_b));
+      ls_b += s[i];
+    }
+  }
+  l = make_float2(l.x * alpha.x + ls_a, l.y * alpha.y + ls_b);
+  return alpha;
 }
 
-// Thread 0: key tile u of head (b, h) into ring stage ks by TMA, counted in
-// on full (keys past N read zero).
-__device__ __forceinline__ void tma_key_tile(uint32_t ks, uint32_t full,
-                                             const CUtensorMap* k_map,
-                                             const CUtensorMap* v_map,
-                                             int b, int h, int u) {
-  constexpr uint32_t kTile = kTileK * kWgDPad * 2;
-  mbar_arrive_expect_tx(full, 2 * kTile);
-  tma_load_4d(ks, k_map, 0, h, u * kTileK, b, full);
-  tma_load_4d(ks + kTile, v_map, 0, h, u * kTileK, b, full);
-}
-
-// d <= 64 (the path's ViT-B/16): two warpgroups of 64 query rows with the
-// structure of flash_relpos_fwd.cu's wgmma kernel without the bias: K and
-// V tiles by TMA (128-byte swizzle) into a 4-stage ring, S = Q K_u (wgmma,
-// Q from shared memory) and O += P_{u-1} V_{u-1} (P from registers, V
-// MN-major) issued together, the warpgroups taking turns to issue.
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
-                const __grid_constant__ CUtensorMap v_map, View q, View o,
-                float* __restrict__ lse, int heads, int n, int d,
-                int q_tiles, float scale_log2) {
-  constexpr int D_PAD = kWgDPad;
-  using L = Core<D_PAD>;
-  constexpr uint32_t kGroup = L::kGroupBytes;      // one 8-row group
-  constexpr uint32_t kTile = kTileK * D_PAD * 2;   // one K or V stage
-  constexpr int R = kTileK / 2;                    // S accumulators
-  constexpr int RO = D_PAD / 2;                    // O accumulators
-  constexpr int KS = kTileK / 16;                  // 16-key steps of P V
+// o and lse for the items of this block (d <= 64, ViT-B/16's layers). An
+// item is 256 rows of a head, all of it at N <= 256, so that the head's K
+// and V pass through shared memory once. Warpgroup wg owns the item's
+// 64-row tiles kTiles wg + r (r < kTiles); warp w of it holds rows 16w + g
+// and 16w + g + 8 (a and b) of each, and accumulator i of a tile is column
+// 8 (i / 4) + 2t + i % 2 of row a (i % 4 < 2) or b.
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap o_map,
+              float* __restrict__ lse, int batch, int heads, int n,
+              float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t qs = smem_u32(smem);
-  const uint32_t ring = (qs + kTileQ * D_PAD * 2 + 1023) & ~1023u;
-  const uint32_t full = ring + 2 * kWgStages * kTile;
-  const uint32_t empty = full + kWgStages * 8;
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t slots = (s0 + 1023) & ~1023u;  // slot x: an item's Q
+  const uint32_t ring = slots + 2 * kQSlot;     // stage s: K, then V
+  // full[s]: TMA's bytes; empty[s]: the 8 consumer warps, once their
+  // products have read the stage; q_full[x], q_empty[x]: the same for slot
+  // x, which also stages the item's o on its way out
+  const uint32_t full = ring + kRing * 2 * kBox;
+  const uint32_t empty = full + kRing * 8;
+  const uint32_t q_full = empty + kRing * 8;
+  const uint32_t q_empty = q_full + 2 * 8;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * kTileQ;
-  const __nv_bfloat16* qh =
-      head_ptr<__nv_bfloat16>(q, bh, heads) + (long long)q0 * q.sn;
-  const int tiles = (n + kTileK - 1) / kTileK;
+  const Walk walk(batch * heads, n, kItemRows);
+  const int count = walk.count();
 
   if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kRing; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kThreads / 32);
+      mbar_init(empty + 8 * s, kConsumers / 32);
+    }
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(q_full + 8 * x, 1);
+      mbar_init(q_empty + 8 * x, kConsumers / 32);
     }
   }
-  const int b = bh / heads, h = bh % heads;
-  load_tile<kTileQ, D_PAD, true, L, kThreads>(qs, qh, q.sn, n - q0, d, tid);
-  cp_async_commit();
-  __syncthreads();  // the barriers are initialised
-  // the first kWgStages key tiles go out before Q is waited for
-  if (tid == 0) {
-    for (int u = 0; u < kWgStages && u < tiles; ++u)
-      tma_key_tile(ring + u * 2 * kTile, full + 8 * u, &k_map, &v_map, b, h,
-                   u);
-  }
-  cp_async_wait<0>();
-  fence_proxy_async();
-  __syncthreads();  // Q has landed
+  __syncthreads();
 
-  const int wg = warp / 4, g = lane / 4, t = lane % 4;
-  const int r0 = wg * 64 + (warp % 4) * 16;  // this warp's first row
-  const uint64_t desc_q = wgmma_desc(qs + wg * 8 * kGroup, 128, kGroup);
-  float oacc[RO];
-#pragma unroll
-  for (int i = 0; i < RO; ++i) oacc[i] = 0.f;
-  uint32_t p[KS][4];  // the previous tile's probabilities, bf16
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  if (wg == 1) named_bar_arrive(1, kThreads);
-  for (int u = 0; u <= tiles; ++u) {
-    const int s = u % kWgStages, prev = (u + kWgStages - 1) % kWgStages;
-    float sacc[R];
-    if (u < tiles) {
-      mbar_wait(full + 8 * s, (u / kWgStages) & 1);
-    }
-    named_bar_sync(1 + wg, kThreads);
-    wgmma_fence();
-    if (u < tiles) {
-      const uint64_t desc_k = wgmma_desc_sw128(ring + s * 2 * kTile);
-      // 16 columns: 256 bytes of Q, 32 bytes of a swizzled row of K
-#pragma unroll
-      for (int kk = 0; kk < D_PAD / 16; ++kk)
-        wgmma_ss<kTileK>(sacc, desc_q + 16 * kk, desc_k + 2 * kk, kk > 0);
-    }
-    wgmma_commit();
-    if (u > 0) {
-      const uint64_t desc_v =
-          wgmma_desc_sw128(ring + prev * 2 * kTile + kTile);
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)  // 16 rows = 2 groups of 1024 bytes
-        wgmma_rs<D_PAD>(oacc, p[kk], desc_v + 128 * kk);
-    }
-    wgmma_commit();
-    if (wg == 0 || u < tiles) named_bar_arrive(2 - wg, kThreads);
-    if (u == tiles) {
-      wgmma_wait<0>();
-      fence_operands(oacc);
-      break;
-    }
-    wgmma_wait<1>();  // S is ready; P V may still run
-    fence_operands(sacc);
-
-    const int kv = n - u * kTileK;  // live keys of this tile
-    if (kv < kTileK) {
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        if (8 * (i / 4) + 2 * t + (i % 2) >= kv) sacc[i] = -INFINITY;
-    }
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if ((i % 4) < 2)
-        mx_a = fmaxf(mx_a, sacc[i]);
-      else
-        mx_b = fmaxf(mx_b, sacc[i]);
-    }
-    // the row maximum in base-2 units (the scale is positive)
-    const float mn_a = fmaxf(m_a, quad_max(mx_a) * scale_log2);
-    const float mn_b = fmaxf(m_b, quad_max(mx_b) * scale_log2);
-    const float alpha_a = exp2_approx(m_a - mn_a);
-    const float alpha_b = exp2_approx(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float ls_a = 0.f, ls_b = 0.f;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if ((i % 4) < 2) {
-        sacc[i] = exp2_approx(fmaf(sacc[i], scale_log2, -mn_a));
-        ls_a += sacc[i];
-      } else {
-        sacc[i] = exp2_approx(fmaf(sacc[i], scale_log2, -mn_b));
-        ls_b += sacc[i];
+  if (warp >= kConsumers / 32) {
+    // the producer: one thread loads item i's Q into slot i % 2 once the
+    // consumers have stored item i - 2's o from it, then the head's key
+    // tiles into the ring, tile g (counted over the block's walk) into
+    // stage g % kRing
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      int g = 0;
+      for (int i = 0; i < count; ++i) {
+        const int item = blockIdx.x + i * gridDim.x;
+        const int bh = item / walk.row_tiles;
+        const int b = bh / heads, h = bh % heads;
+        const int x = i & 1;
+        if (i >= 2) mbar_wait(q_empty + 8 * x, ((i >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(q_full + 8 * x, kQSlot);
+        const int r0 = (item % walk.row_tiles) * kItemRows;
+        tma_load_4d(slots + x * kQSlot, &q_map, 0, h, r0, b, q_full + 8 * x);
+        tma_load_4d(slots + x * kQSlot + 2 * kBox, &q_map, 0, h, r0 + kRows,
+                    b, q_full + 8 * x);
+        for (int u = 0; u < walk.tiles; ++u, ++g) {
+          const int s = g % kRing;
+          if (g >= kRing) mbar_wait(empty + 8 * s, (g / kRing - 1) & 1);
+          const uint32_t ks = ring + s * 2 * kBox;
+          mbar_arrive_expect_tx(full + 8 * s, 2 * kBox);
+          tma_load_4d(ks, &k_map, 0, h, u * 64, b, full + 8 * s);
+          tma_load_4d(ks + kBox, &v_map, 0, h, u * 64, b, full + 8 * s);
+        }
       }
     }
-    l_a = l_a * alpha_a + ls_a;  // per-lane partial sums; reduced at the end
-    l_b = l_b * alpha_b + ls_b;
-    if (tid == 0 && u + 2 >= kWgStages && u + 2 < tiles) {
-      // past N = 256: tile u + 2 into the stage of tile u - 2, once both
-      // warpgroups have read it
-      const int s2 = (u + 2) % kWgStages;
-      mbar_wait(empty + 8 * s2, ((u + 2) / kWgStages - 1) & 1);
-      tma_key_tile(ring + s2 * 2 * kTile, full + 8 * s2, &k_map, &v_map, b,
-                   h, u + 2);
-    }
-    wgmma_wait<0>();  // P_{u-1} V_{u-1} is done: its tile may be refilled
-    fence_operands(oacc);
-    if (u > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int tiles = walk.tiles, steps = count * tiles;
+  float oacc[kTiles][32];
+  uint32_t pf[kTiles][4][4] = {};  // the previous key tile's P, bf16
+  float2 m[kTiles], l[kTiles];     // rows a and b of each row tile
 #pragma unroll
-    for (int i = 0; i < RO; ++i) oacc[i] *= (i % 4) < 2 ? alpha_a : alpha_b;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
-    }
+  for (int r = 0; r < kTiles; ++r) {
+    m[r] = make_float2(-INFINITY, -INFINITY);
+    l[r] = make_float2(0.f, 0.f);
   }
 
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  // o through this warpgroup's rows of the Q tile (its products no longer
-  // read them), then 16 bytes a thread
+  // One stream of key tiles over the block's items: step v issues S = Q K^T
+  // of key tile v for the warpgroup's row tiles, then O += P V of key tile
+  // v - 1, and computes tile v's softmax while the latter are in flight; at
+  // an item's first step the P V products complete the previous item, whose
+  // o and lse are stored. Every product is issued on every step (the last
+  // step's scores read a stale stage and are not used): a product under a
+  // condition makes ptxas serialise them all. The warpgroups issue
+  // independently: taking turns, as K2 and K3 do, measured slower here.
+  // thread 0 of each warpgroup issues its o stores; its slot is released
+  // (pending) once they have read it
+  const bool issuer = tid % 128 == 0;
+  uint32_t pending = 0;
+  for (int v = 0; v <= steps; ++v) {
+    const int i = v / tiles, u = v - i * tiles;  // the scores' item, tile
+    const int s = v % kRing, prev = (v + kRing - 1) % kRing;
+    const uint32_t qs = slots + (i & 1) * kQSlot + kTiles * wg * kBox;
+    float sacc[kTiles][32];
+    if (pending != 0) {
+      bulk_wait_read<0>();
+      mbar_arrive(pending);
+      pending = 0;
+    }
+    if (v < steps) {
+      if (u == 0) mbar_wait(q_full + 8 * (i & 1), (i >> 1) & 1);
+      mbar_wait(full + 8 * s, (v / kRing) & 1);
+    }
+    wgmma_fence();
+    const uint64_t desc_k = wgmma_desc_sw128(ring + s * 2 * kBox);
+    // 16 columns a step: 32 bytes into each swizzled row of Q and K
 #pragma unroll
-  for (int jj = 0; jj < D_PAD / 8; ++jj) {
-    const int c = 8 * jj + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(smem + L::offset(r0 + g, c)) =
-        __floats2bfloat162_rn(oacc[4 * jj] * inv_a, oacc[4 * jj + 1] * inv_a);
-    *reinterpret_cast<__nv_bfloat162*>(smem + L::offset(r0 + g + 8, c)) =
-        __floats2bfloat162_rn(oacc[4 * jj + 2] * inv_b,
-                              oacc[4 * jj + 3] * inv_b);
+    for (int r = 0; r < kTiles; ++r) {
+      const uint64_t desc_q = wgmma_desc_sw128(qs + r * kBox);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64>(sacc[r], desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+    }
+    wgmma_commit();
+    // V read MN-major; the item's first key tile overwrites oacc
+    const uint64_t desc_v = wgmma_desc_sw128(ring + prev * 2 * kBox + kBox);
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r)
+      out_product(oacc[r], pf[r], desc_v, u == (tiles > 1 ? 1 : 0));
+    wgmma_commit();
+    // item i's running maxima and sums start at its first key tile; item
+    // i - 1's are kept for its finish
+    float2 fin_m[kTiles], fin_l[kTiles];
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) {
+      fin_m[r] = m[r];
+      fin_l[r] = l[r];
+      if (u == 0) {
+        m[r] = make_float2(-INFINITY, -INFINITY);
+        l[r] = make_float2(0.f, 0.f);
+      }
+    }
+    wgmma_wait<1>();  // S is ready; P V may still run
+    float2 alpha[kTiles];
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) {
+      fence_operands(sacc[r]);
+      alpha[r] = softmax_tile(sacc[r], n - u * 64, t, scale_log2, m[r], l[r]);
+    }
+    wgmma_wait<0>();  // P_{v-1} V_{v-1} is done: its stage is free
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) fence_operands(oacc[r]);
+    if (v > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+    if (u == 0 && v > 0) {
+      // item i - 1 is complete: o = oacc / l rounded to bf16 into the
+      // warpgroup's rows of its Q slot, which no product reads now, and
+      // from there by TMA, one thread issuing; the slot is released once
+      // the stores have read it (the issuing warp's arrival at the next
+      // step)
+      const int item = blockIdx.x + (i - 1) * gridDim.x;
+      const int bh = item / walk.row_tiles;
+      const int r0 = (item % walk.row_tiles) * kItemRows + wg * kTiles * 64;
+      const uint32_t done =
+          slots + ((i - 1) & 1) * kQSlot + kTiles * wg * kBox;
+#pragma unroll
+      for (int r = 0; r < kTiles; ++r) {
+        const float la = quad_sum(fin_l[r].x), lb = quad_sum(fin_l[r].y);
+        const float inv_a = 1.f / la, inv_b = 1.f / lb;
+#pragma unroll
+        for (int jj = 0; jj < 32; ++jj)
+          oacc[r][jj] *= (jj % 4) < 2 ? inv_a : inv_b;
+        stage_rows(smem + (done + r * kBox - s0), oacc[r], 1.f, warp, g, t);
+        if (t == 0) {
+          const int row_a = r0 + r * 64 + (warp % 4) * 16 + g;
+          const int row_b = row_a + 8;
+          if (row_a < n)
+            lse[(size_t)bh * n + row_a] = (fin_m[r].x + log2f(la)) * kLn2;
+          if (row_b < n)
+            lse[(size_t)bh * n + row_b] = (fin_m[r].y + log2f(lb)) * kLn2;
+        }
+      }
+      fence_proxy_async();  // the staged rows, before TMA reads them
+      named_bar_sync(3 + wg, 128);
+      if (issuer) {
+#pragma unroll
+        for (int r = 0; r < kTiles; ++r)
+          tma_store_4d(&o_map, done + r * kBox, 0, bh % heads, r0 + r * 64,
+                       bh / heads);
+        bulk_commit();
+        pending = q_empty + 8 * ((i - 1) & 1);
+      } else if (lane == 0) {
+        mbar_arrive(q_empty + 8 * ((i - 1) & 1));
+      }
+    } else if (u != 0) {
+#pragma unroll
+      for (int r = 0; r < kTiles; ++r) {
+#pragma unroll
+        for (int jj = 0; jj < 32; ++jj)
+          oacc[r][jj] *= (jj % 4) < 2 ? alpha[r].x : alpha[r].y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kTiles; ++r) pack_steps(pf[r], sacc[r]);
   }
-  named_bar_sync(3 + wg, 128);
-  __nv_bfloat16* oh = head_ptr<__nv_bfloat16>(o, bh, heads);
-  const int chunks = d / 8, wt = tid % 128;
-  for (int i = wt; i < 64 * chunks; i += 128) {
-    const int r = wg * 64 + (i & 7) + ((i / (8 * chunks)) << 3);
-    const int c = ((i >> 3) % chunks) * 8;
-    if (q0 + r < n)
-      *reinterpret_cast<uint4*>(oh + (long long)(q0 + r) * o.sn + c) =
-          *reinterpret_cast<const uint4*>(smem + L::offset(r, c));
-  }
-  if (t == 0) {
-    const int row_a = q0 + r0 + g, row_b = row_a + 8;
-    if (row_a < n) lse[(size_t)bh * n + row_a] = (m_a + log2f(l_a)) * kLn2;
-    if (row_b < n) lse[(size_t)bh * n + row_b] = (m_b + log2f(l_b)) * kLn2;
-  }
+  if (issuer) bulk_wait<0>();  // the last stores are out
 }
 
 // ---------------------------------- f32 ----------------------------------
@@ -552,31 +629,38 @@ flash_fwd_f32(View q, View k, View v, View o, float* __restrict__ lse,
   }
 }
 
-// The wgmma kernel, for d <= 64 with 16-byte rows: K and V as 4-D tensor
-// maps (d, head, token, batch) in boxes of 64 x 1 x 64 x 1.
-cudaError_t launch_wgmma(int batch, cudaStream_t st, View q, View k, View v,
-                         View o, float* lse, int heads, int n, int d,
-                         float scale) {
-  CUtensorMap maps[2];
-  const View* kv[2] = {&k, &v};
-  for (int i = 0; i < 2; ++i) {
-    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                                (cuuint64_t)n, (cuuint64_t)batch};
-    const cuuint64_t strides[3] = {(cuuint64_t)kv[i]->sh * 2,
-                                   (cuuint64_t)kv[i]->sn * 2,
-                                   (cuuint64_t)kv[i]->sb * 2};
-    const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTileK, 1};
-    const cudaError_t err =
-        tensor_map_bf16(&maps[i], kv[i]->p, 4, dims, strides, box);
+// The persistent kernel, for d <= 64 with 16-byte rows: q, k, v and o as
+// 4-D tensor maps (d, head, token, batch), Q in boxes of 128 tokens (two an
+// item), K, V and o of 64.
+cudaError_t launch_tma(int batch, cudaStream_t st, View q, View k, View v,
+                       View o, float* lse, int heads, int n, int d,
+                       float scale) {
+  CUtensorMap maps[4];
+  const View* views[4] = {&q, &k, &v, &o};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = map_view(&maps[i], *views[i], batch, heads, n, d,
+                                     i == 0 ? kRows : 64);
     if (err != cudaSuccess) return err;
   }
-  const int q_tiles = (n + kTileQ - 1) / kTileQ;
-  constexpr int smem = wg_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int grid = 0;
+  cudaError_t err = persistent_grid(
+      (long long)batch * heads * ((n + kItemRows - 1) / kItemRows), &grid);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma<<<batch * heads * q_tiles, kThreads, smem, st>>>(
-      maps[0], maps[1], q, o, lse, heads, n, d, q_tiles, scale * kLog2e);
+  // the registers a thread starts with must let the producer's release
+  // cover the consumers' growth, or their setmaxnreg would wait forever
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_tma);
+  if (err != cudaSuccess) return err;
+  if (kConsumers * (kConsumerRegs - attr.numRegs) >
+      (kWsThreads - kConsumers) * (attr.numRegs - kProducerRegs))
+    return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(flash_fwd_tma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTmaSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_tma<<<grid, kWsThreads, kTmaSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, batch, heads, n,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -618,14 +702,6 @@ void launch_f32(dim3 grid, cudaStream_t st, View q, View k, View v, View o,
                                                  d, scale);
 }
 
-// Every row of the view starts on a multiple of `bytes` (pointer and
-// strides, in elements of 2 bytes).
-bool rows_aligned(const View& t, int bytes) {
-  const long long e = bytes / 2;
-  return reinterpret_cast<uintptr_t>(t.p) % bytes == 0 && t.sb % e == 0 &&
-         t.sh % e == 0 && t.sn % e == 0;
-}
-
 bool shape_ok(int batch, int heads, int n, int d) {
   return batch >= 1 && heads >= 1 && n >= 1 && d >= 1 && d <= 128 &&
          (long long)batch * heads * ((n + kTileQ - 1) / kTileQ) < (1LL << 31);
@@ -659,9 +735,9 @@ extern "C" int flash_fwd(const void* q, long long q_sb, long long q_sh,
     if (d % 8 != 0 || !rows_aligned(qv, 16) || !rows_aligned(kv, 16) ||
         !rows_aligned(vv, 16) || !rows_aligned(ov, 16))
       return cudaErrorInvalidValue;
-    if (d <= kWgDPad)
+    if (d <= 64)
       return static_cast<int>(
-          launch_wgmma(batch, st, qv, kv, vv, ov, ls, heads, n, d, scale));
+          launch_tma(batch, st, qv, kv, vv, ov, ls, heads, n, d, scale));
     return static_cast<int>(launch_bf16_d<true>(batch * heads, st, qv, kv, vv,
                                                 ov, ls, heads, n, d, scale));
   }

@@ -16,26 +16,66 @@
 //   grad_value [B, S, H, D] (zeroed by the caller), grad_loc like loc,
 //   grad_attw like attw.
 //
-// Mapping: one warp per (b, q, h), lane = channel d (a second channel per
-// lane for 32 < D <= 64). For each sample the warp reads the location and
-// the weight (one address for all lanes, a broadcast) and the four corner
-// rows value[b, start_l + yi * w_l + xi, h, :], each D contiguous floats:
-// 128 coalesced bytes at DINO-DETR's D = 32. A corner outside the level
-// reads as 0.
+// The forward (msda_fwd_kernel) and the backward's narrow variant
+// (msda_bwd_narrow, the previous backward): one warp per (b, q, h), lane =
+// channel d (a second channel per lane for 32 < D <= 64). For each sample
+// the warp reads the location and the weight (one address for all lanes, a
+// broadcast) and the four corner rows value[b, start_l + yi * w_l + xi, h,
+// :], each D contiguous floats: 128 coalesced bytes at DINO-DETR's D = 32.
+// A corner outside the level reads as 0. The backward adds each corner's
+// share of grad_out into grad_value with scalar f32 atomic adds.
 //
-// Bounds (H100 SXM, 3.35 TB/s, 67 TFLOP/s f32): both kernels do a few
-// operations per byte and are bound by bytes. The forward moves value,
-// loc, attw and out once at best; the gathers re-read value rows through
-// L2, where neighbouring queries share them. The backward adds each
-// corner's share of grad_out into grad_value with f32 atomics (4 x D per
-// sample: 3.6 G adds at DINO-DETR's encoder launch at batch 2), reduces
-// the weight and the two location gradients over the warp with shuffles,
-// and is bound by the atomics' traffic through L2. A faster reduction
-// (vector red, staging in shared memory, a sort by row) is later work.
-// The order of the atomic adds changes from run to run, so grad_value is
-// not bit-reproducible.
+// Bounds (H100 SXM, 3.35 TB/s, 67 TFLOP/s f32): the forward moves value,
+// loc, attw and out once at best, a few operations per byte; the backward
+// also writes grad_value and does 5 operations per inside corner and
+// channel and 14 per sample and channel, which bound it (0.43 ms at the
+// encoder launch). Both re-read value rows through L2 (128 bytes per inside
+// corner: 101 M corners, 13 GB, at DINO-DETR's encoder launch at batch 2),
+// and the backward adds the same again into grad_value through L2.
+//
+// The backward, measured at that launch (NVIDIA H100 80GB HBM3, 700 W;
+// perf/msda_split.py, PERF.md): the narrow kernel took 6.75 ms, 5.64
+// without its adds (gathers and reductions: one sample's four loads in
+// flight per warp), 6.60 with each warp's adds sent to a row of its own (so
+// contention costs 0.15 ms). The tiled kernel (msda_bwd_tiled, the path's)
+// therefore cuts the gathers' instructions and latency first:
+//   - A block of 4 warps owns (b, h, a chunk of consecutive queries), the
+//     warps taking the queries in turn, so the block's samples lie close
+//     together and their value rows stay in L1; a warp takes up to 8
+//     queries, fewer where the launch is small (1 at the decoder's 1,100).
+//   - For each (b, q, h) the lanes load the samples' locations and weights
+//     once (lane i sample i), then take the samples two at a time: lanes
+//     16s + 4k + j hold corner k of sample 2m + s and channel groups j + 4t
+//     (16 bytes each), so one warp instruction gathers both samples' eight
+//     corner rows, and the next pair's gathers go out before this pair's
+//     adds.
+//   - grad_value takes 16-byte vector atomic adds (REDG.E.ADD.F32x4), each
+//     corner row whole in one instruction (128 bytes at D 32).
+//   - The weight and location gradients are reduced over a sample's 16
+//     lanes by shuffles in a fixed order and written by its first lane:
+//     the same bits on every launch. grad_value's order of adds changes
+//     from run to run, as before.
+// A first version summed the levels that fit (DINO-DETR's 32x32 and 16x16,
+// 160 KB a head) in shared memory and flushed them once. It did not pay:
+// f32 atomic adds to shared memory compile to compare-and-swap loops
+// (ATOMS.CAST.SPIN in the SASS), and with them the kernel ran slower than
+// with every add sent to device memory; 160 KB of shared memory also left
+// one block an SM and a smaller L1. The tiled kernel takes 5.43 ms at the
+// encoder launch, 3.72 without its adds and 5.11 without its gathers: the
+// vector adds' traffic through L2 now bounds it.
+// The narrow variant takes what the tiled kernel does not: D no multiple
+// of 4, more than 32 samples a (query, head), value not 16-byte or loc not
+// 8-byte aligned (ops/msda.py::_msda_bwd_variant; the wrapper copies a
+// grad_out that is not 16-byte aligned).
+//
+// Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): msda_bwd_tiled 64, 89 and
+// 103 registers for D <= 16, 32 and 64 (128 threads, at least 4, 4 and 2
+// blocks an SM), no spills, a 128-byte stack frame (the level table read
+// by a runtime index); msda_bwd_narrow 40 and 62, msda_fwd_kernel 32 and 48,
+// no spills.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -150,7 +190,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int CPL>
 __global__ void __launch_bounds__(kWarps * 32)
-    msda_bwd_kernel(const float* __restrict__ value,
+    msda_bwd_narrow(const float* __restrict__ value,
                     const float* __restrict__ loc,
                     const float* __restrict__ attw,
                     const float* __restrict__ grad_out,
@@ -227,6 +267,168 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// --------------------- the backward, tiled (the path's) ---------------------
+
+constexpr int kTiledWarps = 4;   // warps of a tiled block
+constexpr int kMaxPerWarp = 8;   // queries a warp of it takes, at most
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// One lane's corner of one sample: its row in value (-1 outside the level),
+// the sample's weight and fractional parts, the level's size and the
+// corner's CH groups of 4 channels.
+template <int CH>
+struct Tap {
+  int row, hl, wl;
+  float a, wx, wy;
+  float4 v[CH];
+};
+
+// A block owns (batch b, head h, a chunk of consecutive queries), its warps
+// taking the queries in turn, so that the block's samples at any moment lie
+// close together and their value rows stay in L1. For a (b, q, h) the lanes
+// first load the samples' locations and weights (lane i sample i, at most
+// 32), then take the samples two at a time: lanes 16s .. 16s + 15 sample
+// 2m + s, lane 16s + 4k + j corner k (dy = k / 2, dx = k % 2) and channel
+// groups j + 4t (channels 4 (j + 4t) .. + 3) for t < CH, so that a warp's
+// 16-byte gathers read both samples' eight corner rows at once, and the
+// next pair's gathers go out before this pair's adds. The value gradient
+// of the pair's eight corner rows goes into grad_value as 16-byte vector
+// adds, each row whole in one instruction (lanes 4 CH r' .. 4 CH r' + 4 CH
+// - 1 on row r0 + r', a group of 4 channels each): 128-byte rows at D 32,
+// as the narrow kernel's scalar adds come, in a quarter of the
+// instructions. The weight and location gradients are reduced over a
+// sample's 16 lanes in a fixed order and written by its first lane, so
+// they are the same on every launch.
+template <int CH>
+__global__ void __launch_bounds__(kTiledWarps * 32, CH <= 2 ? 4 : 2)
+    msda_bwd_tiled(const float* __restrict__ value,
+                   const float* __restrict__ loc,
+                   const float* __restrict__ attw,
+                   const float* __restrict__ grad_out,
+                   float* __restrict__ grad_value,
+                   float* __restrict__ grad_loc,
+                   float* __restrict__ grad_attw, int S, int H, int D, int Lq,
+                   int L, int P, Levels lv, int chunk, int chunks) {
+  const int bh = blockIdx.x / chunks;
+  const int b = bh / H, h = bh % H;
+  const int q_begin = (blockIdx.x % chunks) * chunk;
+  const int q_end = min(Lq, q_begin + chunk);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = lane / 16, k = (lane / 4) % 4, j = lane % 4;
+  const int dy = k / 2, dx = k % 2;
+  const int cc = lane % (4 * CH);  // the lane's group of 4 channels in adds
+  const int lp = L * P, pairs = (lp + 1) / 2;
+  const long long row_stride = static_cast<long long>(H) * D;
+  const long long head = static_cast<long long>(b) * S * row_stride +
+                         static_cast<long long>(h) * D;
+  const float* vb = value + head;
+  float* gvb = grad_value + head;
+
+  // this lane's corner of sample 2m + half, its gathers issued
+  auto tap = [&](int m, float lx, float ly, float al, Tap<CH>& tp) {
+    const int i = 2 * m + half;
+    const float sx = __shfl_sync(kFull, lx, i & 31);
+    const float sy = __shfl_sync(kFull, ly, i & 31);
+    tp.a = __shfl_sync(kFull, al, i & 31);
+    const int l = min(i, lp - 1) / P;
+    tp.hl = lv.h[l];
+    tp.wl = lv.w[l];
+    // rounded as PyTorch's separate multiply and subtract are (no fused
+    // multiply-add), as in corners()
+    const float x = __fsub_rn(__fmul_rn(sx, static_cast<float>(tp.wl)), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(sy, static_cast<float>(tp.hl)), 0.5f);
+    const float x0 = floorf(x), y0 = floorf(y);
+    tp.wx = __fsub_rn(x, x0);
+    tp.wy = __fsub_rn(y, y0);
+    // x0 in [-1, w_l) keeps (int)x0 in range; outside it (NaN included) the
+    // corner is outside the level
+    const bool xok = x0 >= -1.f && x0 < static_cast<float>(tp.wl);
+    const bool yok = y0 >= -1.f && y0 < static_cast<float>(tp.hl);
+    const int cx = xok ? static_cast<int>(x0) + dx : -1;
+    const int cy = yok ? static_cast<int>(y0) + dy : -1;
+    const bool inside =
+        i < lp && cx >= 0 && cx < tp.wl && cy >= 0 && cy < tp.hl;
+    tp.row = inside ? static_cast<int>(lv.start[l]) + cy * tp.wl + cx : -1;
+    const float* vr = vb + static_cast<long long>(tp.row) * row_stride;
+#pragma unroll
+    for (int t = 0; t < CH; ++t) {
+      const int c = 4 * (j + 4 * t);
+      tp.v[t] = inside && c < D ? ldg4(vr + c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  for (int q = q_begin + warp; q < q_end; q += kTiledWarps) {
+    const long long bqh = (static_cast<long long>(b) * Lq + q) * H + h;
+    float lx = 0.f, ly = 0.f, al = 0.f;  // sample `lane`
+    if (lane < lp) {
+      const float2 xy =
+          __ldg(reinterpret_cast<const float2*>(loc) + bqh * lp + lane);
+      lx = xy.x;
+      ly = xy.y;
+      al = __ldg(attw + bqh * lp + lane);
+    }
+    float4 g[CH];  // the channels of the lane's corner groups
+#pragma unroll
+    for (int t = 0; t < CH; ++t) {
+      const int c = 4 * (j + 4 * t);
+      g[t] = c < D ? ldg4(grad_out + bqh * D + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    // and those of its group in the adds
+    const float4 ga = 4 * cc < D ? ldg4(grad_out + bqh * D + 4 * cc)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+
+    Tap<CH> cur, next;
+    tap(0, lx, ly, al, cur);
+    for (int m = 0; m < pairs; ++m) {
+      if (m + 1 < pairs) tap(m + 1, lx, ly, al, next);
+      const int i = 2 * m + half;
+      float dot = 0.f;
+#pragma unroll
+      for (int t = 0; t < CH; ++t)
+        dot += g[t].x * cur.v[t].x + g[t].y * cur.v[t].y +
+               g[t].z * cur.v[t].z + g[t].w * cur.v[t].w;
+      dot += __shfl_xor_sync(kFull, dot, 1);
+      dot += __shfl_xor_sync(kFull, dot, 2);
+      // the four corners' g . v, each summed over the channels
+      const float d0 = __shfl_sync(kFull, dot, 16 * half);
+      const float d1 = __shfl_sync(kFull, dot, 16 * half + 4);
+      const float d2 = __shfl_sync(kFull, dot, 16 * half + 8);
+      const float d3 = __shfl_sync(kFull, dot, 16 * half + 12);
+      const float ux = 1.f - cur.wx, uy = 1.f - cur.wy;
+      if ((lane & 15) == 0 && i < lp) {
+        // d sample / d wx and / d wy; floor and the inside mask carry no
+        // gradient and d wx / d x = 1
+        const float sx = uy * (d1 - d0) + cur.wy * (d3 - d2);
+        const float sy = ux * (d2 - d0) + cur.wx * (d3 - d1);
+        grad_attw[bqh * lp + i] = ux * uy * d0 + cur.wx * uy * d1 +
+                                  ux * cur.wy * d2 + cur.wx * cur.wy * d3;
+        reinterpret_cast<float2*>(grad_loc)[bqh * lp + i] = make_float2(
+            cur.wl * cur.a * sx, cur.hl * cur.a * sy);
+      }
+      // f = a * the corner's bilinear weight; row r of the pair (sample
+      // r / 4, corner r % 4) is held by lane 4r
+      const float f = cur.a * ((dx ? cur.wx : ux) * (dy ? cur.wy : uy));
+#pragma unroll
+      for (int r0 = 0; r0 < 8; r0 += 8 / CH) {
+        const int r = r0 + lane / (4 * CH);
+        const int row = __shfl_sync(kFull, cur.row, 4 * r);
+        const float fr = __shfl_sync(kFull, f, 4 * r);
+        if (row >= 0 && 4 * cc < D)
+          atomicAdd(reinterpret_cast<float4*>(
+                        gvb + static_cast<long long>(row) * row_stride +
+                        4 * cc),
+                    make_float4(fr * ga.x, fr * ga.y, fr * ga.z, fr * ga.w));
+      }
+      cur = next;
+    }
+  }
+}
+
 // Checks the shapes and fills the level table; returns a CUDA error code.
 int levels(int S, int D, int L, int P, const int* shapes, Levels* lv) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 1 || D > 64)
@@ -248,6 +450,40 @@ int levels(int S, int D, int L, int P, const int* shapes, Levels* lv) {
 
 unsigned blocks(long long n_warps) {
   return static_cast<unsigned>((n_warps + kWarps - 1) / kWarps);
+}
+
+// The queries a tiled block owns: each warp takes as many as keep about
+// four rounds of the card's resident warps busy, at most kMaxPerWarp (8 at
+// DINO-DETR's encoder launch, where consecutive queries share value rows in
+// L1; 1 at its decoder launch of 1,100 queries, where there are few).
+template <int CH>
+cudaError_t launch_tiled(const float* value, const float* loc,
+                         const float* attw, const float* grad_out,
+                         float* grad_value, float* grad_loc, float* grad_attw,
+                         int B, int S, int H, int D, int Lq, int L, int P,
+                         const Levels& lv, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long rounds = static_cast<long long>(sms) * 32 * 4;  // warps
+  const long long per_warp = static_cast<long long>(B) * H * Lq / rounds;
+  const int chunk =
+      kTiledWarps * static_cast<int>(per_warp < 1             ? 1
+                                     : per_warp > kMaxPerWarp ? kMaxPerWarp
+                                                              : per_warp);
+  const int chunks = (Lq + chunk - 1) / chunk;
+  if (static_cast<long long>(B) * H * chunks >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  msda_bwd_tiled<CH><<<B * H * chunks, kTiledWarps * 32, 0, st>>>(
+      value, loc, attw, grad_out, grad_value, grad_loc, grad_attw, S, H, D, Lq,
+      L, P, lv, chunk, chunks);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
@@ -274,6 +510,10 @@ int msda_forward(const float* value, const float* loc, const float* attw,
   return cudaGetLastError();
 }
 
+// The tiled kernel: D a multiple of 4 up to 64, at most 32 samples a
+// (query, head), value, grad_out and grad_value 16-byte aligned and loc
+// 8-byte aligned; cudaErrorInvalidValue for anything else (the narrow
+// kernel below takes it).
 int msda_backward(const float* value, const float* loc, const float* attw,
                   const float* grad_out, float* grad_value, float* grad_loc,
                   float* grad_attw, int B, int S, int H, int D, int Lq, int L,
@@ -281,15 +521,38 @@ int msda_backward(const float* value, const float* loc, const float* attw,
   Levels lv;
   const int err = levels(S, D, L, P, shapes, &lv);
   if (err != cudaSuccess) return err;
+  if (D % 4 != 0 || L * P > 32 || !aligned(value, 16) ||
+      !aligned(grad_out, 16) || !aligned(grad_value, 16) || !aligned(loc, 8))
+    return cudaErrorInvalidValue;
+  if (static_cast<long long>(B) * Lq * H == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 16)
+    return launch_tiled<1>(value, loc, attw, grad_out, grad_value, grad_loc,
+                           grad_attw, B, S, H, D, Lq, L, P, lv, st);
+  if (D <= 32)
+    return launch_tiled<2>(value, loc, attw, grad_out, grad_value, grad_loc,
+                           grad_attw, B, S, H, D, Lq, L, P, lv, st);
+  return launch_tiled<4>(value, loc, attw, grad_out, grad_value, grad_loc,
+                         grad_attw, B, S, H, D, Lq, L, P, lv, st);
+}
+
+int msda_backward_narrow(const float* value, const float* loc,
+                         const float* attw, const float* grad_out,
+                         float* grad_value, float* grad_loc, float* grad_attw,
+                         int B, int S, int H, int D, int Lq, int L, int P,
+                         const int* shapes, void* stream) {
+  Levels lv;
+  const int err = levels(S, D, L, P, shapes, &lv);
+  if (err != cudaSuccess) return err;
   const long long n = static_cast<long long>(B) * Lq * H;
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    msda_bwd_kernel<1><<<blocks(n), kWarps * 32, 0, st>>>(
+    msda_bwd_narrow<1><<<blocks(n), kWarps * 32, 0, st>>>(
         value, loc, attw, grad_out, grad_value, grad_loc, grad_attw, n, S, H,
         D, Lq, L, P, lv);
   else
-    msda_bwd_kernel<2><<<blocks(n), kWarps * 32, 0, st>>>(
+    msda_bwd_narrow<2><<<blocks(n), kWarps * 32, 0, st>>>(
         value, loc, attw, grad_out, grad_value, grad_loc, grad_attw, n, S, H,
         D, Lq, L, P, lv);
   return cudaGetLastError();

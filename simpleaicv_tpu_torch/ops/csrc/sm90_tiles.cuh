@@ -1,6 +1,7 @@
 // Device helpers of the Hopper (sm_90a) kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_relpos_fwd.cu, flash_relpos_bwd.cu): 16- and 4-byte cp.async copies
-// into shared-memory tiles, mbarriers, TMA and its tensor maps, ldmatrix.x4,
+// into shared-memory tiles, mbarriers, TMA loads and stores and their tensor
+// maps, ldmatrix.x4,
 // base-2 exponentials, and wgmma with its shared-memory descriptors, fences
 // and waits.
 //
@@ -129,6 +130,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// TMA store: the box of a 4-D tensor map at (c0, c1, c2, c3) from shared
+// src (elements outside the tensor are not written), in the thread's bulk
+// group; bulk_commit closes the group, bulk_wait_read<N> waits until at most
+// N of the thread's groups still read shared memory, bulk_wait<N> until at
+// most N are still writing.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Host: the tensor map of a tensor of `rank` dimensions (dims from the

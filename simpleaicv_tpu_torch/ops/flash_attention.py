@@ -208,11 +208,26 @@ def _launch(name, fn, args, narrow=False):
         NARROW_LAUNCHES[name] += 1
 
 
+def _flash_fwd_variant(q, k, v) -> str:
+    """Which forward kernel (K1) takes these inputs, as ``csrc/flash_fwd.cu``
+    documents: "tma" (the persistent wgmma kernel fed by TMA: bf16 with
+    d <= 64 and every row 16-byte aligned, ViT-B/16's layers), "wide_sync"
+    (the mma.sync kernel with 16-byte copies: d 80 and 128 with aligned
+    rows), "narrow" (the mma.sync kernel with 4-byte copies: other bf16
+    inputs) or "f32" (the FMA kernel). The output the wrapper allocates is
+    always aligned. Launches nothing."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    if not _vector_loads(q, k, v):
+        return "narrow"
+    return "tma" if q.shape[-1] <= 64 else "wide_sync"
+
+
 def _flash_fwd_cuda(q, k, v):
     q, k, v = _readable(q), _readable(k), _readable(v)
     o = _empty_bnhd(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    narrow = q.dtype == torch.bfloat16 and not _vector_loads(q, k, v, o)
+    narrow = _flash_fwd_variant(q, k, v) == "narrow"
     with torch.cuda.device(q.device):
         _launch("flash_attention_fwd",
                 _flash_kernels()["fwd_narrow" if narrow else "fwd"],

@@ -19,7 +19,9 @@ saves its three inputs).
 
 It dispatches on the tensors' device. CUDA tensors launch the hand kernels
 of ``csrc/msda.cu``: ``msda_fwd`` (K7, the Pallas kernel's counterpart) and
-``msda_bwd`` (its backward, which the JAX package left to autodiff). CPU
+``msda_bwd`` (its backward, which the JAX package left to autodiff: a tiled
+kernel, or its narrow variant for what that does not take,
+``_msda_bwd_variant``; ``NARROW_LAUNCHES`` counts those launches). CPU
 tensors take the plain versions: ``ms_deform_attn_reference``, a
 transcription of ``_bilinear_gather_level`` and ``ms_deform_attn_xla``, and
 its autograd (``ms_deform_attn_backward_reference``). A CUDA tensor never
@@ -36,11 +38,16 @@ import torch
 from . import _build
 
 __all__ = ["ms_deform_attn", "ms_deform_attn_reference",
-           "ms_deform_attn_backward_reference", "KERNEL_LAUNCHES"]
+           "ms_deform_attn_backward_reference", "KERNEL_LAUNCHES",
+           "NARROW_LAUNCHES"]
 
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches, and nowhere else.
 KERNEL_LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0}
+# Those of the launches above that took a kernel's narrow variant (a shape
+# or a layout the tiled kernel does not serve), so that a run can show that
+# its main path took the tiled kernel. The forward has one kernel.
+NARROW_LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0}
 
 MAX_LEVELS = 8
 MAX_HEAD_DIM = 64
@@ -133,14 +140,44 @@ def _check(value, spatial_shapes, sampling_locations, attention_weights):
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """(msda_forward, msda_backward) of the library built from msda.cu."""
+    """{name: C function} of the library built from msda.cu: "fwd" (K7),
+    "bwd" (K7b's tiled kernel) and "bwd_narrow" (its narrow variant)."""
     lib = _build.load("msda")
     tail = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
     lib.msda_forward.argtypes = [ctypes.c_void_p] * 4 + tail
-    lib.msda_backward.argtypes = [ctypes.c_void_p] * 7 + tail
-    for fn in (lib.msda_forward, lib.msda_backward):
+    kernels = {"fwd": lib.msda_forward, "bwd": lib.msda_backward,
+               "bwd_narrow": lib.msda_backward_narrow}
+    for fn in (kernels["bwd"], kernels["bwd_narrow"]):
+        fn.argtypes = [ctypes.c_void_p] * 7 + tail
+    for fn in kernels.values():
         fn.restype = ctypes.c_int
-    return lib.msda_forward, lib.msda_backward
+    return kernels
+
+
+def _aligned_as_launched(t, nbytes: int) -> bool:
+    """Whether ``t`` reaches the kernels ``nbytes``-aligned: an f32
+    contiguous tensor is launched in place, anything else as a fresh copy
+    (``_f32``), which the allocator aligns."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t.data_ptr() % nbytes == 0
+    return True
+
+
+def _msda_bwd_variant(value, spatial_shapes, loc) -> str:
+    """Which backward kernel (K7b) takes these inputs, as ``csrc/msda.cu``
+    documents: "tiled" (a block per (batch, head, chunk of queries), two
+    samples a warp instruction, 16-byte gathers and vector adds: D a
+    multiple of 4, at most 32 samples a (query, head), value 16-byte and
+    the locations 8-byte aligned as launched) or "narrow" (a warp per
+    (batch, query, head), lane = channel, scalar adds). Depends on the
+    shapes and the alignment alone, never on where the samples lie;
+    launches nothing. Neither kernel takes D > 64 or more than 8 levels."""
+    samples = loc.shape[3] * loc.shape[4]
+    if (value.shape[-1] % 4 == 0 and samples <= 32
+            and _aligned_as_launched(value, 16)
+            and _aligned_as_launched(loc, 8)):
+        return "tiled"
+    return "narrow"
 
 
 def _kernel_tail(value, spatial_shapes, loc):
@@ -160,11 +197,13 @@ def _kernel_tail(value, spatial_shapes, loc):
                    torch.cuda.current_stream(value.device).cuda_stream]
 
 
-def _launch(name, fn, args):
+def _launch(name, fn, args, narrow=False):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
+    if narrow:
+        NARROW_LAUNCHES[name] += 1
 
 
 def _f32(t):
@@ -174,15 +213,15 @@ def _f32(t):
 def _msda_fwd_cuda(value, spatial_shapes, loc, wts):
     """K7: value [B, S, H, D], loc [B, Lq, H, L, P, 2], wts [B, Lq, H, L, P],
     all f32 and contiguous on one card -> [B, Lq, H * D] f32."""
-    fwd, _ = _kernels()
     value, loc, wts = _f32(value), _f32(loc), _f32(wts)
     b, _, heads, d = value.shape
     out = torch.empty((b, loc.shape[1], heads * d), dtype=torch.float32,
                       device=value.device)
     table, tail = _kernel_tail(value, spatial_shapes, loc)
     with torch.cuda.device(value.device):
-        _launch("msda_fwd", fwd, [value.data_ptr(), loc.data_ptr(),
-                                  wts.data_ptr(), out.data_ptr()] + tail)
+        _launch("msda_fwd", _kernels()["fwd"],
+                [value.data_ptr(), loc.data_ptr(), wts.data_ptr(),
+                 out.data_ptr()] + tail)
     del table
     return out
 
@@ -190,17 +229,19 @@ def _msda_fwd_cuda(value, spatial_shapes, loc, wts):
 def _msda_bwd_cuda(value, spatial_shapes, loc, wts, grad_out):
     """K7b: (grad_value, grad_loc, grad_wts), f32, from the forward's inputs
     and grad_out [B, Lq, H * D]."""
-    _, bwd = _kernels()
+    narrow = _msda_bwd_variant(value, spatial_shapes, loc) == "narrow"
     value, loc, wts, grad_out = (_f32(t) for t in (value, loc, wts,
                                                    grad_out))
+    if grad_out.data_ptr() % 16:   # the tiled kernel reads it 16 bytes a lane
+        grad_out = grad_out.clone()
     grad_value = torch.zeros_like(value)   # the kernel adds into it
     grad_loc, grad_wts = torch.empty_like(loc), torch.empty_like(wts)
     table, tail = _kernel_tail(value, spatial_shapes, loc)
     with torch.cuda.device(value.device):
-        _launch("msda_bwd", bwd,
+        _launch("msda_bwd", _kernels()["bwd_narrow" if narrow else "bwd"],
                 [t.data_ptr() for t in (value, loc, wts, grad_out,
                                         grad_value, grad_loc, grad_wts)]
-                + tail)
+                + tail, narrow)
     del table
     return grad_value, grad_loc, grad_wts
 

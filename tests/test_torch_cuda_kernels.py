@@ -94,18 +94,31 @@ def test_relpos_forward_tiling_edges_on_card(bh, k_h, k_w, d):
         torch.testing.assert_close(lse, lse_ref, atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 128])
-@pytest.mark.parametrize("n", [1, 5, 197, 257, 300])
-def test_flash_forward_tiling_edges_on_card(n, d):
+# (B, H, N, d) at the edges of the forward's tiling: token counts below,
+# at and past the 64-row tiles and the 256-row items, at every padded head
+# width; one head, 133 heads (no multiple of the persistent grid) and
+# ViT-B/16's 1536 at batch 128
+FLASH_FWD_EDGES = ([(2, 3, n, d)
+                    for n in (1, 5, 16, 17, 64, 65, 128, 129, 197, 208, 257,
+                              300) for d in (40, 64, 80, 128)]
+                   + [(1, 1, 197, 64), (7, 19, 197, 64), (128, 12, 197, 64)])
+
+
+@pytest.mark.parametrize("b,h,n,d", FLASH_FWD_EDGES)
+def test_flash_forward_tiling_edges_on_card(b, h, n, d):
     """The bf16 flash forward on q, k, v sliced from one fused projection,
-    at token counts below, at and past the 128-query block and the
-    256-key ring, and at every padded head width."""
-    rng = np.random.RandomState(n + d)
-    qkv = _randn(rng, 2, n, 3, 3, d).to("cuda", torch.bfloat16)
+    through the persistent wgmma kernel for d <= 64 and the mma.sync one
+    with 16-byte copies for d 80 and 128, without a narrow launch."""
+    rng = np.random.RandomState(n + d + b * h)
+    qkv = _randn(rng, b, n, 3, h, d).to("cuda", torch.bfloat16)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    assert fa_ops._flash_fwd_variant(q, k, v) == ("tma" if d <= 64
+                                                  else "wide_sync")
     launches = KERNEL_LAUNCHES["flash_attention_fwd"]
+    narrow = NARROW_LAUNCHES["flash_attention_fwd"]
     o = flash_attention(q, k, v)
     assert KERNEL_LAUNCHES["flash_attention_fwd"] == launches + 1
+    assert NARROW_LAUNCHES["flash_attention_fwd"] == narrow
     o_ref, _ = flash_attention_reference(q, k, v)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=8e-3, rtol=0)
 
@@ -128,7 +141,9 @@ def test_flash_forward_unaligned_view_on_card(offset):
 
 
 def test_forward_kernels_repeat_bitwise_on_card():
-    """No atomics: two launches of K4 and of K1 give the same bits."""
+    """No atomics: two launches of K4 and of K1 give the same bits, K1
+    through its persistent kernel at a head count no multiple of the grid
+    and at a token count past one item."""
     rng = np.random.RandomState(5)
     q, k, v = (_randn(rng, 3, 1024, 64).to("cuda", torch.bfloat16)
                for _ in range(3))
@@ -136,10 +151,12 @@ def test_forward_kernels_repeat_bitwise_on_card():
     first, second = (flash_attention_relpos(q, k, v, rh, rw)
                      for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    qkv = _randn(rng, 4, 197, 3, 12, 64).to("cuda", torch.bfloat16)
-    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-    first, second = (fa_ops._flash_fwd_cuda(q, k, v) for _ in range(2))
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for b, h, n in ((4, 12, 197), (7, 19, 300)):
+        qkv = _randn(rng, b, n, 3, h, 64).to("cuda", torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        assert fa_ops._flash_fwd_variant(q, k, v) == "tma"
+        first, second = (fa_ops._flash_fwd_cuda(q, k, v) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _grad_atol(want, dtype):
@@ -440,11 +457,28 @@ MSDA_SHAPES = [
 ]
 
 
-def _msda_inputs(rng, b, lq, h, d, shapes, p, lo, hi):
+def _msda_inputs(rng, b, lq, h, d, shapes, p, lo, hi, where="uniform"):
+    """value, locations and weights on the card. Locations (``where``):
+    uniform in [lo, hi]; on cell centres ("centres"); around each query's
+    own cell, the queries a grid over every level as in DINO-DETR's encoder
+    ("grid", lq = S); or inside random boxes ("boxes", the decoder's)."""
     s = sum(hh * ww for hh, ww in shapes)
     value = _randn(rng, b, s, h, d).cuda()
-    loc = torch.from_numpy(rng.uniform(lo, hi, (b, lq, h, len(shapes), p, 2))
-                           .astype(np.float32)).cuda()
+    loc = rng.uniform(lo, hi, (b, lq, h, len(shapes), p, 2))
+    wh = np.array([[ww, hh] for hh, ww in shapes])[None, None, None, :,
+                                                     None]
+    if where == "centres":
+        loc = (np.maximum(np.floor(loc * wh), 0) + 0.5) / wh
+    elif where == "grid":
+        centres = np.concatenate([
+            np.stack(np.meshgrid((np.arange(ww) + 0.5) / ww,
+                                 (np.arange(hh) + 0.5) / hh), -1).reshape(
+                -1, 2) for hh, ww in shapes])
+        loc = centres[None, :, None, None, None] + 4 * (loc - 0.5) / wh
+    elif where == "boxes":
+        box = rng.rand(b, lq, 1, 1, 1, 4)
+        loc = box[..., :2] + (loc - 0.5) * (0.05 + 0.3 * box[..., 2:])
+    loc = torch.from_numpy(loc.astype(np.float32)).cuda()
     wts = torch.from_numpy(rng.rand(b, lq, h, len(shapes), p)
                            .astype(np.float32)).cuda()
     return value, loc, wts
@@ -481,6 +515,79 @@ def test_msda_kernels_match_plain_versions_on_card():
                               want_grads):
             assert g.shape == w.shape and g.dtype == torch.float32
             _assert_rel(g, w, 1e-5, f"grad {name} {i}")
+
+
+def _check_msda_bwd(value, shapes, loc, wts, g_out, variant):
+    """One K7b launch through ``variant`` against the plain backward on the
+    same inputs, each gradient within 1e-5 of its largest value, a narrow
+    launch counted exactly when the variant is the narrow one; a second
+    launch gives the same location and weight gradients."""
+    assert msda._msda_bwd_variant(value, shapes, loc) == variant
+    before, narrow = msda.KERNEL_LAUNCHES["msda_bwd"], \
+        msda.NARROW_LAUNCHES["msda_bwd"]
+    got = msda._msda_bwd_cuda(value, shapes, loc, wts, g_out)
+    assert msda.KERNEL_LAUNCHES["msda_bwd"] == before + 1
+    assert msda.NARROW_LAUNCHES["msda_bwd"] == narrow + (variant == "narrow")
+    want = msda.ms_deform_attn_backward_reference(value, shapes, loc, wts,
+                                                  g_out)
+    for name, g, w in zip(("value", "loc", "weights"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _assert_rel(g, w, 1e-5, f"grad {name}")
+    again = msda._msda_bwd_cuda(value, shapes, loc, wts, g_out)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+DINO_LEVELS = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))
+
+# (B, Lq, H, D, levels, P, location range, where): queries on a grid over
+# the levels sampling around their own cells (DINO-DETR's encoder), random
+# boxes (its decoder), locations off the map and on cell centres, one level,
+# levels of DINO-DETR's size and larger, B 1 and 2, query counts that no
+# chunk divides, D 4 to 64
+MSDA_TILED_EDGES = [
+    (2, 1360, 8, 32, ((32, 32), (16, 16), (8, 8), (4, 4)), 4, (0.0, 1.0),
+     "grid"),
+    (1, 1100, 8, 32, ((64, 64), (32, 32), (16, 16)), 4, (0.0, 1.0), "boxes"),
+    (2, 77, 4, 16, ((32, 32), (16, 16), (8, 8), (4, 4), (16, 16)), 4,
+     (-0.1, 1.1), "uniform"),
+    (2, 40, 8, 32, ((12, 10), (5, 7), (16, 16)), 4, (-0.1, 1.1), "centres"),
+    (1, 50, 8, 32, ((16, 16),), 4, (0.0, 1.0), "uniform"),
+    (1, 301, 8, 32, DINO_LEVELS, 4, (-0.1, 1.1), "uniform"),
+    (1, 3001, 2, 32, ((96, 96), (72, 72)), 4, (0.0, 1.0), "uniform"),
+    (2, 33, 3, 8, ((7, 9), (3, 3), (5, 5)), 5, (-0.1, 1.1), "uniform"),
+    (2, 40, 8, 48, ((12, 10), (5, 7)), 4, (-0.1, 1.1), "uniform"),
+    (1, 65, 2, 64, ((20, 20), (10, 10)), 4, (0.0, 1.0), "uniform"),
+    (1, 9, 1, 4, ((6, 5),), 2, (0.0, 1.0), "uniform"),
+]
+
+
+@pytest.mark.parametrize("b,lq,h,d,shapes,p,bounds,where", MSDA_TILED_EDGES)
+def test_msda_backward_tiled_edges_on_card(b, lq, h, d, shapes, p, bounds,
+                                           where):
+    """K7b through its tiled kernel at the edges of its layout against the
+    plain backward."""
+    rng = np.random.RandomState(lq + d)
+    value, loc, wts = _msda_inputs(rng, b, lq, h, d, shapes, p, *bounds,
+                                   where)
+    g_out = _randn(rng, b, lq, h * d).cuda()
+    _check_msda_bwd(value, shapes, loc, wts, g_out, "tiled")
+
+
+@pytest.mark.parametrize("d,n_levels,p,offset", [(6, 2, 4, 0), (10, 3, 4, 0),
+                                                 (32, 4, 9, 0), (32, 2, 4, 1),
+                                                 (48, 2, 4, 1)])
+def test_msda_backward_narrow_variant_on_card(d, n_levels, p, offset):
+    """What the tiled kernel does not take goes to the narrow one (a warp
+    per (b, q, h), lane = channel) and matches: D no multiple of 4, more
+    than 32 samples a (query, head), a value 4 bytes off 16-byte
+    alignment."""
+    rng = np.random.RandomState(d + p + offset)
+    shapes = ((8, 8), (4, 4), (2, 2), (1, 1))[:n_levels]
+    value, loc, wts = _msda_inputs(rng, 2, 30, 4, d, shapes, p, -0.1, 1.1)
+    if offset:
+        value = _unaligned(value, offset)
+    g_out = _randn(rng, 2, 30, 4 * d).cuda()
+    _check_msda_bwd(value, shapes, loc, wts, g_out, "narrow")
 
 
 def test_msda_gradients_survive_checkpointing_on_card():

@@ -251,3 +251,37 @@ def test_flash_backward_variant(dtype, d, offset, n, want):
     for args in ((moved[0], *aligned[1:], do), (*aligned, do_moved)):
         assert port_fa._flash_bwd_variant(*args) == want
     assert port_fa.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,d,offset,n,want", [
+    (torch.bfloat16, 64, 0, 197, "tma"),         # ViT-B/16's layers
+    (torch.bfloat16, 40, 0, 197, "tma"),         # d padded to 64 by TMA
+    (torch.bfloat16, 64, 0, 1, "tma"),           # one token
+    (torch.bfloat16, 64, 0, 300, "tma"),         # a 44-row last key tile
+    (torch.bfloat16, 80, 0, 257, "wide_sync"),   # ViT-H's d 80
+    (torch.bfloat16, 128, 0, 197, "wide_sync"),  # d past 64
+    (torch.bfloat16, 64, 2, 197, "narrow"),      # 4 bytes off alignment
+    (torch.bfloat16, 64, 8, 197, "tma"),         # 16 bytes in: aligned
+    (torch.bfloat16, 42, 0, 197, "narrow"),      # d no multiple of 8
+    (torch.float32, 64, 0, 197, "f32"),
+])
+def test_flash_forward_variant(dtype, d, offset, n, want):
+    """The flash forward (K1) picks its kernel from the head width and the
+    alignment of q, k and v alone, as ``csrc/flash_fwd.cu`` documents, and
+    launches nothing to do so: each tensor a [B, H, N, d] view of a fused
+    [B, N, 3, H, d] projection, one of them ``offset`` elements into its
+    buffer."""
+    b, h = 2, 3
+
+    def fused(off):
+        buf = torch.zeros(b * n * 3 * h * d + off, dtype=dtype)
+        return [t.transpose(1, 2)
+                for t in buf[off:].view(b, n, 3, h, d).unbind(2)]
+
+    aligned, moved = fused(0), fused(offset)
+    before = dict(port_fa.KERNEL_LAUNCHES)
+    for i in range(3):
+        args = list(aligned)
+        args[i] = moved[i]
+        assert port_fa._flash_fwd_variant(*args) == want
+    assert port_fa.KERNEL_LAUNCHES == before

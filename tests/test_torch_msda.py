@@ -118,3 +118,44 @@ def test_checks_shapes():
     with pytest.raises(ValueError, match="sampling_locations"):
         msda.ms_deform_attn(value, ((4, 5),), locs[..., :1], weights)
     assert msda.KERNEL_LAUNCHES == {"msda_fwd": 0, "msda_bwd": 0}
+
+
+def _shifted(shape, offset, dtype=torch.float32):
+    """A contiguous tensor of ``shape`` that starts ``offset`` elements into
+    its buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("d,levels,points,dtype,offset,want", [
+    (32, ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16)), 4,
+     torch.float32, 0, "tiled"),                   # DINO-DETR's launches
+    (32, ((8, 8),), 4, torch.float32, 0, "tiled"),   # one small level
+    (64, ((64, 64), (48, 48)), 4, torch.float32, 0, "tiled"),  # none fits
+    (8, ((8, 8), (4, 4)), 3, torch.float32, 0, "tiled"),
+    (4, ((6, 5),), 2, torch.float32, 0, "tiled"),
+    (48, ((12, 10), (5, 7)), 4, torch.float32, 0, "tiled"),
+    (32, ((8, 8),), 4, torch.float32, 4, "tiled"),  # 16 bytes in: aligned
+    (32, ((8, 8),), 4, torch.float32, 1, "narrow"),  # 4 bytes off alignment
+    (32, ((8, 8),), 4, torch.bfloat16, 1, "tiled"),  # the f32 copy aligns
+    (6, ((8, 8),), 4, torch.float32, 0, "narrow"),   # D no multiple of 4
+    (30, ((8, 8),), 4, torch.float32, 0, "narrow"),
+    (32, ((4, 4),) * 8, 5, torch.float32, 0, "narrow"),  # 40 samples
+    (32, ((4, 4),) * 8, 4, torch.float32, 0, "tiled"),   # 32 samples
+])
+def test_msda_backward_variant(d, levels, points, dtype, offset, want):
+    """The MSDA backward (K7b) picks its kernel from the head width, the
+    number of samples a (query, head) and the alignment of value and the
+    locations as launched alone, as ``csrc/msda.cu`` documents, never from
+    where the samples lie, and launches nothing to do so."""
+    s = sum(h * w for h, w in levels)
+    value = _shifted((2, s, 2, d), offset, dtype)
+    loc = torch.rand(2, 3, 2, len(levels), points, 2)
+    before = dict(msda.KERNEL_LAUNCHES)
+    assert msda._msda_bwd_variant(value, levels, loc) == want
+    assert msda._msda_bwd_variant(value, levels, loc * 3 - 1) == want
+    assert msda.KERNEL_LAUNCHES == before
+    # the locations' own alignment: 8 bytes
+    moved = _shifted(tuple(loc.shape), 1)
+    assert msda._msda_bwd_variant(value.float().contiguous(), levels,
+                                  moved) == "narrow"
