@@ -30,12 +30,12 @@ Phases, each of which raises (exit code 1) on failure:
      every step, profiles one step, and compares one more step's loss and
      gradients with the einsum attention path;
   6. MSDA kernels: holds the multi-scale deformable attention kernels (K7
-     and its backward, tiled or its narrow variant) against their plain
-     versions at edge shapes, through the module with 2-D and 4-D reference
-     points, and at DINO-DETR's encoder and decoder launches at batch 2
-     (the plain version run over chunks of queries), and times them there
-     beside their bound, the reference's grid_sample composition and the
-     backward's narrow variant;
+     and its backward, each tiled or its narrow variant) against their
+     plain versions at edge shapes, through the module with 2-D and 4-D
+     reference points, and at DINO-DETR's encoder and decoder launches at
+     batch 2 (the plain version run over chunks of queries), and times them
+     there beside their bound, the reference's grid_sample composition and
+     their narrow variants (K7 in alternating rounds);
   7. DINO-DETR training: takes resnet50_dinodetr 1024x1024 train steps at
      batch 2 through ``make_train_step`` (the res50_dinodetr_yoloresize1024
      recipe's DINODETRLoss, AdamW with the backbone at 1e-5 and clipping at
@@ -791,16 +791,18 @@ def _serve(pred, kind, image, prompt):
 def _reset_launches():
     for counts in (fa.KERNEL_LAUNCHES, fa.NARROW_LAUNCHES,
                    msda.KERNEL_LAUNCHES, msda.NARROW_LAUNCHES,
-                   matmul_probe.KERNEL_LAUNCHES, bw_probe.KERNEL_LAUNCHES):
+                   matmul_probe.KERNEL_LAUNCHES, matmul_probe.NARROW_LAUNCHES,
+                   bw_probe.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _wide_kernels_only(path):
-    """Fails if a flash or MSDA kernel took its narrow variant since the
+    """Fails if a flash, MSDA or P1 kernel took its narrow variant since the
     counts were last set to 0: a main path's inputs are aligned and of the
-    shapes the wide (tiled) kernels serve."""
-    narrow = {k: v for counts in (fa.NARROW_LAUNCHES, msda.NARROW_LAUNCHES)
+    shapes the wide (tiled, stream) kernels serve."""
+    narrow = {k: v for counts in (fa.NARROW_LAUNCHES, msda.NARROW_LAUNCHES,
+                                  matmul_probe.NARROW_LAUNCHES)
               for k, v in counts.items() if v}
     if narrow:
         raise RuntimeError(f"{path} launched narrow variants: {narrow}")
@@ -1439,45 +1441,67 @@ def _corners(shapes, loc):
 
 def _msda_times(card, name, lq, seed, boxes):
     """K7 and K7b at one DINO-DETR launch: errors against the plain version
-    (over chunks of queries), times beside the plain version, the
-    grid_sample composition and its autograd backward, and the bounds."""
+    (over chunks of queries) of K7, its narrow variant (fed a value 4 bytes
+    off 16-byte alignment) and K7b; K7 timed in 5 alternating rounds beside
+    its narrow variant and the grid_sample composition; K7b beside the
+    plain version, its narrow variant and the composition's autograd
+    backward; and the bounds."""
     shapes = DINO_LEVELS
     value, loc, wts, grad_out = launch_inputs(lq, seed, boxes)
+    b, s, h, d = value.shape
+    moved = _unaligned(value, 1)
+    if ((msda._msda_fwd_variant(value, shapes, loc),
+         msda._msda_fwd_variant(moved, shapes, loc),
+         msda._msda_bwd_variant(value, shapes, loc),
+         msda._msda_bwd_variant(moved, shapes, loc))
+            != ("tiled", "narrow", "tiled", "narrow")):
+        raise RuntimeError("the timed inputs miss the kernels' variants")
+    narrow_before = msda.NARROW_LAUNCHES["msda_fwd"]
     out = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    out_again = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    out_narrow = msda._msda_fwd_cuda(moved, shapes, loc, wts)
+    if msda.NARROW_LAUNCHES["msda_fwd"] != narrow_before + 1:
+        raise RuntimeError("K7's narrow launches were not counted")
     grads = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
     want = _by_query_chunks(value, shapes, loc, wts)
     want_grads = _by_query_chunks(value, shapes, loc, wts, grad_out)
     lib = _grid_sample_msda(value, shapes, loc, wts)
     torch.cuda.synchronize()
+    if not torch.equal(out, out_again):
+        raise RuntimeError(f"two K7 launches differ at the {name} launch")
     err_fwd = _rel_err(out, want)
+    err_narrow = _rel_err(out_narrow, want)
     err_bwd = max(_rel_err(a, w) for a, w in zip(grads, want_grads))
     err_lib = _rel_err(lib, want)
     abs_fwd = (out - want).abs().max().item()
     abs_bwd = max((a - w).abs().max().item()
                   for a, w in zip(grads, want_grads))
-    del out, grads, want, want_grads, lib
+    del out, out_again, out_narrow, grads, want, want_grads, lib
     print(f"kernel check msda {name} B={DINO_BATCH} Lq={lq}: max|out-ref| "
-          f"{abs_fwd:.3e} ({err_fwd:.3e} of its largest value), "
-          f"max|grad-ref| {abs_bwd:.3e} (at most {err_bwd:.3e} of a "
-          f"gradient's largest value; tolerance 1e-5 of it); the grid_sample "
-          f"composition {err_lib:.3e}", flush=True)
-    if not (err_fwd <= 1e-5 and err_bwd <= 1e-5):
+          f"{abs_fwd:.3e} ({err_fwd:.3e} of its largest value, the same "
+          f"bits from two launches; {err_narrow:.3e} through the narrow "
+          f"variant), max|grad-ref| {abs_bwd:.3e} (at most {err_bwd:.3e} of "
+          f"a gradient's largest value; tolerance 1e-5 of it); the "
+          f"grid_sample composition {err_lib:.3e}", flush=True)
+    if not (err_fwd <= 1e-5 and err_narrow <= 1e-5 and err_bwd <= 1e-5):
         raise RuntimeError(f"the MSDA kernels disagree with their plain "
                            f"versions at the {name} launch")
 
-    b, s, h, d = value.shape
     samples = loc[..., 0].numel()
     inside, touched = _corners(shapes, loc)
-    ms_fwd = _cuda_ms(lambda: msda._msda_fwd_cuda(value, shapes, loc, wts),
-                      20)
+    fwd_times = _alternating({
+        "kernel": lambda: msda._msda_fwd_cuda(value, shapes, loc, wts),
+        "narrow": lambda: msda._msda_fwd_cuda(moved, shapes, loc, wts),
+        "library": lambda: _grid_sample_msda(value, shapes, loc, wts)},
+        rounds=5, iters=5 if lq > 10000 else 20)
+    ms_fwd = statistics.median(fwd_times["kernel"])
+    print(f"msda_fwd DINO-DETR {name} launch, 5 alternating rounds [{card}]: "
+          f"kernel {_spread(fwd_times['kernel'])}, narrow variant "
+          f"{_spread(fwd_times['narrow'])}, grid_sample composition "
+          f"{_spread(fwd_times['library'])}", flush=True)
     ms_bwd = _cuda_ms(lambda: msda._msda_bwd_cuda(value, shapes, loc, wts,
                                                   grad_out), 20)
-    # the narrow variant (the previous design) on the same inputs, fed a
-    # value 4 bytes off 16-byte alignment
-    moved = _unaligned(value, 1)
-    if (msda._msda_bwd_variant(value, shapes, loc),
-            msda._msda_bwd_variant(moved, shapes, loc)) != ("tiled", "narrow"):
-        raise RuntimeError("the timed inputs miss the backward's variants")
+    # the backward's narrow variant (the previous design) on the same inputs
     ms_narrow = _cuda_ms(lambda: msda._msda_bwd_cuda(moved, shapes, loc, wts,
                                                      grad_out), 20)
     del moved
@@ -1485,7 +1509,7 @@ def _msda_times(card, name, lq, seed, boxes):
                          3)
     plain_bwd = _cuda_ms(lambda: _by_query_chunks(value, shapes, loc, wts,
                                                   grad_out), 3)
-    lib_fwd = _cuda_ms(lambda: _grid_sample_msda(value, shapes, loc, wts), 5)
+    lib_fwd = statistics.median(fwd_times["library"])
     leaves = [t.detach().requires_grad_() for t in (value, loc, wts)]
     lib_out = _grid_sample_msda(leaves[0], shapes, *leaves[1:])
     lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
@@ -1537,6 +1561,16 @@ def _msda_times(card, name, lq, seed, boxes):
                   f"previous design) on the same inputs: {ms_narrow:.4f} ms, "
                   f"{ms_narrow / ms:.3f} times the tiled kernel's",
                   flush=True)
+        else:
+            narrow_ms = statistics.median(fwd_times["narrow"])
+            kernels[-1].update({
+                "ms_rounds": fwd_times["kernel"],
+                "library_ms_rounds": fwd_times["library"],
+                "narrow_variant_ms": narrow_ms})
+            print(f"  the narrow variant (a warp per (b, q, h), the "
+                  f"previous design) on the same inputs: {narrow_ms:.4f} ms, "
+                  f"{narrow_ms / ms:.3f} times the tiled kernel's",
+                  flush=True)
     return kernels
 
 
@@ -1585,26 +1619,31 @@ def _module_check():
 
 
 def _msda_check(name, value, shapes, loc, wts, grad_out, want_variant):
-    """K7 and K7b on one case against their plain versions: the backward
-    launched twice through ``want_variant`` (its location and weight
-    gradients the same bits both times), with a narrow launch counted
-    exactly when that variant is the narrow one. Returns the relative
-    errors of out, grad_value, grad_loc and grad_weights."""
-    if msda._msda_bwd_variant(value, shapes, loc) != want_variant:
-        raise RuntimeError(f"{name}: the backward takes its "
-                           f"{msda._msda_bwd_variant(value, shapes, loc)} "
-                           f"kernel, not {want_variant}")
-    narrow_before = msda.NARROW_LAUNCHES["msda_bwd"]
+    """K7 and K7b on one case against their plain versions, each launched
+    twice through ``want_variant`` (the forward's output and the backward's
+    location and weight gradients the same bits both times), with narrow
+    launches counted exactly when that variant is the narrow one. Returns
+    the relative errors of out, grad_value, grad_loc and grad_weights."""
+    variants = (msda._msda_fwd_variant(value, shapes, loc),
+                msda._msda_bwd_variant(value, shapes, loc))
+    if variants != (want_variant, want_variant):
+        raise RuntimeError(f"{name}: the forward and backward take their "
+                           f"{variants} kernels, not {want_variant}")
+    narrow_before = dict(msda.NARROW_LAUNCHES)
     out = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    out_again = msda._msda_fwd_cuda(value, shapes, loc, wts)
     got = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
     again = msda._msda_bwd_cuda(value, shapes, loc, wts, grad_out)
-    narrow = msda.NARROW_LAUNCHES["msda_bwd"] - narrow_before
-    if narrow != (2 if want_variant == "narrow" else 0):
-        raise RuntimeError(f"{name}: {narrow} narrow backward launches")
+    narrow = {k: msda.NARROW_LAUNCHES[k] - narrow_before[k]
+              for k in narrow_before}
+    if set(narrow.values()) != {2 if want_variant == "narrow" else 0}:
+        raise RuntimeError(f"{name}: narrow launches {narrow}")
     want = (msda.ms_deform_attn_reference(value, shapes, loc, wts),
             *msda.ms_deform_attn_backward_reference(value, shapes, loc, wts,
                                                     grad_out))
     torch.cuda.synchronize()
+    if not torch.equal(out, out_again):
+        raise RuntimeError(f"{name}: two forward launches differ")
     if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
         raise RuntimeError(f"{name}: two launches gave different location "
                            f"or weight gradients")
@@ -1616,10 +1655,10 @@ def phase_msda_kernels(card):
     to 5 levels with a 16x16 tail, levels too large for shared memory;
     locations in [-0.1, 1.1], on cell centres, around each query's own cell
     and inside random boxes; B 1 and 2, query counts that no chunk divides)
-    through the tiled backward, and at shapes it does not serve through its
-    narrow variant; through the module with 2-D and 4-D reference points;
-    and at DINO-DETR's encoder and decoder launches, timed there beside the
-    narrow variant."""
+    through the tiled kernels, and at shapes they do not serve through
+    their narrow variants; through the module with 2-D and 4-D reference
+    points; and at DINO-DETR's encoder and decoder launches, timed there
+    beside the narrow variants."""
     # (name, B, Lq, H, D, levels, P, location range, where, variant)
     cases = [
         ("d32_one_level", 2, 50, 8, 32, ((16, 16),), 4, 0.0, 1.0, "uniform",
@@ -1660,8 +1699,8 @@ def phase_msda_kernels(card):
               f"D={d} levels {shapes} P={p}: max error over each tensor's "
               f"largest value out {errs[0]:.3e} grad_value {errs[1]:.3e} "
               f"grad_loc {errs[2]:.3e} grad_weights {errs[3]:.3e} (tolerance "
-              f"1e-5); two launches the same location and weight gradients",
-              flush=True)
+              f"1e-5); two launches the same output and the same location "
+              f"and weight gradients", flush=True)
         if max(errs) > 1e-5:
             failed.append(name)
     if failed:
@@ -2043,33 +2082,51 @@ PROBE_RAGGED = (1000, 64, 256)
 
 
 def _probe_check(m, k, n):
-    """P1 and P2 against their plain versions on the same inputs: (max
-    |y - plain y| of P1, of P2's y and sums). Raises unless each bf16 output
-    lies within one bf16 spacing of the plain version's f32 product at its
-    magnitude (plus K * 2^-24 * sum |x w|, the f32 sum's rounding in another
-    order) and each sum within 1e-5 of the largest sum."""
+    """P1 (its stream and its narrow variant, each launched twice for the
+    same bits) and P2 against their plain versions on the same inputs: (max
+    |y - plain y| of P1's stream, of P2's y and sums). Raises unless each
+    bf16 output lies within one bf16 spacing of the plain version's f32
+    product at its magnitude (plus K * 2^-24 * sum |x w|, the f32 sum's
+    rounding in another order) and each sum within 1e-5 of the largest
+    sum."""
     x, w = matmul_probe.probe_inputs(m, k, n, seed=m)
     want = x.float() @ w.float()  # the plain versions' f32 product
     y_plain, s1_plain, s2_plain = matmul_probe.mm_stats_plain(x, w)
-    y = matmul_probe.probe_mm(x, w)
+    # P1 through its stream and, fed x 4 bytes off 16-byte alignment, its
+    # narrow variant, each launched twice for the same bits
+    moved = matmul_probe.offset_copy(x)
+    if ((matmul_probe._mm_variant(x, w), matmul_probe._mm_variant(moved, w))
+            != ("stream", "narrow")):
+        raise RuntimeError(f"P1's inputs at M={m} K={k} N={n} miss its "
+                           f"variants")
+    narrow_before = matmul_probe.NARROW_LAUNCHES["probe_mm"]
+    y, y_narrow = (matmul_probe.probe_mm(t, w) for t in (x, moved))
+    repeats = (matmul_probe.probe_mm(x, w), matmul_probe.probe_mm(moved, w))
+    if matmul_probe.NARROW_LAUNCHES["probe_mm"] != narrow_before + 2:
+        raise RuntimeError("P1's narrow launches were not counted")
     y2, s1, s2 = matmul_probe.probe_mm(x, w, stats=True)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((y, y_narrow), repeats)):
+        raise RuntimeError(f"two P1 launches differ at M={m} K={k} N={n}")
+    del moved, repeats
     # one bf16 spacing at each element's magnitude, plus the f32 sum's own
     # rounding in another order where the terms cancel
     spacing = (torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
                + k * 2.0**-24 * (x.float().abs() @ w.float().abs()))
     in_spacing = all(bool(((t.float() - want).abs() <= spacing).all())
-                     for t in (y, y2))
+                     for t in (y, y_narrow, y2))
     sum_rel = max(((a - b).abs().max() / b.abs().max()).item()
                   for a, b in ((s1, s1_plain), (s2, s2_plain)))
     err_p1 = (y.float() - y_plain.float()).abs().max().item()
     err_p2 = max((y2.float() - y_plain.float()).abs().max().item(),
                  (s1 - s1_plain).abs().max().item(),
                  (s2 - s2_plain).abs().max().item())
-    print(f"probe check M={m} K={k} N={n}: P1 max|y-plain|={err_p1:.3e}, "
-          f"P2 max|y,sums-plain|={err_p2:.3e}, sums within {sum_rel:.3e} "
-          f"of their largest value (1e-5), outputs within one bf16 spacing "
-          f"of the f32 product: {in_spacing}", flush=True)
+    print(f"probe check M={m} K={k} N={n}: P1 max|y-plain|={err_p1:.3e} "
+          f"(stream), {(y_narrow.float() - y_plain.float()).abs().max():.3e} "
+          f"(narrow variant), P2 max|y,sums-plain|={err_p2:.3e}, sums "
+          f"within {sum_rel:.3e} of their largest value (1e-5), outputs "
+          f"within one bf16 spacing of the f32 product: {in_spacing}; two "
+          f"launches of each P1 variant the same bits", flush=True)
     if not (in_spacing and sum_rel <= 1e-5):
         raise RuntimeError(f"P1/P2 disagree with their plain versions at "
                            f"M={m} K={k} N={n}")
@@ -2087,14 +2144,22 @@ def _probe_entry(name, replaces, reading, err):
 
 def phase_probes(card):
     """The roofline probes P1-P3: checked against their plain versions at
-    ResNet-50's layer-1 and layer-2 shapes and a ragged M (launches not
-    counted), then the probe runs (``matmul_probe.case``, ``bw_probe.case``:
-    the kernel, its plain version, the library calls), whose launches are
-    the path's. Returns (kernel entries, launches)."""
-    errs = {}
+    ResNet-50's layer-1 and layer-2 shapes and a ragged M, P1 timed in 5
+    alternating rounds beside its narrow variant and ``torch.matmul``
+    (launches not counted), then the probe runs (``matmul_probe.case``,
+    ``bw_probe.case``: the kernel, its plain version, the library calls),
+    whose launches are the path's, none of them through P1's narrow
+    variant. Returns (kernel entries, launches)."""
+    errs, p1_rounds = {}, {}
     for layer, (m, k, n, _) in matmul_probe.LAYERS.items():
         errs[layer] = _probe_check(m, k, n)
     _probe_check(*PROBE_RAGGED)
+    for layer in matmul_probe.LAYERS:
+        p1_rounds[layer] = matmul_probe.variants_ms(layer)
+        print(f"P1 {layer}, 5 alternating rounds of 50 [{card}]: stream "
+              f"{_spread(p1_rounds[layer]['stream'])}, narrow variant "
+              f"{_spread(p1_rounds[layer]['narrow'])}, torch.matmul "
+              f"{_spread(p1_rounds[layer]['matmul'])}", flush=True)
     x = torch.randn(bw_probe.SHAPE, device="cuda").to(torch.bfloat16)
     o = bw_probe.probe_scale(x)
     p3_err = (o.float() - bw_probe.scale_plain(x).float()).abs().max().item()
@@ -2110,6 +2175,7 @@ def phase_probes(card):
                 for layer in matmul_probe.LAYERS for stats in (False, True)}
     p3 = bw_probe.case()
     launches = {**matmul_probe.KERNEL_LAUNCHES, **bw_probe.KERNEL_LAUNCHES}
+    _wide_kernels_only("the probe runs")
     for (layer, stats), r in readings.items():
         print(f"{'P2' if stats else 'P1'} {layer} {r['shape']} [{card}]: "
               f"kernel {r['ms']:.4f} ms ({r['gbytes_per_s']:.1f} GB/s of "
@@ -2134,6 +2200,16 @@ def phase_probes(card):
                              errs["layer1"][int(stats)])
         other = _probe_entry(name, "", readings[("layer2", stats)],
                              errs["layer2"][int(stats)])
+        if not stats:
+            # P1's time and its library call's from the alternating rounds
+            for e, layer in ((entry, "layer1"), (other, "layer2")):
+                rounds = p1_rounds[layer]
+                e.update({"ms": statistics.median(rounds["stream"]),
+                          "library_ms": statistics.median(rounds["matmul"]),
+                          "ms_rounds": rounds["stream"],
+                          "library_ms_rounds": rounds["matmul"],
+                          "narrow_variant_ms": statistics.median(
+                              rounds["narrow"])})
         entry["other_shapes"] = [_reading(other)]
         kernels.append(entry)
     kernels.append(_probe_entry("probe_scale", "perf/pallas_bw_probe.py:21",

@@ -16,9 +16,9 @@
 //   grad_value [B, S, H, D] (zeroed by the caller), grad_loc like loc,
 //   grad_attw like attw.
 //
-// The forward (msda_fwd_kernel) and the backward's narrow variant
-// (msda_bwd_narrow, the previous backward): one warp per (b, q, h), lane =
-// channel d (a second channel per lane for 32 < D <= 64). For each sample
+// The narrow variants (msda_fwd_narrow and msda_bwd_narrow, the first
+// forward and backward): one warp per (b, q, h), lane = channel d (a second
+// channel per lane for 32 < D <= 64). For each sample
 // the warp reads the location and the weight (one address for all lanes, a
 // broadcast) and the four corner rows value[b, start_l + yi * w_l + xi, h,
 // :], each D contiguous floats: 128 coalesced bytes at DINO-DETR's D = 32.
@@ -68,11 +68,42 @@
 // 8-byte aligned (ops/msda.py::_msda_bwd_variant; the wrapper copies a
 // grad_out that is not 16-byte aligned).
 //
-// Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): msda_bwd_tiled 64, 89 and
-// 103 registers for D <= 16, 32 and 64 (128 threads, at least 4, 4 and 2
-// blocks an SM), no spills, a 128-byte stack frame (the level table read
-// by a runtime index); msda_bwd_narrow 40 and 62, msda_fwd_kernel 32 and 48,
-// no spills.
+// The forward, split the same way before its redesign (perf/msda_split.py
+// at the encoder launch): the narrow kernel took 4.21 ms, 3.74
+// without its gathers. It was bound by its instructions, not its gathers:
+// each of a warp's 32 lanes worked out every sample's four corners, one
+// sample at a time. The tiled forward (msda_fwd_tiled, the path's) takes
+// the backward's gather plan and then cuts the instructions a pair of
+// samples costs:
+//   - A block of 8 warps owns (b, h, a patch of queries): 8 x 8 cells of one
+//     level where the queries are the levels' cells (Lq == S, DINO-DETR's
+//     encoder), else a run of consecutive queries as the backward's chunks;
+//     its warps take the queries in turn.
+//   - Lanes 16s + 4k + j hold corner k of sample 2m + s and channel groups
+//     j + 4t, two samples' eight corner rows a 16-byte gather instruction;
+//     the next pair's gathers (the next query's first pair after a query's
+//     last) go out before this pair's blend, which needs no shuffle.
+//   - A corner's cell, row and weight are worked out in f32 from a table of
+//     each sample's level (w, h, first row) in shared memory, one conversion
+//     to an integer a corner, and its offset in 32 bits; no division by P.
+//   - A query's sums are reduced over the lanes by shuffles in a fixed
+//     order: the same bits on every launch.
+// Levels served from shared memory (DINO-DETR's 32x32 and 16x16, 160 KB a
+// head, loaded by TMA into a persistent block an SM) were built and
+// measured slower at both DINO-DETR launches: the kernel is bound by its
+// instructions, and one 16-warp block an SM hid less latency. They went.
+// The tiled forward takes 1.85 ms, 1.55 without its gathers and 1.91
+// walking runs of queries instead of patches of cells (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md).
+// The forward's narrow variant takes D no multiple of 4, more than 32
+// samples a (query, head), value not 16-byte or loc not 8-byte aligned,
+// S from 2^24 or S H D from 2^31 (ops/msda.py::_msda_fwd_variant).
+//
+// Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): msda_fwd_tiled 63, 72 and
+// 106 registers for D <= 16, 32 and 64 (256 threads, at least 3, 3 and 2
+// blocks an SM), 512 bytes of shared memory; msda_bwd_tiled 64, 91 and 103
+// (128 threads, at least 4, 4 and 2 blocks an SM); msda_bwd_narrow 40 and
+// 56, msda_fwd_narrow 32 and 48; no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,7 +167,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 template <int CPL>  // channels per lane
 __global__ void __launch_bounds__(kWarps * 32)
-    msda_fwd_kernel(const float* __restrict__ value,
+    msda_fwd_narrow(const float* __restrict__ value,
                     const float* __restrict__ loc,
                     const float* __restrict__ attw, float* __restrict__ out,
                     long long n_warps, int S, int H, int D, int Lq, int L,
@@ -429,6 +460,237 @@ __global__ void __launch_bounds__(kTiledWarps * 32, CH <= 2 ? 4 : 2)
   }
 }
 
+// --------------------- the forward, tiled (the path's) ---------------------
+
+constexpr int kFwdWarps = 8;      // warps of a tiled forward block
+
+__device__ __forceinline__ void fma4(float4& acc, float f, const float4& v) {
+  acc.x = fmaf(f, v.x, acc.x);
+  acc.y = fmaf(f, v.y, acc.y);
+  acc.z = fmaf(f, v.z, acc.z);
+  acc.w = fmaf(f, v.w, acc.w);
+}
+
+// One lane's corner of one sample in the forward: the sample's weight times
+// the corner's bilinear weight (0 outside the level) and the corner's CH
+// groups of 4 channels.
+template <int CH>
+struct FwdTap {
+  float f;
+  float4 v[CH];
+};
+
+// The queries a forward block takes: a patch of `rows` x `cols` queries,
+// query q0 + r * stride + c for r < rows and c < cols (a run of
+// consecutive queries has rows 1), numbered i = r * width + c.
+struct Patch {
+  int q0, stride, width, rows, cols;
+  // the query of item i, or -1 where the patch has none
+  __device__ __forceinline__ int query(int i) const {
+    const int r = i / width, c = i - r * width;
+    return r < rows && c < cols ? q0 + r * stride + c : -1;
+  }
+};
+
+// The forward for the queries of items i_first, i_first + i_step, ... <
+// i_end of a patch of (batch b, head h), by one warp. Lanes 16s + 4k + j
+// hold corner k (dy = k / 2, dx = k % 2) of sample 2m + s and channel
+// groups j + 4t for t < CH (16 bytes each), so that a warp instruction
+// gathers two samples' eight corner rows. The samples' locations and
+// weights are loaded once a query (lane i sample i) and the next query's
+// while this one runs; the next pair's gathers (the next query's first
+// pair after the last) go out before this pair's blend. Each lane sums f *
+// v over its pairs in f32; a query ends with a sum over the lanes of each
+// channel group (shuffles over k and s in a fixed order, so the output has
+// the same bits on every launch) and 16-byte stores. `smp[i]` holds the
+// (w, h, first row) of sample i's level as floats, exact below 2^24, in
+// shared memory: a corner's row is found in f32 with one conversion at the
+// end, and its offset in a batch of value in 32 bits (fewer than 2^31
+// floats).
+template <int CH>
+__device__ __forceinline__ void fwd_queries(
+    const float* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attw, float* __restrict__ out, int S, int H,
+    int D, int Lq, int lp, const float4* smp, int b, int h,
+    const Patch& patch, int i_first, int i_end, int i_step) {
+  const int lane = threadIdx.x % 32;
+  const int half = lane / 16, k = (lane / 4) % 4, j = lane % 4;
+  const float dx = static_cast<float>(k % 2), dy = static_cast<float>(k / 2);
+  const int pairs = (lp + 1) / 2;
+  // head h's channels of batch b, 4 floats an element: row r's group g at
+  // vb[r * row_stride + g]
+  const unsigned row_stride = H * D / 4;
+  const float4* vb = reinterpret_cast<const float4*>(
+      value + (static_cast<long long>(b) * S * H + h) * D);
+  // the corner's bilinear weight along x is fma(kx, wx, bx): wx for dx 1,
+  // 1 - wx (one rounding either way) for dx 0; the same along y
+  const float kx = 2.f * dx - 1.f, bx = 1.f - dx;
+  const float ky = 2.f * dy - 1.f, by = 1.f - dy;
+
+  // sample `lane` of query qq (zeros for no query or past the samples)
+  auto samples = [&](int qq, float& lx, float& ly, float& al) {
+    lx = ly = al = 0.f;
+    if (qq >= 0 && lane < lp) {
+      const long long bqh = (static_cast<long long>(b) * Lq + qq) * H + h;
+      const float2 xy =
+          __ldg(reinterpret_cast<const float2*>(loc) + bqh * lp + lane);
+      lx = xy.x;
+      ly = xy.y;
+      al = __ldg(attw + bqh * lp + lane);
+    }
+  };
+  // this lane's corner of sample i, its gathers issued
+  auto tap = [&](int i, float lx, float ly, float al, FwdTap<CH>& tp) {
+    const float sx = __shfl_sync(kFull, lx, i & 31);
+    const float sy = __shfl_sync(kFull, ly, i & 31);
+    const float a = __shfl_sync(kFull, al, i & 31);
+    const float4 lev = smp[i & 31];  // w, h, first row of its level
+    // rounded as PyTorch's separate multiply and subtract are (no fused
+    // multiply-add), as in corners()
+    const float x = __fsub_rn(__fmul_rn(sx, lev.x), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(sy, lev.y), 0.5f);
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float wx = __fsub_rn(x, x0), wy = __fsub_rn(y, y0);
+    // the corner's cell; false for NaN and infinities
+    const float cx = x0 + dx, cy = y0 + dy;
+    const bool inside = i < lp && cx >= 0.f && cx < lev.x && cy >= 0.f &&
+                        cy < lev.y;
+    const unsigned row = __float2uint_rz(fmaf(cy, lev.x, cx) + lev.z);
+    tp.f = inside ? a * (fmaf(kx, wx, bx) * fmaf(ky, wy, by)) : 0.f;
+#pragma unroll
+    for (int t = 0; t < CH; ++t) {
+      const unsigned g = j + 4 * t;
+      tp.v[t] = inside && 4 * g < D ? __ldg(vb + (row * row_stride + g))
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  float4 acc[CH];
+#pragma unroll
+  for (int t = 0; t < CH; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the items of the patch that hold queries, in turn
+  auto next_item = [&](int i) {
+    for (; i < i_end; i += i_step)
+      if (patch.query(i) >= 0) return i;
+    return i_end;
+  };
+  int i = next_item(i_first);
+  if (i >= i_end) return;
+  int q = patch.query(i);
+  int i_next = next_item(i + i_step);
+  int q_next = i_next < i_end ? patch.query(i_next) : -1;
+  float lx, ly, al, nx, ny, na;
+  samples(q, lx, ly, al);
+  samples(q_next, nx, ny, na);
+  int m = 0;
+  // pair m of query q: fetches the next pair into `fetch`, blends `use`
+  // and, after the query's last pair, stores the query; false when the
+  // warp's queries are done
+  auto stage = [&](const FwdTap<CH>& use, FwdTap<CH>& fetch) {
+    const bool last = m + 1 == pairs;
+    if (!last)
+      tap(2 * (m + 1) + half, lx, ly, al, fetch);
+    else if (q_next >= 0)
+      tap(half, nx, ny, na, fetch);
+#pragma unroll
+    for (int t = 0; t < CH; ++t) fma4(acc[t], use.f, use.v[t]);
+    if (!last) {
+      ++m;
+      return true;
+    }
+    // channel group j + 4t summed over the lanes of the same j
+#pragma unroll
+    for (int t = 0; t < CH; ++t) {
+#pragma unroll
+      for (int s = 4; s < 32; s <<= 1) {
+        acc[t].x += __shfl_xor_sync(kFull, acc[t].x, s);
+        acc[t].y += __shfl_xor_sync(kFull, acc[t].y, s);
+        acc[t].z += __shfl_xor_sync(kFull, acc[t].z, s);
+        acc[t].w += __shfl_xor_sync(kFull, acc[t].w, s);
+      }
+    }
+    if (lane < 4) {
+      const long long bqh = (static_cast<long long>(b) * Lq + q) * H + h;
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const int c = 4 * (j + 4 * t);
+        if (c < D) *reinterpret_cast<float4*>(out + bqh * D + c) = acc[t];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < CH; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q_next < 0) return false;
+    q = q_next;
+    i_next = next_item(i_next + i_step);
+    q_next = i_next < i_end ? patch.query(i_next) : -1;
+    lx = nx;
+    ly = ny;
+    al = na;
+    samples(q_next, nx, ny, na);
+    m = 0;
+    return true;
+  };
+  // the taps alternate between two buffers, so that no pair is copied
+  FwdTap<CH> a, c;
+  tap(half, lx, ly, al, a);
+  while (stage(a, c) && stage(c, a)) {
+  }
+}
+
+constexpr int kCell = 8;  // a patch of the cell walk: kCell x kCell cells
+
+// A block per (b, h, patch of queries), its warps taking the patch's
+// queries in turn, so that the block's samples at any moment lie close
+// together and their value rows stay in L1. Where the queries are the
+// levels' cells (Lq == S, as in DINO-DETR's encoder: query start_l + y w_l
+// + x samples around cell (y, x) of level l), a patch is kCell x kCell
+// cells of one level (`cells` the launch's patches), whose queries share
+// more value rows than a run of as many cells of one row, as each query's
+// samples reach a few cells around it; else it is `chunk` consecutive
+// queries (cells 0).
+template <int CH>
+__global__ void __launch_bounds__(kFwdWarps * 32, CH <= 2 ? 3 : 2)
+    msda_fwd_tiled(const float* __restrict__ value,
+                   const float* __restrict__ loc,
+                   const float* __restrict__ attw, float* __restrict__ out,
+                   int S, int H, int D, int Lq, int L, int P,
+                   const __grid_constant__ Levels lv, int chunk, int chunks,
+                   int cells) {
+  Patch patch;
+  int bh, items;
+  if (cells > 0) {
+    bh = blockIdx.x / cells;
+    int t = blockIdx.x % cells, l = 0;
+    for (; l < L - 1; ++l) {
+      const int n = ((lv.h[l] + kCell - 1) / kCell) *
+                    ((lv.w[l] + kCell - 1) / kCell);
+      if (t < n) break;
+      t -= n;
+    }
+    const int across = (lv.w[l] + kCell - 1) / kCell;
+    const int y0 = (t / across) * kCell, x0 = (t % across) * kCell;
+    patch = {static_cast<int>(lv.start[l]) + y0 * lv.w[l] + x0, lv.w[l],
+             kCell, min(kCell, lv.h[l] - y0), min(kCell, lv.w[l] - x0)};
+    items = kCell * kCell;
+  } else {
+    bh = blockIdx.x / chunks;
+    const int q0 = (blockIdx.x % chunks) * chunk;
+    patch = {q0, 0, chunk, 1, min(chunk, Lq - q0)};
+    items = chunk;
+  }
+  // sample i's level: (w, h, first row)
+  __shared__ float4 smp[32];
+  if (threadIdx.x < 32) {
+    const int l = min(static_cast<int>(threadIdx.x), L * P - 1) / P;
+    smp[threadIdx.x] = make_float4(static_cast<float>(lv.w[l]),
+                                   static_cast<float>(lv.h[l]),
+                                   static_cast<float>(lv.start[l]), 0.f);
+  }
+  __syncthreads();
+  fwd_queries<CH>(value, loc, attw, out, S, H, D, Lq, L * P, smp, bh / H,
+                  bh % H, patch, threadIdx.x / 32, items, kFwdWarps);
+}
+
 // Checks the shapes and fills the level table; returns a CUDA error code.
 int levels(int S, int D, int L, int P, const int* shapes, Levels* lv) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 1 || D > 64)
@@ -452,16 +714,12 @@ unsigned blocks(long long n_warps) {
   return static_cast<unsigned>((n_warps + kWarps - 1) / kWarps);
 }
 
-// The queries a tiled block owns: each warp takes as many as keep about
-// four rounds of the card's resident warps busy, at most kMaxPerWarp (8 at
-// DINO-DETR's encoder launch, where consecutive queries share value rows in
-// L1; 1 at its decoder launch of 1,100 queries, where there are few).
-template <int CH>
-cudaError_t launch_tiled(const float* value, const float* loc,
-                         const float* attw, const float* grad_out,
-                         float* grad_value, float* grad_loc, float* grad_attw,
-                         int B, int S, int H, int D, int Lq, int L, int P,
-                         const Levels& lv, cudaStream_t st) {
+// The queries a tiled block of `warps` warps owns: each warp takes as many
+// as keep about four rounds of the card's resident warps busy, at most
+// kMaxPerWarp (8 at DINO-DETR's encoder launch, where consecutive queries
+// share value rows in L1; 1 at its decoder launch of 1,100 queries, where
+// there are few).
+cudaError_t chunk_queries(int warps, int B, int H, int Lq, int* chunk) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -469,10 +727,21 @@ cudaError_t launch_tiled(const float* value, const float* loc,
   if (err != cudaSuccess) return err;
   const long long rounds = static_cast<long long>(sms) * 32 * 4;  // warps
   const long long per_warp = static_cast<long long>(B) * H * Lq / rounds;
-  const int chunk =
-      kTiledWarps * static_cast<int>(per_warp < 1             ? 1
-                                     : per_warp > kMaxPerWarp ? kMaxPerWarp
-                                                              : per_warp);
+  *chunk = warps * static_cast<int>(per_warp < 1             ? 1
+                                    : per_warp > kMaxPerWarp ? kMaxPerWarp
+                                                             : per_warp);
+  return cudaSuccess;
+}
+
+template <int CH>
+cudaError_t launch_tiled(const float* value, const float* loc,
+                         const float* attw, const float* grad_out,
+                         float* grad_value, float* grad_loc, float* grad_attw,
+                         int B, int S, int H, int D, int Lq, int L, int P,
+                         const Levels& lv, cudaStream_t st) {
+  int chunk = 0;
+  const cudaError_t err = chunk_queries(kTiledWarps, B, H, Lq, &chunk);
+  if (err != cudaSuccess) return err;
   const int chunks = (Lq + chunk - 1) / chunk;
   if (static_cast<long long>(B) * H * chunks >= (1LL << 31))
     return cudaErrorInvalidValue;
@@ -486,15 +755,70 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The forward: patches of kCell x kCell cells where the queries are the
+// levels' cells (Lq == S), else runs of consecutive queries as the
+// backward's chunks.
+template <int CH>
+cudaError_t launch_fwd_tiled(const float* value, const float* loc,
+                             const float* attw, float* out, int B, int S,
+                             int H, int D, int Lq, int L, int P,
+                             const Levels& lv, cudaStream_t st) {
+  const bool cell_walk = Lq == S;
+  int cells = 0;
+  for (int l = 0; cell_walk && l < L; ++l)
+    cells += ((lv.h[l] + kCell - 1) / kCell) * ((lv.w[l] + kCell - 1) / kCell);
+  int chunk = 0;
+  const cudaError_t err = chunk_queries(kFwdWarps, B, H, Lq, &chunk);
+  if (err != cudaSuccess) return err;
+  const int chunks = (Lq + chunk - 1) / chunk;
+  const long long blocks =
+      static_cast<long long>(B) * H * (cell_walk ? cells : chunks);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  msda_fwd_tiled<CH><<<static_cast<unsigned>(blocks), kFwdWarps * 32, 0,
+                       st>>>(value, loc, attw, out, S, H, D, Lq, L, P, lv,
+                             chunk, chunks, cells);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // shapes: 2 * L host ints (h_0, w_0, h_1, w_1, ...). Returns 0 or the CUDA
 // error of the launch.
+//
+// The tiled forward: D a multiple of 4 up to 64, at most 32 samples a
+// (query, head), S below 2^24 and S H D below 2^31, value and out 16-byte
+// aligned and loc 8-byte aligned; cudaErrorInvalidValue for anything else
+// (msda_forward_narrow takes it).
 int msda_forward(const float* value, const float* loc, const float* attw,
                  float* out, int B, int S, int H, int D, int Lq, int L, int P,
                  const int* shapes, void* stream) {
+  Levels lv;
+  const int err = levels(S, D, L, P, shapes, &lv);
+  if (err != cudaSuccess) return err;
+  if (D % 4 != 0 || L * P > 32 || !aligned(value, 16) || !aligned(out, 16) ||
+      !aligned(loc, 8) || S >= (1 << 24) ||
+      static_cast<long long>(S) * H * D >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  if (static_cast<long long>(B) * Lq * H == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 16)
+    return launch_fwd_tiled<1>(value, loc, attw, out, B, S, H, D, Lq, L, P,
+                               lv, st);
+  if (D <= 32)
+    return launch_fwd_tiled<2>(value, loc, attw, out, B, S, H, D, Lq, L, P,
+                               lv, st);
+  return launch_fwd_tiled<4>(value, loc, attw, out, B, S, H, D, Lq, L, P, lv,
+                             st);
+}
+
+// The forward's narrow variant: any D up to 64, any number of samples,
+// 4-byte aligned tensors.
+int msda_forward_narrow(const float* value, const float* loc,
+                        const float* attw, float* out, int B, int S, int H,
+                        int D, int Lq, int L, int P, const int* shapes,
+                        void* stream) {
   Levels lv;
   const int err = levels(S, D, L, P, shapes, &lv);
   if (err != cudaSuccess) return err;
@@ -502,10 +826,10 @@ int msda_forward(const float* value, const float* loc, const float* attw,
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    msda_fwd_kernel<1><<<blocks(n), kWarps * 32, 0, st>>>(
+    msda_fwd_narrow<1><<<blocks(n), kWarps * 32, 0, st>>>(
         value, loc, attw, out, n, S, H, D, Lq, L, P, lv);
   else
-    msda_fwd_kernel<2><<<blocks(n), kWarps * 32, 0, st>>>(
+    msda_fwd_narrow<2><<<blocks(n), kWarps * 32, 0, st>>>(
         value, loc, attw, out, n, S, H, D, Lq, L, P, lv);
   return cudaGetLastError();
 }

@@ -8,13 +8,19 @@
 // perf/pallas_bw_probe.py::_scale_kernel (P3), reached through pallas_scale.
 //
 // P1: y = x @ w, x [M, K] and w [K, N] bf16 row-major, f32 accumulation,
-// y [M, N] bf16. A block of 8 warps takes 128 rows and 64 columns: it stages
-// w's 64 columns (all K rows) in shared memory, each warp reads its 16 rows
-// of x as mma.sync m16n8k16 A fragments straight from device memory and
-// keeps 8 C tiles (16 x 64) in f32 registers; the bf16 tile is staged in
-// shared memory and written in 16-byte vectors. K is 16 to 128 in steps of
-// 16, N a multiple of 64; a ragged tail of M is masked (pallas_mm's grid of
-// M // tile_m never writes a tail).
+// y [M, N] bf16. For K 64 or 128 and N a multiple of 64 up to 512, with x
+// and w 16-byte aligned (ResNet-50's 1x1 expansions; perf/matmul_probe.py::
+// _mm_variant), mm_stream: a persistent TMA + wgmma stream (its notes
+// below), one block an SM keeping w in shared memory, x read once by TMA
+// through a ring, y stored by TMA. Anything else takes P1's narrow variant,
+// mm_kernel<K, false>: a block of 8 warps takes 128 rows and 64 columns: it
+// stages w's 64 columns (all K rows) in shared memory, each warp reads its
+// 16 rows of x as mma.sync m16n8k16 A fragments straight from device memory
+// and keeps 8 C tiles (16 x 64) in f32 registers; the bf16 tile is staged in
+// shared memory and written in 16-byte vectors. It takes K 16 to 128 in
+// steps of 16, N a multiple of 64, x 4-byte aligned; a ragged tail of M is
+// masked (pallas_mm's grid of M // tile_m never writes a tail), and it
+// re-reads x once per 64-column block.
 //
 // P2: P1, plus sum(y) and sum(y^2) per column of the f32 product (before
 // the bf16 rounding), [N] f32 each. The TPU carried the sums in scratch
@@ -32,17 +38,17 @@
 // bytes. At ResNet-50's layer-1 shape (M 401,408, K 64, N 256) P1 must move
 // 51.4 MB of x and write 205.5 MB of y, 76.7 us, against 13.3 us of
 // operations; layer 2 (M 100,352, K 128, N 512) 38.4 us; P2 adds 2 N floats;
-// P3 on [401408, 256] moves 411 MB, 122.7 us. This first design re-reads x
-// once per 64-column block (N / 64 times; the column blocks of a row tile
-// run next to each other, so the re-reads hit L2) and reads x in 4-byte
-// pieces; a tile of all N columns, x staged by 16-byte or TMA loads and
-// loads overlapped with the products are later work.
+// P3 on [401408, 256] moves 411 MB, 122.7 us. P1's stream reads x once,
+// issues its products from shared memory while the next tiles load, and
+// stores y by TMA while it works on; P2 (mm_kernel<K, true>) still re-reads
+// x once per 64-column block (the column blocks of a row tile run next to
+// each other, so the re-reads hit L2) and reads x in 4-byte pieces.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_mma.cuh"
+#include "flash_items.cuh"
 
 namespace {
 
@@ -183,6 +189,261 @@ int launch_mm(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return cudaGetLastError();
 }
 
+// ------------------ P1, persistent TMA + wgmma stream ------------------
+
+constexpr int kItemM = 64;            // rows of x an item
+constexpr int kStreamWGs = 2;         // consumer warpgroups
+constexpr int kStreamThreads = 128 * (kStreamWGs + 1);  // and the producer
+
+constexpr int kMaxRing = 8;  // x tiles in flight, at most
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
+// A ring shallower than this gives each consumer warpgroup less than two x
+// tiles of its own: the two then share every item (see mm_stream).
+constexpr int kShareRing = 4;
+
+// Shared memory of mm_stream<K, NC> at N columns and a ring of R x tiles:
+// 1024 bytes to align the swizzled tiles, w, the ring, two staging tiles of
+// NC columns a consumer warpgroup, and the mbarriers (w's, at most 8, and
+// the ring's).
+template <int K, int NC>
+constexpr int stream_smem(int N, int R) {
+  return 1024 + K * N * 2 + R * (K / 64) * kBox +
+         kStreamWGs * 2 * (NC / 64) * kBox + (8 + 2 * kMaxRing) * 8;
+}
+
+// An L2 policy that evicts first what it is attached to: y is written once
+// and read by no later part of the kernel, so it should not push x or w out
+// of L2.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void tma_store_2d_hint(const void* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "l"(policy)
+      : "memory");
+}
+
+// y = x @ w for K in {64, 128} and N a multiple of NC up to 512. A block an
+// SM walks the 64-row items item = blockIdx.x + i * gridDim.x, each cut
+// into N / NC chunks of NC columns, its units.
+//   - The producer warpgroup's first thread loads w once (N / 64 atoms of K
+//     rows x 64 columns, 128-byte swizzle), each chunk's columns on an
+//     mbarrier of its own so that the first products wait for that chunk
+//     alone, and the x tiles of the block's items through a ring of R
+//     stages (TMA; rows past M read zero): the first chunk of w, the first R
+//     tiles, then the rest of w.
+//   - The two consumer warpgroups take the items in turn, all of an item's
+//     units, where the ring holds kShareRing tiles or more (ResNet-50's
+//     layer 1: 8). Where it holds fewer (layer 2, whose w fills 128 KB: 2)
+//     and an item has two units or more, they share every item, consumer u
+//     % 2 taking the block's unit u, so that the next item's tile loads
+//     while both work on this one; taking turns, each would wait for its
+//     next tile.
+//   - For a unit, a consumer issues K / 16 products m64nNCk16 (A = the x
+//     tile, K-major; B = the chunk of w read MN-major) and waits for them,
+//     rounds the f32 accumulators to bf16 into one of its two swizzled
+//     staging tiles and stores the tile by TMA (rows past M are not
+//     written, evict-first in L2), one thread issuing, while it goes on to
+//     its next unit. An x stage is released once the last of its item's
+//     products have read it. Every product of a unit is issued
+//     unconditionally.
+//   - The launch allows programmatic stream serialization (launch_stream):
+//     the blocks of a launch start on the SMs that the launch ahead of it
+//     has left and wait (griddepcontrol.wait) before touching device
+//     memory, so the last blocks of one persistent launch do not leave the
+//     other SMs idle before the next starts.
+template <int K, int NC>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    mm_stream(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap w_map,
+              const __grid_constant__ CUtensorMap y_map, int M, int N,
+              int R) {
+  constexpr uint32_t kStage = (K / 64) * kBox;
+  constexpr uint32_t kTile = (NC / 64) * kBox;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t wbase = (s0 + 1023) & ~1023u;
+  const uint32_t ring = wbase + static_cast<uint32_t>(K) * N * 2;
+  const uint32_t staging = ring + R * kStage;
+  const uint32_t w_full = staging + kStreamWGs * 2 * kTile;  // 8 of them
+  const uint32_t full = w_full + 8 * 8, empty = full + 8 * kMaxRing;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int items = (M + kItemM - 1) / kItemM;
+  const int count = static_cast<int>(blockIdx.x) < items
+                        ? (items - 1 - static_cast<int>(blockIdx.x)) /
+                                  static_cast<int>(gridDim.x) + 1
+                        : 0;
+  const int chunks = N / NC;
+  // whether the consumers share every item; its stage is then released by
+  // both warpgroups' warps
+  const bool split = chunks > 1 && R < kShareRing;
+  // a launch that follows this one in the stream may set up its blocks as
+  // this one's leave their SMs (its launch allows it; see launch_stream)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (warp == 4 * kStreamWGs && lane == 0) {
+    // the tensor maps, fetched while the barriers are set up
+    for (const CUtensorMap* map : {&x_map, &w_map, &y_map})
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+  }
+  if (tid == 0) {
+    for (int c = 0; c < chunks; ++c) mbar_init(w_full + 8 * c, 1);
+    for (int s = 0; s < R; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, split ? 8 : 4);
+    }
+  }
+  __syncthreads();
+  // nothing in device memory is read or written before the work ahead of
+  // this launch in the stream is complete and visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  if (warp >= 4 * kStreamWGs) {
+    if (warp == 4 * kStreamWGs && lane == 0) {
+      auto load_w = [&](int c) {
+        mbar_arrive_expect_tx(w_full + 8 * c, K * NC * 2);
+        for (int a = c * (NC / 64); a < (c + 1) * (NC / 64); ++a)
+          tma_load_2d(wbase + a * K * 128, &w_map, a * 64, 0, w_full + 8 * c);
+      };
+      load_w(0);
+      for (int i = 0; i < count; ++i) {
+        if (i == R || (i == count - 1 && i < R))
+          for (int c = 1; c < chunks; ++c) load_w(c);
+        const int s = i % R;
+        if (i >= R) mbar_wait(empty + 8 * s, (i / R - 1) & 1);
+        mbar_arrive_expect_tx(full + 8 * s, kStage);
+        const int row0 = (static_cast<int>(blockIdx.x) +
+                          i * static_cast<int>(gridDim.x)) * kItemM;
+#pragma unroll
+        for (int kb = 0; kb < K / 64; ++kb)
+          tma_load_2d(ring + s * kStage + kb * kBox, &x_map, kb * 64, row0,
+                      full + 8 * s);
+      }
+      if (count == 0)
+        for (int c = 1; c < chunks; ++c) load_w(c);
+    }
+    return;
+  }
+
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const bool issuer = tid % 128 == 0;
+  const int ra = (warp % 4) * 16 + g, rb = ra + 8;
+  const uint64_t policy = evict_first();
+  float acc[NC / 2];
+  int filled = 0;  // staging tiles this warpgroup has filled
+  const int units = count * chunks;
+  for (int u = split ? wg : wg * chunks; u < units;) {
+    const int i = u / chunks, c = u - i * chunks;
+    const int s = i % R;
+    mbar_wait(full + 8 * s, (i / R) & 1);
+    mbar_wait(w_full + 8 * c, 0);
+    const uint32_t xs = ring + s * kStage;
+    const int row0 =
+        (static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x)) *
+        kItemM;
+    wgmma_fence();
+    const uint64_t db = wgmma_desc_sw128_mn(wbase + c * NC * K * 2, K * 128);
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+      wgmma_ss_tb<NC>(acc,
+                      wgmma_desc_sw128(xs + (kk / 4) * kBox) + 2 * (kk % 4),
+                      db + 128 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    // this warpgroup's next unit; the item's stage is released once the
+    // warpgroup's last products of it have read it
+    const int next = split ? u + kStreamWGs
+                   : (c + 1 < chunks ? u + 1 : u + 1 + (kStreamWGs - 1) *
+                                                           chunks);
+    if (next / chunks != i && lane == 0) mbar_arrive(empty + 8 * s);
+    // tile filled % 2 is free once the store issued from it two tiles ago
+    // has read it
+    const uint32_t buf = staging + (wg * 2 + (filled & 1)) * kTile;
+    if (issuer) bulk_wait_read<1>();
+    named_bar_sync(1 + wg, 128);
+    unsigned char* tile = smem + (buf - s0);
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj) {
+      const int col = 8 * (jj % 8) + 2 * t;
+      unsigned char* box = tile + (jj / 8) * kBox;
+      *reinterpret_cast<__nv_bfloat162*>(box + sw128(ra, col)) =
+          __floats2bfloat162_rn(acc[4 * jj], acc[4 * jj + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(box + sw128(rb, col)) =
+          __floats2bfloat162_rn(acc[4 * jj + 2], acc[4 * jj + 3]);
+    }
+    fence_proxy_async();  // the staged rows, before TMA reads them
+    named_bar_sync(1 + wg, 128);
+    if (issuer) {
+#pragma unroll
+      for (int nb = 0; nb < NC / 64; ++nb)
+        tma_store_2d_hint(&y_map, buf + nb * kBox, c * NC + 64 * nb, row0,
+                          policy);
+      bulk_commit();
+    }
+    ++filled;
+    u = next;
+  }
+  if (issuer) bulk_wait<0>();  // the last stores are out
+}
+
+// The tensor map of a row-major [rows, cols] bf16 matrix read or written in
+// boxes of box_rows x 64 columns.
+cudaError_t map_rows(CUtensorMap* map, const void* p, int rows, int cols,
+                     int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return tensor_map_bf16(map, p, 2, dims, strides, box);
+}
+
+template <int K, int NC>
+int launch_stream(const void* x, const void* w, void* y, int M, int N,
+                  cudaStream_t st) {
+  CUtensorMap maps[3];
+  cudaError_t err = map_rows(&maps[0], x, M, K, kItemM);
+  if (err == cudaSuccess) err = map_rows(&maps[1], w, K, N, K);
+  if (err == cudaSuccess) err = map_rows(&maps[2], y, M, N, kItemM);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid((M + kItemM - 1) / kItemM, &grid);
+  if (err != cudaSuccess) return err;
+  int ring = kMaxRing;
+  while (ring > 2 && stream_smem<K, NC>(N, ring) > kMaxSmem) --ring;
+  const int smem = stream_smem<K, NC>(N, ring);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(mm_stream<K, NC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  // programmatic stream serialization (mm_stream's notes)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mm_stream<K, NC>, maps[0], maps[1], maps[2],
+                           M, N, ring);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 __global__ void scale_kernel(const __nv_bfloat16* __restrict__ x,
                              __nv_bfloat16* __restrict__ o, long long n) {
   const __nv_bfloat162 s2 = __bfloat162bfloat162(__float2bfloat16(1.0001f));
@@ -233,6 +494,24 @@ int probe_mm(const void* x, const void* w, void* y, float* partial, float* s1,
   col_reduce_kernel<<<(N + 31) / 32, dim3(32, 32), 0, st>>>(partial, s1, s2,
                                                             nb, N);
   return cudaGetLastError();
+}
+
+// P1's stream: K 64 or 128, N a multiple of 64 up to 512, 1 <= M < 2^31,
+// pointers 16-byte aligned; cudaErrorInvalidValue for anything else (P1's
+// narrow variant, probe_mm, takes it).
+int probe_mm_stream(const void* x, const void* w, void* y, int M, int K,
+                    int N, void* stream) {
+  if (M < 1 || N < 64 || N > 512 || N % 64 || (K != 64 && K != 128) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 64)
+    return N % 128 ? launch_stream<64, 64>(x, w, y, M, N, st)
+                   : launch_stream<64, 128>(x, w, y, M, N, st);
+  return N % 128 ? launch_stream<128, 64>(x, w, y, M, N, st)
+                 : launch_stream<128, 128>(x, w, y, M, N, st);
 }
 
 // P3 over n bf16 values; pointers 16-byte aligned.

@@ -1,7 +1,7 @@
 // Device helpers of the Hopper (sm_90a) kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_relpos_fwd.cu, flash_relpos_bwd.cu): 16- and 4-byte cp.async copies
-// into shared-memory tiles, mbarriers, TMA loads and stores and their tensor
-// maps, ldmatrix.x4,
+// flash_relpos_fwd.cu, flash_relpos_bwd.cu, probes.cu): 16- and 4-byte
+// cp.async copies into shared-memory tiles, mbarriers, TMA loads and stores
+// and their tensor maps, ldmatrix.x4,
 // base-2 exponentials, and wgmma with its shared-memory descriptors, fences
 // and waits.
 //
@@ -375,6 +375,18 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
          static_cast<uint64_t>(1) << 62;
 }
 
+// An MN-major B of several 64-column atoms that TMA wrote with 128-byte
+// swizzle (each atom the K rows of 64 columns, 128 bytes a row, 1024-byte
+// aligned): LBO is the step from one atom to the next (`atom` bytes), SBO
+// the 8-row group's 1024 bytes; a 16-deep slice steps 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t addr,
+                                                        uint32_t atom) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((atom >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -434,6 +446,55 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63 "
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] (+)= A (64x16, shared, K-major) * B (16x64, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -550,8 +611,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate));
 }
 
-// The products by width: wgmma_ss<N> for N in {64, 128}, wgmma_rs<N> for N
-// in {32, 64, 80, 128}.
+// The products by width: wgmma_ss<N> and wgmma_ss_tb<N> (B MN-major) for N
+// in {64, 128}, wgmma_rs<N> for N in {32, 64, 80, 128}.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -560,6 +621,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   } else {
     static_assert(N == 128, "wgmma_ss: N 64 or 128");
     wgmma_ss_n128(d, da, db, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64_tb(d, da, db, accumulate);
+  } else {
+    static_assert(N == 128, "wgmma_ss_tb: N 64 or 128");
+    wgmma_ss_n128_tb(d, da, db, accumulate);
   }
 }
 

@@ -18,10 +18,12 @@ value, the locations and the weights (a ``torch.autograd.Function`` that
 saves its three inputs).
 
 It dispatches on the tensors' device. CUDA tensors launch the hand kernels
-of ``csrc/msda.cu``: ``msda_fwd`` (K7, the Pallas kernel's counterpart) and
-``msda_bwd`` (its backward, which the JAX package left to autodiff: a tiled
-kernel, or its narrow variant for what that does not take,
-``_msda_bwd_variant``; ``NARROW_LAUNCHES`` counts those launches). CPU
+of ``csrc/msda.cu``: ``msda_fwd`` (K7, the Pallas kernel's counterpart: a
+tiled kernel, or its narrow variant for what that does not take,
+``_msda_fwd_variant``) and ``msda_bwd``
+(its backward, which the JAX package left to autodiff: a tiled kernel, or
+its narrow variant for what that does not take, ``_msda_bwd_variant``).
+``NARROW_LAUNCHES`` counts the narrow variants' launches. CPU
 tensors take the plain versions: ``ms_deform_attn_reference``, a
 transcription of ``_bilinear_gather_level`` and ``ms_deform_attn_xla``, and
 its autograd (``ms_deform_attn_backward_reference``). A CUDA tensor never
@@ -46,7 +48,7 @@ __all__ = ["ms_deform_attn", "ms_deform_attn_reference",
 KERNEL_LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0}
 # Those of the launches above that took a kernel's narrow variant (a shape
 # or a layout the tiled kernel does not serve), so that a run can show that
-# its main path took the tiled kernel. The forward has one kernel.
+# its main path took the tiled kernel.
 NARROW_LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0}
 
 MAX_LEVELS = 8
@@ -140,13 +142,16 @@ def _check(value, spatial_shapes, sampling_locations, attention_weights):
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """{name: C function} of the library built from msda.cu: "fwd" (K7),
-    "bwd" (K7b's tiled kernel) and "bwd_narrow" (its narrow variant)."""
+    """{name: C function} of the library built from msda.cu: "fwd" (K7's
+    tiled kernel), "fwd_narrow" (its narrow variant), "bwd" (K7b's tiled
+    kernel) and "bwd_narrow" (its narrow variant)."""
     lib = _build.load("msda")
     tail = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
-    lib.msda_forward.argtypes = [ctypes.c_void_p] * 4 + tail
-    kernels = {"fwd": lib.msda_forward, "bwd": lib.msda_backward,
+    kernels = {"fwd": lib.msda_forward, "fwd_narrow": lib.msda_forward_narrow,
+               "bwd": lib.msda_backward,
                "bwd_narrow": lib.msda_backward_narrow}
+    for fn in (kernels["fwd"], kernels["fwd_narrow"]):
+        fn.argtypes = [ctypes.c_void_p] * 4 + tail
     for fn in (kernels["bwd"], kernels["bwd_narrow"]):
         fn.argtypes = [ctypes.c_void_p] * 7 + tail
     for fn in kernels.values():
@@ -163,6 +168,32 @@ def _aligned_as_launched(t, nbytes: int) -> bool:
     return True
 
 
+def _tiled_layout(value, loc) -> bool:
+    """D a multiple of 4, at most 32 samples a (query, head), value 16-byte
+    and the locations 8-byte aligned as launched: what both tiled kernels
+    take."""
+    samples = loc.shape[3] * loc.shape[4]
+    return (value.shape[-1] % 4 == 0 and samples <= 32
+            and _aligned_as_launched(value, 16)
+            and _aligned_as_launched(loc, 8))
+
+
+def _msda_fwd_variant(value, spatial_shapes, loc) -> str:
+    """Which forward kernel (K7) takes these inputs, as ``csrc/msda.cu``
+    documents: "tiled" (a block per (batch, head, patch of queries), two
+    samples a warp instruction, 16-byte gathers: D a multiple of 4, at most
+    32 samples a (query, head), value 16-byte and the locations 8-byte
+    aligned as launched, S below 2^24 and S x H x D below 2^31) or "narrow"
+    (a warp per (batch, query, head), lane = channel, one sample at a
+    time). Depends on the shapes and the alignment alone, never on where
+    the samples lie; launches nothing. Neither kernel takes D > 64 or more
+    than 8 levels."""
+    _, s, heads, d = value.shape
+    if _tiled_layout(value, loc) and s < 2**24 and s * heads * d < 2**31:
+        return "tiled"
+    return "narrow"
+
+
 def _msda_bwd_variant(value, spatial_shapes, loc) -> str:
     """Which backward kernel (K7b) takes these inputs, as ``csrc/msda.cu``
     documents: "tiled" (a block per (batch, head, chunk of queries), two
@@ -172,12 +203,7 @@ def _msda_bwd_variant(value, spatial_shapes, loc) -> str:
     (batch, query, head), lane = channel, scalar adds). Depends on the
     shapes and the alignment alone, never on where the samples lie;
     launches nothing. Neither kernel takes D > 64 or more than 8 levels."""
-    samples = loc.shape[3] * loc.shape[4]
-    if (value.shape[-1] % 4 == 0 and samples <= 32
-            and _aligned_as_launched(value, 16)
-            and _aligned_as_launched(loc, 8)):
-        return "tiled"
-    return "narrow"
+    return "tiled" if _tiled_layout(value, loc) else "narrow"
 
 
 def _kernel_tail(value, spatial_shapes, loc):
@@ -211,17 +237,18 @@ def _f32(t):
 
 
 def _msda_fwd_cuda(value, spatial_shapes, loc, wts):
-    """K7: value [B, S, H, D], loc [B, Lq, H, L, P, 2], wts [B, Lq, H, L, P],
-    all f32 and contiguous on one card -> [B, Lq, H * D] f32."""
+    """K7: value [B, S, H, D], loc [B, Lq, H, L, P, 2], wts [B, Lq, H, L, P]
+    on one card -> [B, Lq, H * D] f32."""
+    narrow = _msda_fwd_variant(value, spatial_shapes, loc) == "narrow"
     value, loc, wts = _f32(value), _f32(loc), _f32(wts)
     b, _, heads, d = value.shape
     out = torch.empty((b, loc.shape[1], heads * d), dtype=torch.float32,
                       device=value.device)
     table, tail = _kernel_tail(value, spatial_shapes, loc)
     with torch.cuda.device(value.device):
-        _launch("msda_fwd", _kernels()["fwd"],
-                [value.data_ptr(), loc.data_ptr(), wts.data_ptr(),
-                 out.data_ptr()] + tail)
+        _launch("msda_fwd", _kernels()["fwd_narrow" if narrow else "fwd"],
+                [t.data_ptr() for t in (value, loc, wts, out)] + tail,
+                narrow)
     del table
     return out
 

@@ -8,28 +8,35 @@
 kernels of ``ops/csrc/probes.cu``: y = x @ w in f32 accumulation stored in
 x's dtype (bf16), and with ``stats`` the per-column sum and sum of squares
 of the f32 product ([1, N] f32 each), the statistics a fused BatchNorm
-epilogue would need. CUDA tensors launch the kernels; CPU tensors take the
-plain versions ``mm_plain`` and ``mm_stats_plain``. ``case`` times a probe
-beside its plain version, the library calls and its bound.
+epilogue would need. CUDA tensors launch the kernels: P1 a persistent TMA +
+``wgmma`` stream, or its narrow variant (the ``mma.sync`` kernel P2 is built
+on) for what the stream does not take (``_mm_variant``; ``NARROW_LAUNCHES``
+counts those launches). CPU tensors take the plain versions ``mm_plain``
+and ``mm_stats_plain``. ``case`` times a probe beside its plain version, the
+library calls and its bound (P1 also beside its narrow variant).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import statistics
 
 import torch
 import torch.nn.functional as F
 
 from ..ops import _build
-from .timing import bound, cuda_ms
+from .timing import alternating_ms, bound, cuda_ms
 
-__all__ = ["probe_mm", "mm_plain", "mm_stats_plain", "case", "LAYERS",
-           "KERNEL_LAUNCHES"]
+__all__ = ["probe_mm", "mm_plain", "mm_stats_plain", "case", "variants_ms",
+           "offset_copy", "LAYERS", "KERNEL_LAUNCHES", "NARROW_LAUNCHES"]
 
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches (P2's two launches count once).
 KERNEL_LAUNCHES = {"probe_mm": 0, "probe_mm_stats": 0}
+# Those of P1's launches that took its narrow variant, so that a run can
+# show that the probe path took the stream.
+NARROW_LAUNCHES = {"probe_mm": 0}
 
 TILE_M = 128  # rows per block of the kernels
 
@@ -70,39 +77,64 @@ def _lib():
     lib.probe_mm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p])
     lib.probe_mm.restype = ctypes.c_int
+    lib.probe_mm_stream.argtypes = ([ctypes.c_void_p] * 3
+                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.probe_mm_stream.restype = ctypes.c_int
     lib.probe_scale.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_longlong, ctypes.c_void_p]
     lib.probe_scale.restype = ctypes.c_int
     return lib
 
 
+def _mm_variant(x, w) -> str:
+    """Which kernel takes P1 on these inputs, as ``csrc/probes.cu``
+    documents: "stream" (the persistent TMA + ``wgmma`` kernel: K 64 or
+    128, N a multiple of 64 up to 512, x and w 16-byte aligned) or "narrow"
+    (the ``mma.sync`` kernel of 128 x 64 tiles). Depends on the shapes and
+    the alignment alone; launches nothing."""
+    k, n = w.shape
+    if (k in (64, 128) and n % 64 == 0 and 64 <= n <= 512
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "stream"
+    return "narrow"
+
+
 def _mm_cuda(x, w, stats):
     m, k = x.shape
     n = w.shape[1]
-    if k % 16 or not 16 <= k <= 128 or n % 64 or m > 65535 * TILE_M:
-        raise ValueError(f"the kernel takes K in 16..128 in steps of 16, N a "
-                         f"multiple of 64 and M up to {65535 * TILE_M}, got "
-                         f"M={m} K={k} N={n}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned")
+    stream = not stats and _mm_variant(x, w) == "stream"
+    if not stream:
+        if k % 16 or not 16 <= k <= 128 or n % 64 or m > 65535 * TILE_M:
+            raise ValueError(f"the kernel takes K in 16..128 in steps of 16, "
+                             f"N a multiple of 64 and M up to "
+                             f"{65535 * TILE_M}, got M={m} K={k} N={n}")
+        if x.data_ptr() % 4 or w.data_ptr() % 16:
+            raise ValueError("x must be 4-byte and w 16-byte aligned")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ptrs = [None, None, None]
-    if stats:
-        partial = torch.empty((2, (m + TILE_M - 1) // TILE_M, n),
-                              dtype=torch.float32, device=x.device)
-        s1 = torch.empty((1, n), dtype=torch.float32, device=x.device)
-        s2 = torch.empty_like(s1)
-        ptrs = [partial.data_ptr(), s1.data_ptr(), s2.data_ptr()]
+    cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
     name = "probe_mm_stats" if stats else "probe_mm"
     with torch.cuda.device(x.device):
-        err = _lib().probe_mm(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), *ptrs, m, k, n,
-            int(stats), torch.cuda.current_stream(x.device).cuda_stream)
+        if stream:
+            err = _lib().probe_mm_stream(x.data_ptr(), w.data_ptr(),
+                                         y.data_ptr(), m, k, n, cuda_stream)
+        else:
+            ptrs = [None, None, None]
+            if stats:
+                partial = torch.empty((2, (m + TILE_M - 1) // TILE_M, n),
+                                      dtype=torch.float32, device=x.device)
+                s1 = torch.empty((1, n), dtype=torch.float32,
+                                 device=x.device)
+                s2 = torch.empty_like(s1)
+                ptrs = [partial.data_ptr(), s1.data_ptr(), s2.data_ptr()]
+            err = _lib().probe_mm(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                  *ptrs, m, k, n, int(stats), cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
+    if not stats and not stream:
+        NARROW_LAUNCHES[name] += 1
     return (y, s1, s2) if stats else y
 
 
@@ -110,8 +142,8 @@ def probe_mm(x, w, stats: bool = False):
     """x [M, K] @ w [K, N] in bf16 with f32 accumulation -> y [M, N] bf16,
     or with ``stats`` (y, column sums, column sums of squares) of the f32
     product, [1, N] f32 each. CUDA tensors run P1 / P2 (K 16..128 in steps
-    of 16, N a multiple of 64, M up to 65535 x 128), CPU tensors the plain
-    versions."""
+    of 16, N a multiple of 64, M up to 65535 x 128; P1 any M where its
+    stream takes it, ``_mm_variant``), CPU tensors the plain versions."""
     _check(x, w)
     if x.device.type == "cpu":
         return mm_stats_plain(x, w) if stats else mm_plain(x, w)
@@ -164,8 +196,41 @@ def case(layer: str, stats: bool, iters: int = 50) -> dict:
     return out
 
 
+def offset_copy(t, offset=2):
+    """A copy of ``t`` whose storage starts ``offset`` elements into its
+    buffer (4 bytes for bf16 at the default): 4-byte but not 16-byte
+    aligned, so that P1 takes its narrow variant on it."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def variants_ms(layer: str, rounds: int = 5, iters: int = 50) -> dict:
+    """P1 at ``LAYERS[layer]`` on the card in alternating rounds
+    (``alternating_ms``): the stream, its narrow variant (fed x 4 bytes off
+    16-byte alignment) and ``torch.matmul``, on the same values. Returns
+    {"stream", "narrow", "matmul": [ms of each round]}; the narrow variant's
+    launches are counted as any."""
+    m, k, n, _ = LAYERS[layer]
+    x, w = probe_inputs(m, k, n)
+    moved = offset_copy(x)
+    if (_mm_variant(x, w), _mm_variant(moved, w)) != ("stream", "narrow"):
+        raise RuntimeError(f"P1's inputs at {layer} miss its variants")
+    return alternating_ms({"stream": lambda: probe_mm(x, w),
+                           "narrow": lambda: probe_mm(moved, w),
+                           "matmul": lambda: torch.matmul(x, w)},
+                          rounds=rounds, iters=iters)
+
+
 def main():
     name = torch.cuda.get_device_name(0)
+    for layer in LAYERS:
+        times = variants_ms(layer)
+        print(f"P1 {layer} [{name}], medians of 5 alternating rounds: "
+              + ", ".join(f"{key} {statistics.median(t):.4f} ms "
+                          f"[{min(t):.4f}, {max(t):.4f}]"
+                          for key, t in times.items()))
     for layer in LAYERS:
         for stats in (False, True):
             r = case(layer, stats)

@@ -1,14 +1,33 @@
-"""Where does the MSDA backward's time go at DINO-DETR's encoder launch?
+"""Where does the MSDA kernels' time go at DINO-DETR's encoder launch?
 
     python -m simpleaicv_tpu_torch.perf.msda_split   # on the card
 
-Builds the two backward kernels of ``ops/csrc/msda.cu`` in variants that
-change one statement each, and times them on the same inputs in alternating
-rounds (medians of 5 rounds of 10 launches, the kernels alone: grad_value is
-not zeroed between launches).
+Builds the kernels of ``ops/csrc/msda.cu`` in variants that change one
+statement each, and times them on the same inputs in alternating rounds
+(medians of 5 rounds of 10 launches, the kernels alone: grad_value is not
+zeroed between launches). The forward's and the backward's variants are
+timed in rounds of their own.
 
-The narrow kernel (``msda_bwd_narrow``: one warp per (batch, query, head),
-lane = channel, four scalar atomic adds into grad_value per sample and lane):
+The forward's tiled kernel (``msda_fwd_tiled``, the one the package
+launches here):
+
+* ``fwd``: as it stands (a block per 8 x 8 cells of a level, as the
+  encoder's queries are the levels' cells);
+* ``fwd_run_walk``: a block per run of 64 consecutive queries instead, as
+  the kernel takes a launch whose queries are not the levels' cells;
+* ``fwd_no_gathers``: its value gathers replaced by values made from the
+  row index, so the rest runs alone.
+
+The forward's narrow kernel (``msda_fwd_narrow``: one warp per (batch,
+query, head), lane = channel, the samples one at a time):
+
+* ``fwd_narrow``: as it stands;
+* ``fwd_narrow_no_gathers``: its value gathers replaced by values made from
+  the row offset, so the locations' loads and the arithmetic run alone.
+
+The backward's narrow kernel (``msda_bwd_narrow``: one warp per (batch,
+query, head), lane = channel, four scalar atomic adds into grad_value per
+sample and lane):
 
 * ``narrow``: as it stands;
 * ``narrow_private_rows``: each warp adds into a scratch row of its own, so
@@ -18,7 +37,8 @@ lane = channel, four scalar atomic adds into grad_value per sample and lane):
   the four adds of a sample go to four addresses as in ``narrow``;
 * ``narrow_no_adds``: the add removed: the gathers and the reductions alone.
 
-The tiled kernel (``msda_bwd_tiled``, the one the package launches here):
+The backward's tiled kernel (``msda_bwd_tiled``, the one the package
+launches here):
 
 * ``tiled``: as it stands;
 * ``tiled_no_adds``: its vector adds into grad_value removed;
@@ -61,7 +81,19 @@ TILED_ADD = """          atomicAdd(reinterpret_cast<float4*>(
                         4 * cc),
                     make_float4(fr * ga.x, fr * ga.y, fr * ga.z, fr * ga.w));"""
 TILED_GATHER = "tp.v[t] = inside && c < D ? ldg4(vr + c)"
+NARROW_GATHER = "v[k] = cr.off[k] >= 0 ? __ldg(vb + cr.off[k] + d) : 0.f;"
+FWD_GATHER = "__ldg(vb + (row * row_stride + g))"
+CELL_WALK = "const bool cell_walk = Lq == S;"
 VARIANTS = {
+    "fwd": ("msda_forward", FWD_GATHER, FWD_GATHER),
+    "fwd_run_walk": ("msda_forward", CELL_WALK,
+                     "const bool cell_walk = false;"),
+    "fwd_no_gathers": ("msda_forward", FWD_GATHER,
+                       "make_float4(row, g, 1.f, 0.5f)"),
+    "fwd_narrow": ("msda_forward_narrow", NARROW_GATHER, NARROW_GATHER),
+    "fwd_narrow_no_gathers": (
+        "msda_forward_narrow", NARROW_GATHER,
+        "v[k] = cr.off[k] >= 0 ? static_cast<float>(cr.off[k] + d) : 0.f;"),
     "narrow": ("msda_backward_narrow", NARROW_ADD, NARROW_ADD),
     "narrow_private_rows": (
         "msda_backward_narrow", NARROW_ADD,
@@ -111,8 +143,12 @@ def launch_inputs(lq, seed, boxes):
     return value, loc.contiguous(), wts, grad_out
 
 
+def _forward(entry):
+    return entry.startswith("msda_forward")
+
+
 def _build_variants():
-    """{variant: its backward's C function}, built in parallel."""
+    """{variant: its kernel's C function}, built in parallel."""
     src = (_build.CSRC_DIR / "msda.cu").read_text()
     out_dir = _build.BUILD_DIR / "msda_split"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -125,7 +161,8 @@ def _build_variants():
         cu.write_text(src.replace(old, new))
         lib = out_dir / f"libmsda_{name}.so"
         procs[name] = (entry, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+             "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (entry, lib, proc) in procs.items():
@@ -133,7 +170,8 @@ def _build_variants():
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
         fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * (4 if _forward(entry) else 7)
+                       + [ctypes.c_int] * 7
                        + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -153,38 +191,54 @@ def main(iters: int = 10, rounds: int = 5):
     fns = _build_variants()
     table = (ctypes.c_int * (2 * n_levels))(*[x for hw in shapes for x in hw])
     stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(b, lq, h * d, device="cuda")
     grad_loc, grad_wts = torch.empty_like(loc), torch.empty_like(wts)
     warps = b * lq * h
     # large enough for every variant's rows: grad_value, or 4 per warp
     scratch = torch.zeros(max(b * s * h * d, warps * 4 * d),
                           device="cuda")
+    tail = [b, s, h, d, lq, n_levels, p, table, stream]
 
-    def run(fn):
-        err = fn(value.data_ptr(), loc.data_ptr(), wts.data_ptr(),
-                 grad_out.data_ptr(), scratch.data_ptr(), grad_loc.data_ptr(),
-                 grad_wts.data_ptr(), b, s, h, d, lq, n_levels, p, table,
-                 stream)
+    def run(name):
+        fn, entry = fns[name], VARIANTS[name][0]
+        if _forward(entry):
+            ptrs = (value, loc, wts, out)
+        else:
+            ptrs = (value, loc, wts, grad_out, scratch, grad_loc, grad_wts)
+        err = fn(*[t.data_ptr() for t in ptrs], *tail)
         if err != 0:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
+            raise RuntimeError(f"{name}: launch failed: CUDA error {err}")
 
-    times = alternating_ms({name: (lambda fn=fn: run(fn))
-                            for name, fn in fns.items()},
-                           rounds=rounds, iters=iters)
-    print(f"MSDA backward at DINO-DETR's encoder launch (value [{b}, {s}, "
-          f"{h}, {d}], Lq {lq}, {n_levels} levels, {p} points), medians of "
-          f"{rounds} alternating rounds of {iters} launches [{card}]:")
-    med = {name: statistics.median(t) for name, t in times.items()}
-    for name, t in times.items():
-        print(f"  {name:28s} {med[name]:.4f} ms  rounds "
-              + " ".join(f"{x:.4f}" for x in t))
+    med = {}
+    for kind, names in (
+            ("forward", [n for n in fns if _forward(VARIANTS[n][0])]),
+            ("backward", [n for n in fns if not _forward(VARIANTS[n][0])])):
+        times = alternating_ms({name: (lambda name=name: run(name))
+                                for name in names},
+                               rounds=rounds, iters=iters)
+        print(f"MSDA {kind} at DINO-DETR's encoder launch (value [{b}, {s}, "
+              f"{h}, {d}], Lq {lq}, {n_levels} levels, {p} points), medians "
+              f"of {rounds} alternating rounds of {iters} launches [{card}]:")
+        for name, t in times.items():
+            med[name] = statistics.median(t)
+            print(f"  {name:28s} {med[name]:.4f} ms  rounds "
+                  + " ".join(f"{x:.4f}" for x in t))
+    print(f"  forward, tiled: {med['fwd']:.4f} ms, {med['fwd_run_walk']:.4f} "
+          f"ms walking runs of queries, {med['fwd_no_gathers']:.4f} ms "
+          f"without its gathers; {med['fwd_narrow'] / med['fwd']:.3f} times "
+          f"faster than the narrow kernel")
+    print(f"  forward, narrow: without its gathers "
+          f"{med['fwd_narrow_no_gathers']:.4f} ms, the gathers' share "
+          f"{med['fwd_narrow'] - med['fwd_narrow_no_gathers']:.4f} ms")
     private = min(med["narrow_private_rows"],
                   med["narrow_private_corner_rows"])
-    print(f"  narrow: gathers and reductions {med['narrow_no_adds']:.4f} ms, "
-          f"atomic instructions {private - med['narrow_no_adds']:.4f} ms, "
-          f"contention {med['narrow'] - private:.4f} ms")
-    print(f"  tiled: without its adds {med['tiled_no_adds']:.4f} ms, "
-          f"without its gathers {med['tiled_no_gathers']:.4f} ms, the adds' "
-          f"share {med['tiled'] - med['tiled_no_adds']:.4f} ms; "
+    print(f"  backward, narrow: gathers and reductions "
+          f"{med['narrow_no_adds']:.4f} ms, atomic instructions "
+          f"{private - med['narrow_no_adds']:.4f} ms, contention "
+          f"{med['narrow'] - private:.4f} ms")
+    print(f"  backward, tiled: without its adds {med['tiled_no_adds']:.4f} "
+          f"ms, without its gathers {med['tiled_no_gathers']:.4f} ms, the "
+          f"adds' share {med['tiled'] - med['tiled_no_adds']:.4f} ms; "
           f"{med['narrow'] / med['tiled']:.3f} times faster than the narrow "
           f"kernel")
     return med

@@ -590,6 +590,67 @@ def test_msda_backward_narrow_variant_on_card(d, n_levels, p, offset):
     _check_msda_bwd(value, shapes, loc, wts, g_out, "narrow")
 
 
+def _check_msda_fwd(value, shapes, loc, wts, variant):
+    """Two K7 launches through ``variant`` against the plain forward on the
+    same inputs, within 1e-5 of its largest value, narrow launches counted
+    exactly when the variant is the narrow one, the same bits from both."""
+    assert msda._msda_fwd_variant(value, shapes, loc) == variant
+    before, narrow = msda.KERNEL_LAUNCHES["msda_fwd"], \
+        msda.NARROW_LAUNCHES["msda_fwd"]
+    got = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    again = msda._msda_fwd_cuda(value, shapes, loc, wts)
+    assert msda.KERNEL_LAUNCHES["msda_fwd"] == before + 2
+    assert msda.NARROW_LAUNCHES["msda_fwd"] == narrow + 2 * (
+        variant == "narrow")
+    want = msda.ms_deform_attn_reference(value, shapes, loc, wts)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _assert_rel(got, want, 1e-5, "out")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,lq,h,d,shapes,p,bounds,where", MSDA_TILED_EDGES)
+def test_msda_forward_tiled_edges_on_card(b, lq, h, d, shapes, p, bounds,
+                                          where):
+    """K7 through its tiled kernel at the edges of its layout against the
+    plain forward (the first case's queries are the levels' cells, which
+    the kernel walks in 8 x 8 patches)."""
+    rng = np.random.RandomState(lq + d + 1)
+    value, loc, wts = _msda_inputs(rng, b, lq, h, d, shapes, p, *bounds,
+                                   where)
+    _check_msda_fwd(value, shapes, loc, wts, "tiled")
+
+
+@pytest.mark.parametrize("d,n_levels,p,offset", [(6, 2, 4, 0), (10, 3, 4, 0),
+                                                 (32, 4, 9, 0), (32, 2, 4, 1),
+                                                 (48, 2, 4, 1)])
+def test_msda_forward_narrow_variant_on_card(d, n_levels, p, offset):
+    """What the tiled forward does not take goes to the narrow one (a warp
+    per (b, q, h), lane = channel) and matches: D no multiple of 4, more
+    than 32 samples a (query, head), a value 4 bytes off 16-byte
+    alignment."""
+    rng = np.random.RandomState(d + p + offset + 1)
+    shapes = ((8, 8), (4, 4), (2, 2), (1, 1))[:n_levels]
+    value, loc, wts = _msda_inputs(rng, 2, 30, 4, d, shapes, p, -0.1, 1.1)
+    if offset:
+        value = _unaligned(value, offset)
+    _check_msda_fwd(value, shapes, loc, wts, "narrow")
+
+
+@pytest.mark.parametrize("shapes,d", [
+    (((13, 11), (7, 5), (3, 2)), 32),    # patches cut at every level's edge
+    (((64, 64), (32, 32), (16, 16), (8, 8), (4, 4)), 32),
+    (((9, 17), (5, 9)), 16)])
+def test_msda_forward_cell_walk_on_card(shapes, d):
+    """Queries that are the levels' cells (Lq = S, DINO-DETR's encoder),
+    each sampling around its own cell: the tiled forward walks them in 8 x 8
+    patches of a level, the last ones cut at the level's edge."""
+    s = sum(hh * ww for hh, ww in shapes)
+    rng = np.random.RandomState(s + d)
+    value, loc, wts = _msda_inputs(rng, 2, s, 8, d, shapes, 4, 0.0, 1.0,
+                                   "grid")
+    _check_msda_fwd(value, shapes, loc, wts, "tiled")
+
+
 def test_msda_gradients_survive_checkpointing_on_card():
     """Under ``torch.utils.checkpoint`` K7 runs twice; the location and
     weight gradients equal those without it, and the value gradient, summed
@@ -694,3 +755,54 @@ def test_probe_mm_raises_for_shapes_it_does_not_take_on_card():
     with pytest.raises(ValueError, match="N a multiple of 64"):
         matmul_probe.probe_mm(x, torch.zeros(64, 96, dtype=torch.bfloat16,
                                              device="cuda"))
+
+
+P1_STREAM_CASES = [(401408, 64, 256),   # ResNet-50's layer 1
+                   (100352, 128, 512),  # layer 2
+                   (1000, 64, 256),     # a ragged M: 15.6 items
+                   (300, 128, 128),     # 5 items: fewer than SMs
+                   (4096, 64, 64), (4096, 128, 128), (4096, 64, 192),
+                   (4096, 128, 512), (777, 128, 320)]
+
+
+@pytest.mark.parametrize("m,k,n", P1_STREAM_CASES)
+def test_probe_mm_stream_on_card(m, k, n):
+    """P1's stream (persistent TMA + wgmma) at ResNet-50's layers, a ragged
+    M, a launch of fewer items than SMs and N 64 to 512: within one bf16
+    spacing of the f32 product (``_mm_bound``), no narrow launch, and the
+    same bits from a second launch."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m + n)
+    assert matmul_probe._mm_variant(x, w) == "stream"
+    want = x.float() @ w.float()
+    before = (matmul_probe.KERNEL_LAUNCHES["probe_mm"],
+              matmul_probe.NARROW_LAUNCHES["probe_mm"])
+    y = matmul_probe.probe_mm(x, w)
+    again = matmul_probe.probe_mm(x, w)
+    torch.cuda.synchronize()
+    assert (matmul_probe.KERNEL_LAUNCHES["probe_mm"],
+            matmul_probe.NARROW_LAUNCHES["probe_mm"]) == (before[0] + 2,
+                                                          before[1])
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert bool(((y.float() - want).abs() <= _mm_bound(x, w, want)).all())
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("m,k,n,offset", [(77, 16, 64, 0),
+                                          (300, 48, 128, 0),
+                                          (1000, 64, 256, 2),
+                                          (500, 128, 640, 0)])
+def test_probe_mm_narrow_variant_on_card(m, k, n, offset):
+    """What P1's stream does not take goes to its narrow variant (the
+    mma.sync kernel) and matches: K 16 and 48, x 4 bytes off 16-byte
+    alignment, N above 512."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m + k)
+    if offset:
+        x = matmul_probe.offset_copy(x, offset)
+    assert matmul_probe._mm_variant(x, w) == "narrow"
+    want = x.float() @ w.float()
+    before = matmul_probe.NARROW_LAUNCHES["probe_mm"]
+    y = matmul_probe.probe_mm(x, w)
+    torch.cuda.synchronize()
+    assert matmul_probe.NARROW_LAUNCHES["probe_mm"] == before + 1
+    assert bool(((y.float() - want).abs() <= _mm_bound(x, w, want)).all())
+    assert torch.equal(y, matmul_probe.probe_mm(x, w))

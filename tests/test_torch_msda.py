@@ -127,7 +127,8 @@ def _shifted(shape, offset, dtype=torch.float32):
     return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
 
 
-@pytest.mark.parametrize("d,levels,points,dtype,offset,want", [
+# (D, levels, points, dtype, offset, variant) of both kernels' variant rules
+VARIANT_CASES = [
     (32, ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16)), 4,
      torch.float32, 0, "tiled"),                   # DINO-DETR's launches
     (32, ((8, 8),), 4, torch.float32, 0, "tiled"),   # one small level
@@ -142,7 +143,10 @@ def _shifted(shape, offset, dtype=torch.float32):
     (30, ((8, 8),), 4, torch.float32, 0, "narrow"),
     (32, ((4, 4),) * 8, 5, torch.float32, 0, "narrow"),  # 40 samples
     (32, ((4, 4),) * 8, 4, torch.float32, 0, "tiled"),   # 32 samples
-])
+]
+
+
+@pytest.mark.parametrize("d,levels,points,dtype,offset,want", VARIANT_CASES)
 def test_msda_backward_variant(d, levels, points, dtype, offset, want):
     """The MSDA backward (K7b) picks its kernel from the head width, the
     number of samples a (query, head) and the alignment of value and the
@@ -158,4 +162,23 @@ def test_msda_backward_variant(d, levels, points, dtype, offset, want):
     # the locations' own alignment: 8 bytes
     moved = _shifted(tuple(loc.shape), 1)
     assert msda._msda_bwd_variant(value.float().contiguous(), levels,
+                                  moved) == "narrow"
+
+
+@pytest.mark.parametrize("d,levels,points,dtype,offset,want", VARIANT_CASES)
+def test_msda_forward_variant(d, levels, points, dtype, offset, want):
+    """The MSDA forward (K7) picks its kernel from the head width, the
+    number of samples a (query, head) and the alignment of value and the
+    locations as launched alone, as ``csrc/msda.cu`` documents, never from
+    where the samples lie, and launches nothing to do so."""
+    s = sum(h * w for h, w in levels)
+    value = _shifted((2, s, 2, d), offset, dtype)
+    loc = torch.rand(2, 3, 2, len(levels), points, 2)
+    before = (dict(msda.KERNEL_LAUNCHES), dict(msda.NARROW_LAUNCHES))
+    assert msda._msda_fwd_variant(value, levels, loc) == want
+    assert msda._msda_fwd_variant(value, levels, loc * 3 - 1) == want
+    assert (msda.KERNEL_LAUNCHES, msda.NARROW_LAUNCHES) == before
+    # the locations' own alignment: 8 bytes
+    moved = _shifted(tuple(loc.shape), 1)
+    assert msda._msda_fwd_variant(value.float().contiguous(), levels,
                                   moved) == "narrow"

@@ -146,3 +146,28 @@ def test_scale_checks_dtype_and_device():
         matmul_probe.probe_mm(
             torch.zeros(8, 16, dtype=torch.bfloat16, device="meta"),
             torch.zeros(16, 64, dtype=torch.bfloat16, device="meta"))
+
+
+@pytest.mark.parametrize("k,n,offset,want", [
+    (64, 256, 0, "stream"),    # ResNet-50's layer 1
+    (128, 512, 0, "stream"),   # layer 2
+    (64, 64, 0, "stream"),
+    (128, 192, 0, "stream"),
+    (64, 576, 0, "narrow"),    # N above 512
+    (48, 256, 0, "narrow"),    # K no multiple of 64
+    (16, 64, 0, "narrow"),
+    (112, 128, 0, "narrow"),
+    (64, 256, 2, "narrow"),    # x 4 bytes off 16-byte alignment
+    (64, 256, 8, "stream"),    # 16 bytes in: aligned
+])
+def test_mm_variant(k, n, offset, want):
+    """P1 picks its kernel from K, N and the alignment of x and w alone, as
+    ``csrc/probes.cu`` documents, and launches nothing to do so."""
+    x = torch.zeros(300 * k + offset, dtype=torch.bfloat16)[offset:].view(
+        300, k)
+    w = torch.zeros(k, n, dtype=torch.bfloat16)
+    before = (dict(matmul_probe.KERNEL_LAUNCHES),
+              dict(matmul_probe.NARROW_LAUNCHES))
+    assert matmul_probe._mm_variant(x, w) == want
+    assert (matmul_probe.KERNEL_LAUNCHES,
+            matmul_probe.NARROW_LAUNCHES) == before
