@@ -42,7 +42,19 @@ Phases, each of which raises (exit code 1) on failure:
      0.1, MultiStepLR) on batches from the port's synthetic dataset and
      collater, counts the MSDA kernels' launches of every step, times the
      host's Hungarian matchings, profiles one step, and compares one step at
-     batch 1 with the same model on the plain MSDA.
+     batch 1 with the same model on the plain MSDA;
+  8. probes: holds the roofline probes P1-P3 against their plain versions
+     (P1 and P2 through their streams and their narrow variants) at
+     ResNet-50's layer-1 and layer-2 1x1 shapes and a ragged M, times P1
+     and P2 in alternating rounds beside their narrow variants and library
+     calls, and runs the probes, counting their launches;
+  9. ResNet-50 training: takes bench.py's step (batch 128, 224x224, bf16)
+     through ``make_train_step``, profiles one step, checks and times
+     training-mode ``F.batch_norm`` (cuDNN on fp16, PyTorch's own kernels
+     on bf16) beside the port's ``bn_train`` at the probes' shapes, and
+     compares an f32 batch-8 step with the CPU;
+ 10. CLIs: trains a scratch imagenet/resnet50 recipe through the train CLI
+     (2 epochs, then a resume to 3) and evaluates it through the test CLI.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -78,6 +90,7 @@ from simpleaicv_tpu_torch.models.detection import dinodetr
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
+from simpleaicv_tpu_torch.ops.fused_bn import bn_train
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
 from simpleaicv_tpu_torch.perf.msda_split import (DINO_BATCH, DINO_LEVELS,
                                                   DINO_POINTS, launch_inputs)
@@ -331,7 +344,8 @@ def _reading(kernel):
     return {key: kernel[key] for key in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "ms_rounds", "library_ms_rounds",
-        "mma_sync_variant_ms", "narrow_variant_ms") if key in kernel}
+        "mma_sync_variant_ms", "narrow_variant_ms", "p1_stream_ms")
+        if key in kernel}
 
 
 def _flash_inputs(b, h, n, d, dtype, seed, offset=0):
@@ -798,8 +812,8 @@ def _reset_launches():
 
 
 def _wide_kernels_only(path):
-    """Fails if a flash, MSDA or P1 kernel took its narrow variant since the
-    counts were last set to 0: a main path's inputs are aligned and of the
+    """Fails if a flash, MSDA, P1 or P2 kernel took its narrow variant since
+    the counts were last set to 0: a main path's inputs are aligned and of the
     shapes the wide (tiled, stream) kernels serve."""
     narrow = {k: v for counts in (fa.NARROW_LAUNCHES, msda.NARROW_LAUNCHES,
                                   matmul_probe.NARROW_LAUNCHES)
@@ -2082,9 +2096,10 @@ PROBE_RAGGED = (1000, 64, 256)
 
 
 def _probe_check(m, k, n):
-    """P1 (its stream and its narrow variant, each launched twice for the
-    same bits) and P2 against their plain versions on the same inputs: (max
-    |y - plain y| of P1's stream, of P2's y and sums). Raises unless each
+    """P1 and P2 against their plain versions on the same inputs, each
+    through its stream and, fed x 4 bytes off 16-byte alignment, its narrow
+    variant, each launched twice for the same bits: (max |y - plain y| of
+    P1's stream, max |y, sums - plain| of P2's stream). Raises unless each
     bf16 output lies within one bf16 spacing of the plain version's f32
     product at its magnitude (plus K * 2^-24 * sum |x w|, the f32 sum's
     rounding in another order) and each sum within 1e-5 of the largest
@@ -2092,45 +2107,59 @@ def _probe_check(m, k, n):
     x, w = matmul_probe.probe_inputs(m, k, n, seed=m)
     want = x.float() @ w.float()  # the plain versions' f32 product
     y_plain, s1_plain, s2_plain = matmul_probe.mm_stats_plain(x, w)
-    # P1 through its stream and, fed x 4 bytes off 16-byte alignment, its
-    # narrow variant, each launched twice for the same bits
     moved = matmul_probe.offset_copy(x)
     if ((matmul_probe._mm_variant(x, w), matmul_probe._mm_variant(moved, w))
             != ("stream", "narrow")):
-        raise RuntimeError(f"P1's inputs at M={m} K={k} N={n} miss its "
-                           f"variants")
-    narrow_before = matmul_probe.NARROW_LAUNCHES["probe_mm"]
-    y, y_narrow = (matmul_probe.probe_mm(t, w) for t in (x, moved))
-    repeats = (matmul_probe.probe_mm(x, w), matmul_probe.probe_mm(moved, w))
-    if matmul_probe.NARROW_LAUNCHES["probe_mm"] != narrow_before + 2:
-        raise RuntimeError("P1's narrow launches were not counted")
-    y2, s1, s2 = matmul_probe.probe_mm(x, w, stats=True)
+        raise RuntimeError(f"the probes' inputs at M={m} K={k} N={n} miss "
+                           f"their variants")
+    def outputs(t, stats):  # (y,) or (y, s1, s2)
+        out = matmul_probe.probe_mm(t, w, stats)
+        return out if stats else (out,)
+
+    narrow_before = dict(matmul_probe.NARROW_LAUNCHES)
+    runs = {(stats, variant): [outputs(t, stats) for _ in range(2)]
+            for stats in (False, True)
+            for variant, t in (("stream", x), ("narrow", moved))}
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip((y, y_narrow), repeats)):
-        raise RuntimeError(f"two P1 launches differ at M={m} K={k} N={n}")
-    del moved, repeats
+    if matmul_probe.NARROW_LAUNCHES != {
+            key: v + 2 for key, v in narrow_before.items()}:
+        raise RuntimeError("the probes' narrow launches were not counted")
+    for (stats, variant), (a, b) in runs.items():
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise RuntimeError(f"two {'P2' if stats else 'P1'} {variant} "
+                               f"launches differ at M={m} K={k} N={n}")
+    del moved
     # one bf16 spacing at each element's magnitude, plus the f32 sum's own
     # rounding in another order where the terms cancel
     spacing = (torch.exp2(torch.floor(torch.log2(want.abs() + 1e-30)) - 7)
                + k * 2.0**-24 * (x.float().abs() @ w.float().abs()))
-    in_spacing = all(bool(((t.float() - want).abs() <= spacing).all())
-                     for t in (y, y_narrow, y2))
-    sum_rel = max(((a - b).abs().max() / b.abs().max()).item()
-                  for a, b in ((s1, s1_plain), (s2, s2_plain)))
-    err_p1 = (y.float() - y_plain.float()).abs().max().item()
-    err_p2 = max((y2.float() - y_plain.float()).abs().max().item(),
-                 (s1 - s1_plain).abs().max().item(),
-                 (s2 - s2_plain).abs().max().item())
-    print(f"probe check M={m} K={k} N={n}: P1 max|y-plain|={err_p1:.3e} "
-          f"(stream), {(y_narrow.float() - y_plain.float()).abs().max():.3e} "
-          f"(narrow variant), P2 max|y,sums-plain|={err_p2:.3e}, sums "
-          f"within {sum_rel:.3e} of their largest value (1e-5), outputs "
-          f"within one bf16 spacing of the f32 product: {in_spacing}; two "
-          f"launches of each P1 variant the same bits", flush=True)
-    if not (in_spacing and sum_rel <= 1e-5):
+    ys = {key: r[0][0] for key, r in runs.items()}
+    in_spacing = all(bool(((y.float() - want).abs() <= spacing).all())
+                     for y in ys.values())
+    sum_rel = {variant: max(
+        ((a - b).abs().max() / b.abs().max()).item()
+        for a, b in zip(runs[(True, variant)][0][1:], (s1_plain, s2_plain)))
+        for variant in ("stream", "narrow")}
+    errs = {key: (y.float() - y_plain.float()).abs().max().item()
+            for key, y in ys.items()}
+    for variant in ("stream", "narrow"):
+        _, s1, s2 = runs[(True, variant)][0]
+        errs[(True, variant)] = max(errs[(True, variant)],
+                                    (s1 - s1_plain).abs().max().item(),
+                                    (s2 - s2_plain).abs().max().item())
+    print(f"probe check M={m} K={k} N={n}: P1 max|y-plain| "
+          f"{errs[(False, 'stream')]:.3e} (stream), "
+          f"{errs[(False, 'narrow')]:.3e} (narrow variant); P2 "
+          f"max|y,sums-plain| {errs[(True, 'stream')]:.3e} (stream), "
+          f"{errs[(True, 'narrow')]:.3e} (narrow variant), sums within "
+          f"{sum_rel['stream']:.3e} and {sum_rel['narrow']:.3e} of their "
+          f"largest value (1e-5); outputs within one bf16 spacing of the "
+          f"f32 product: {in_spacing}; two launches of each variant the "
+          f"same bits", flush=True)
+    if not (in_spacing and max(sum_rel.values()) <= 1e-5):
         raise RuntimeError(f"P1/P2 disagree with their plain versions at "
                            f"M={m} K={k} N={n}")
-    return err_p1, err_p2
+    return errs[(False, "stream")], errs[(True, "stream")]
 
 
 def _probe_entry(name, replaces, reading, err):
@@ -2144,22 +2173,27 @@ def _probe_entry(name, replaces, reading, err):
 
 def phase_probes(card):
     """The roofline probes P1-P3: checked against their plain versions at
-    ResNet-50's layer-1 and layer-2 shapes and a ragged M, P1 timed in 5
-    alternating rounds beside its narrow variant and ``torch.matmul``
-    (launches not counted), then the probe runs (``matmul_probe.case``,
-    ``bw_probe.case``: the kernel, its plain version, the library calls),
-    whose launches are the path's, none of them through P1's narrow
-    variant. Returns (kernel entries, launches)."""
-    errs, p1_rounds = {}, {}
+    ResNet-50's layer-1 and layer-2 shapes and a ragged M, P1 and P2 timed
+    in 5 alternating rounds beside their narrow variants and library calls
+    (P2 also beside P1's stream; launches not counted), then the probe runs
+    (``matmul_probe.case``, ``bw_probe.case``: the kernel, its plain
+    version, the library calls), whose launches are the path's, none of
+    them through a narrow variant. Returns (kernel entries, launches)."""
+    errs, rounds = {}, {}
     for layer, (m, k, n, _) in matmul_probe.LAYERS.items():
         errs[layer] = _probe_check(m, k, n)
     _probe_check(*PROBE_RAGGED)
-    for layer in matmul_probe.LAYERS:
-        p1_rounds[layer] = matmul_probe.variants_ms(layer)
-        print(f"P1 {layer}, 5 alternating rounds of 50 [{card}]: stream "
-              f"{_spread(p1_rounds[layer]['stream'])}, narrow variant "
-              f"{_spread(p1_rounds[layer]['narrow'])}, torch.matmul "
-              f"{_spread(p1_rounds[layer]['matmul'])}", flush=True)
+    for stats in (False, True):
+        for layer in matmul_probe.LAYERS:
+            r = rounds[(layer, stats)] = matmul_probe.variants_ms(layer,
+                                                                  stats)
+            print(f"{'P2' if stats else 'P1'} {layer}, 5 alternating rounds "
+                  f"of 50 [{card}]: stream {_spread(r['stream'])}, narrow "
+                  f"variant {_spread(r['narrow'])}"
+                  + (f", P1's stream {_spread(r['p1_stream'])}, "
+                     f"torch.matmul then the two column sums "
+                     if stats else ", torch.matmul ")
+                  + _spread(r["library"]), flush=True)
     x = torch.randn(bw_probe.SHAPE, device="cuda").to(torch.bfloat16)
     o = bw_probe.probe_scale(x)
     p3_err = (o.float() - bw_probe.scale_plain(x).float()).abs().max().item()
@@ -2177,6 +2211,7 @@ def phase_probes(card):
     launches = {**matmul_probe.KERNEL_LAUNCHES, **bw_probe.KERNEL_LAUNCHES}
     _wide_kernels_only("the probe runs")
     for (layer, stats), r in readings.items():
+        stream = statistics.median(rounds[(layer, stats)]["stream"])
         print(f"{'P2' if stats else 'P1'} {layer} {r['shape']} [{card}]: "
               f"kernel {r['ms']:.4f} ms ({r['gbytes_per_s']:.1f} GB/s of "
               f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, "
@@ -2184,8 +2219,10 @@ def phase_probes(card):
               + (f", 1x1 conv2d channels-last {r['conv_ms']:.4f} ms"
                  if not stats else f", torch.matmul alone "
                  f"{r['matmul_ms']:.4f} ms")
-              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the "
+              f"stream's median of the rounds {stream:.4f} ms, "
+              f"{r['bytes'] / stream / 1e6:.1f} GB/s, "
+              f"{r['bound_ms'] / stream:.3f} of the bound", flush=True)
     print(f"P3 {p3['shape']} [{card}]: kernel {p3['ms']:.4f} ms "
           f"({p3['gbytes_per_s']:.1f} GB/s of {p3['bytes'] / 1e6:.1f} MB), "
           f"plain {p3['plain_ms']:.4f} ms, {p3['library']} "
@@ -2200,16 +2237,16 @@ def phase_probes(card):
                              errs["layer1"][int(stats)])
         other = _probe_entry(name, "", readings[("layer2", stats)],
                              errs["layer2"][int(stats)])
-        if not stats:
-            # P1's time and its library call's from the alternating rounds
-            for e, layer in ((entry, "layer1"), (other, "layer2")):
-                rounds = p1_rounds[layer]
-                e.update({"ms": statistics.median(rounds["stream"]),
-                          "library_ms": statistics.median(rounds["matmul"]),
-                          "ms_rounds": rounds["stream"],
-                          "library_ms_rounds": rounds["matmul"],
-                          "narrow_variant_ms": statistics.median(
-                              rounds["narrow"])})
+        # the time and the library call's from the alternating rounds
+        for e, layer in ((entry, "layer1"), (other, "layer2")):
+            r = rounds[(layer, stats)]
+            e.update({"ms": statistics.median(r["stream"]),
+                      "library_ms": statistics.median(r["library"]),
+                      "ms_rounds": r["stream"],
+                      "library_ms_rounds": r["library"],
+                      "narrow_variant_ms": statistics.median(r["narrow"])})
+            if stats:
+                e["p1_stream_ms"] = statistics.median(r["p1_stream"])
         entry["other_shapes"] = [_reading(other)]
         kernels.append(entry)
     kernels.append(_probe_entry("probe_scale", "perf/pallas_bw_probe.py:21",
@@ -2253,8 +2290,132 @@ def _row_group(key):
     return "other"
 
 
+# ResNet-50's BatchNorms after the probes' 1x1 expansions at batch 128,
+# NHWC bf16: layer 1's (56^2, 256 channels) and layer 2's (28^2, 512)
+BN_SHAPES = ((RESNET_BATCH, 56, 56, 256), (RESNET_BATCH, 28, 28, 512))
+BN_EPS = 1e-5
+
+
+def _bn_yardstick(card, shape):
+    """The library yardstick of a hand BatchNorm at one of the probes'
+    shapes: training-mode ``F.batch_norm`` beside the port's
+    ``ops/fused_bn.py::bn_train`` (bf16, the ResNet's type). For bf16
+    PyTorch sends ``F.batch_norm`` to its own channels-last kernels, not to
+    cuDNN; for fp16, the same bytes, to cuDNN's. So both are read: cuDNN on
+    fp16 values and PyTorch's kernels on bf16, each on a channels-last NCHW
+    view of NHWC storage and checked against ``bn_train`` on the same
+    values; then the forward and the forward + backward (a fixed dy) of the
+    three are timed in 5 alternating rounds of 20 beside their byte
+    bounds, and three profiled forward + backward calls of each library
+    call name its kernels. A measurement: the port calls neither. The two
+    sides differ in semantics (``bn_train`` shifts its statistics by the
+    running mean, and the running buffers blend with other momenta), so y,
+    dx, the batch mean and the batch variance are compared, not the
+    buffers.
+    Raises unless y and dx agree within 2e-2 + 2e-2 |value| (a few bf16
+    spacings: ``bn_train`` rounds x - mean and the scale to x's type, the
+    library computes in f32 and rounds once) and the mean and variance
+    within 1e-4 (f32 sums of 1e5 to 4e5 values in other orders, against
+    values of unit size)."""
+    batch_norm = torch.nn.functional.batch_norm
+    c = shape[-1]
+    x_numel = int(np.prod(shape))
+    n = x_numel // c  # values a channel
+    g = torch.Generator(device="cuda").manual_seed(c)
+    x32 = torch.randn(shape, generator=g, device="cuda")
+    dy32 = torch.randn(shape, generator=g, device="cuda")
+    gamma = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+             ).requires_grad_()
+    beta = (0.1 * torch.randn(c, generator=g, device="cuda")).requires_grad_()
+    shift = torch.zeros(c, device="cuda")  # a first step's running mean
+    running = (torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"))
+    inputs = {dtype: (x32.to(dtype), dy32.to(dtype))
+              for dtype in (torch.float16, torch.bfloat16)}
+    del x32, dy32
+
+    def library(t, buffers=running, momentum=0.1):
+        # on the channels-last NCHW view; y back as NHWC
+        return batch_norm(t.permute(0, 3, 1, 2), *buffers, gamma, beta, True,
+                          momentum, BN_EPS).permute(0, 2, 3, 1)
+
+    def port(t):
+        return bn_train(t, gamma, beta, shift, BN_EPS)[0]
+
+    for name, dtype in (("cuDNN", torch.float16),
+                        ("PyTorch's kernels", torch.bfloat16)):
+        # at momentum 1 the library's running buffers take the batch mean
+        # and the unbiased batch variance
+        x, dy = inputs[dtype]
+        xg = x.detach().requires_grad_()
+        mean_l = torch.zeros(c, device="cuda")
+        var_l = torch.ones(c, device="cuda")
+        y_l = library(xg, (mean_l, var_l), 1.0)
+        dx_l = torch.autograd.grad(y_l, xg, dy)[0]
+        y_p, mean_p, var_p = bn_train(xg, gamma, beta, shift, BN_EPS)
+        dx_p = torch.autograd.grad(y_p, xg, dy)[0]
+        agree = {key: ((a.float() - b.float()).abs()
+                       - 2e-2 * b.float().abs()).max().item()
+                 for key, a, b in (("y", y_l, y_p), ("dx", dx_l, dx_p))}
+        mean_err = (mean_l - mean_p).abs().max().item()
+        var_err = (var_l * (n - 1) / n - var_p).abs().max().item()
+        print(f"BatchNorm {list(shape)} {str(dtype)[6:]}, F.batch_norm "
+              f"({name}) against bn_train: max(|diff| - 2e-2 |bn_train|) y "
+              f"{agree['y']:.3e}, dx {agree['dx']:.3e} (2e-2), batch mean "
+              f"{mean_err:.3e}, batch variance {var_err:.3e} (1e-4)",
+              flush=True)
+        if max(agree.values()) > 2e-2 or max(mean_err, var_err) > 1e-4:
+            raise RuntimeError(f"F.batch_norm ({name}) and bn_train "
+                               f"disagree at {shape} {dtype}")
+        del xg, y_l, dx_l, y_p, dx_p
+
+    fns = {}
+    for key, dtype, fn in (("cudnn", torch.float16, library),
+                           ("pytorch", torch.bfloat16, library),
+                           ("bn_train", torch.bfloat16, port)):
+        x, dy = inputs[dtype]
+        xg = x.detach().requires_grad_()
+
+        def fwd(fn=fn, x=x):
+            with torch.no_grad():
+                return fn(x)
+
+        def fwd_bwd(fn=fn, xg=xg, dy=dy):
+            return torch.autograd.grad(fn(xg), (xg, gamma, beta), dy)
+
+        fns[f"{key}_fwd"], fns[f"{key}_fwd_bwd"] = fwd, fwd_bwd
+    times = _alternating(fns)
+    med = {key: statistics.median(t) for key, t in times.items()}
+    # bytes: the forward reads x and writes y, the backward reads x and dy
+    # and writes dx (2 bytes each); operations: the statistics and the
+    # affine map, about 5 f32 operations an element forward and 7 backward
+    bounds = {"fwd": _bound(5.0 * x_numel, 2 * 2 * x_numel, torch.float32),
+              "fwd_bwd": _bound(12.0 * x_numel, 5 * 2 * x_numel,
+                                torch.float32)}
+    for part, label in (("fwd", "forward"), ("fwd_bwd", "forward + backward")):
+        bound_ms, bound_by = bounds[part]
+        print(f"BatchNorm {list(shape)} training {label}, 5 alternating "
+              f"rounds of 20 [{card}]: "
+              + ", ".join(f"{name} {_spread(times[f'{key}_{part}'])} "
+                          f"({bound_ms / med[f'{key}_{part}']:.3f} of the "
+                          f"bound)" for key, name in (
+                              ("cudnn", "cuDNN (fp16)"),
+                              ("pytorch", "PyTorch's kernels (bf16)"),
+                              ("bn_train", "bn_train (bf16)")))
+              + f"; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    for key, name in (("cudnn", "cuDNN (fp16)"),
+                      ("pytorch", "PyTorch's kernels (bf16)")):
+        # three calls: a profile taken late in a long process may miss the
+        # first kernels it should see
+        fn = fns[f"{key}_fwd_bwd"]
+        busy_ms, events = _profile_device(lambda: [fn() for _ in range(3)])
+        print(f"  {name} forward + backward by kernel (three profiled "
+              f"calls, {busy_ms:.3f} ms busy):", flush=True)
+        _print_rows(events, busy_ms, 4)
+
+
 def phase_resnet50_training(card, p2_layer1_ms, warm_up=3, timed=10):
-    """bench.py's ResNet-50 step on the card; returns (hand-kernel launches
+    """bench.py's ResNet-50 step on the card, then the BatchNorm yardstick
+    at the probes' shapes (``_bn_yardstick``); returns (hand-kernel launches
     of the timed run, images per second)."""
     from torch.utils.flop_counter import FlopCounterMode
     t0 = time.perf_counter()
@@ -2331,6 +2492,10 @@ def phase_resnet50_training(card, p2_layer1_ms, warm_up=3, timed=10):
         print("profiled ResNet-50 step: no device time recorded (not "
               "measured)")
     del state, model, step, batch
+    torch.cuda.empty_cache()
+    # the library yardstick of a hand BatchNorm, at the probes' shapes
+    for shape in BN_SHAPES:
+        _bn_yardstick(card, shape)
     torch.cuda.empty_cache()
     _resnet_f32_vs_cpu()
     return launches, RESNET_BATCH / step_ms * 1e3

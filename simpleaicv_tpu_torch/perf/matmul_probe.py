@@ -8,12 +8,15 @@
 kernels of ``ops/csrc/probes.cu``: y = x @ w in f32 accumulation stored in
 x's dtype (bf16), and with ``stats`` the per-column sum and sum of squares
 of the f32 product ([1, N] f32 each), the statistics a fused BatchNorm
-epilogue would need. CUDA tensors launch the kernels: P1 a persistent TMA +
-``wgmma`` stream, or its narrow variant (the ``mma.sync`` kernel P2 is built
-on) for what the stream does not take (``_mm_variant``; ``NARROW_LAUNCHES``
-counts those launches). CPU tensors take the plain versions ``mm_plain``
-and ``mm_stats_plain``. ``case`` times a probe beside its plain version, the
-library calls and its bound (P1 also beside its narrow variant).
+epilogue would need. CUDA tensors launch the kernels, both probes by one
+rule (``_mm_variant``): a persistent TMA + ``wgmma`` stream (P2's adds the
+sums in its epilogue, then a second launch sums the blocks' rows), or for
+what the stream does not take the narrow variant, the ``mma.sync`` kernel
+of 128 x 64 tiles (``NARROW_LAUNCHES`` counts those launches). CPU tensors
+take the plain versions ``mm_plain`` and ``mm_stats_plain``. ``case`` times
+a probe beside its plain version, the library calls and its bound;
+``variants_ms`` times a probe's stream beside its narrow variant and the
+library calls in alternating rounds (P2 also beside P1's stream).
 """
 
 from __future__ import annotations
@@ -34,11 +37,12 @@ __all__ = ["probe_mm", "mm_plain", "mm_stats_plain", "case", "variants_ms",
 # Launches of each hand kernel since the caller last set the count to 0; the
 # wrapper adds one where it launches (P2's two launches count once).
 KERNEL_LAUNCHES = {"probe_mm": 0, "probe_mm_stats": 0}
-# Those of P1's launches that took its narrow variant, so that a run can
-# show that the probe path took the stream.
-NARROW_LAUNCHES = {"probe_mm": 0}
+# Those of P1's and P2's launches that took their narrow variant, so that a
+# run can show that the probe path took the streams.
+NARROW_LAUNCHES = {"probe_mm": 0, "probe_mm_stats": 0}
 
-TILE_M = 128  # rows per block of the kernels
+TILE_M = 128  # rows per block of the narrow variants
+ITEM_M = 64   # rows per item of the streams
 
 # name -> (M, K, N, H): ResNet-50 at batch 128, 224^2: layer 1's 1x1
 # expansion (56^2, 64 -> 256) and layer 2's (28^2, 128 -> 512)
@@ -80,14 +84,23 @@ def _lib():
     lib.probe_mm_stream.argtypes = ([ctypes.c_void_p] * 3
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.probe_mm_stream.restype = ctypes.c_int
+    lib.probe_mm_stats_stream.argtypes = ([ctypes.c_void_p] * 6
+                                          + [ctypes.c_int] * 4
+                                          + [ctypes.c_void_p])
+    lib.probe_mm_stats_stream.restype = ctypes.c_int
     lib.probe_scale.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_longlong, ctypes.c_void_p]
     lib.probe_scale.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _mm_variant(x, w) -> str:
-    """Which kernel takes P1 on these inputs, as ``csrc/probes.cu``
+    """Which kernel takes P1 or P2 on these inputs, as ``csrc/probes.cu``
     documents: "stream" (the persistent TMA + ``wgmma`` kernel: K 64 or
     128, N a multiple of 64 up to 512, x and w 16-byte aligned) or "narrow"
     (the ``mma.sync`` kernel of 128 x 64 tiles). Depends on the shapes and
@@ -104,7 +117,7 @@ def _mm_cuda(x, w, stats):
     n = w.shape[1]
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
-    stream = not stats and _mm_variant(x, w) == "stream"
+    stream = _mm_variant(x, w) == "stream"
     if not stream:
         if k % 16 or not 16 <= k <= 128 or n % 64 or m > 65535 * TILE_M:
             raise ValueError(f"the kernel takes K in 16..128 in steps of 16, "
@@ -116,24 +129,30 @@ def _mm_cuda(x, w, stats):
     cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
     name = "probe_mm_stats" if stats else "probe_mm"
     with torch.cuda.device(x.device):
-        if stream:
-            err = _lib().probe_mm_stream(x.data_ptr(), w.data_ptr(),
-                                         y.data_ptr(), m, k, n, cuda_stream)
+        sums = [None] * 3
+        if stats:
+            # a row of partial sums a block (the stream's persistent grid:
+            # an SM a block, at most one an item; the narrow variant's row
+            # tiles), then s1 and s2: one buffer, one allocation
+            rows = (min(-(-m // ITEM_M), _sm_count(x.device.index))
+                    if stream else -(-m // TILE_M))
+            buf = torch.empty((2 * rows + 2, n), dtype=torch.float32,
+                              device=x.device)
+            s1, s2 = buf[2 * rows:2 * rows + 1], buf[2 * rows + 1:]
+            sums = [buf.data_ptr(), s1.data_ptr(), s2.data_ptr()]
+        ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
+        if not stream:
+            err = _lib().probe_mm(*ptrs, *sums, m, k, n, int(stats),
+                                  cuda_stream)
+        elif stats:
+            err = _lib().probe_mm_stats_stream(*ptrs, *sums, rows, m, k, n,
+                                               cuda_stream)
         else:
-            ptrs = [None, None, None]
-            if stats:
-                partial = torch.empty((2, (m + TILE_M - 1) // TILE_M, n),
-                                      dtype=torch.float32, device=x.device)
-                s1 = torch.empty((1, n), dtype=torch.float32,
-                                 device=x.device)
-                s2 = torch.empty_like(s1)
-                ptrs = [partial.data_ptr(), s1.data_ptr(), s2.data_ptr()]
-            err = _lib().probe_mm(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                  *ptrs, m, k, n, int(stats), cuda_stream)
+            err = _lib().probe_mm_stream(*ptrs, m, k, n, cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
-    if not stats and not stream:
+    if not stream:
         NARROW_LAUNCHES[name] += 1
     return (y, s1, s2) if stats else y
 
@@ -142,8 +161,8 @@ def probe_mm(x, w, stats: bool = False):
     """x [M, K] @ w [K, N] in bf16 with f32 accumulation -> y [M, N] bf16,
     or with ``stats`` (y, column sums, column sums of squares) of the f32
     product, [1, N] f32 each. CUDA tensors run P1 / P2 (K 16..128 in steps
-    of 16, N a multiple of 64, M up to 65535 x 128; P1 any M where its
-    stream takes it, ``_mm_variant``), CPU tensors the plain versions."""
+    of 16, N a multiple of 64, M up to 65535 x 128; any M where the stream
+    takes it, ``_mm_variant``), CPU tensors the plain versions."""
     _check(x, w)
     if x.device.type == "cpu":
         return mm_stats_plain(x, w) if stats else mm_plain(x, w)
@@ -174,11 +193,7 @@ def case(layer: str, stats: bool, iters: int = 50) -> dict:
     matmul_ms = cuda_ms(lambda: torch.matmul(x, w), iters)
     out = {"shape": f"M={m} K={k} N={n} bf16", "ms": ms, "plain_ms": plain_ms}
     if stats:
-        def library():
-            y = torch.matmul(x, w)
-            yf = y.float()
-            return yf.sum(0), yf.square().sum(0)
-        out["library_ms"] = cuda_ms(library, iters)
+        out["library_ms"] = cuda_ms(lambda: _stats_library(x, w), iters)
         out["library"] = "torch.matmul, then the two column sums"
     else:
         x4 = x.reshape(m // (h * h), h, h, k).permute(0, 3, 1, 2)
@@ -206,31 +221,48 @@ def offset_copy(t, offset=2):
     return out
 
 
-def variants_ms(layer: str, rounds: int = 5, iters: int = 50) -> dict:
-    """P1 at ``LAYERS[layer]`` on the card in alternating rounds
-    (``alternating_ms``): the stream, its narrow variant (fed x 4 bytes off
-    16-byte alignment) and ``torch.matmul``, on the same values. Returns
-    {"stream", "narrow", "matmul": [ms of each round]}; the narrow variant's
-    launches are counted as any."""
+def _stats_library(x, w):
+    """P2's library calls: ``torch.matmul``, then the two column sums of
+    the product in f32 (three calls; no single call computes P2)."""
+    yf = torch.matmul(x, w).float()
+    return yf.sum(0), yf.square().sum(0)
+
+
+def variants_ms(layer: str, stats: bool = False, rounds: int = 5,
+                iters: int = 50) -> dict:
+    """P1 (or P2 with ``stats``) at ``LAYERS[layer]`` on the card in
+    alternating rounds (``alternating_ms``), on the same values: the
+    stream, its narrow variant (fed x 4 bytes off 16-byte alignment) and
+    the library call (``torch.matmul``; for P2 the matmul and the two
+    column sums, and P1's stream beside them). Returns {"stream",
+    "narrow", "library" (and "p1_stream"): [ms of each round]}; the narrow
+    variant's launches are counted as any."""
     m, k, n, _ = LAYERS[layer]
     x, w = probe_inputs(m, k, n)
     moved = offset_copy(x)
     if (_mm_variant(x, w), _mm_variant(moved, w)) != ("stream", "narrow"):
-        raise RuntimeError(f"P1's inputs at {layer} miss its variants")
-    return alternating_ms({"stream": lambda: probe_mm(x, w),
-                           "narrow": lambda: probe_mm(moved, w),
-                           "matmul": lambda: torch.matmul(x, w)},
-                          rounds=rounds, iters=iters)
+        raise RuntimeError(f"the probe's inputs at {layer} miss its "
+                           f"variants")
+    fns = {"stream": lambda: probe_mm(x, w, stats),
+           "narrow": lambda: probe_mm(moved, w, stats)}
+    if stats:
+        fns["p1_stream"] = lambda: probe_mm(x, w)
+        fns["library"] = lambda: _stats_library(x, w)
+    else:
+        fns["library"] = lambda: torch.matmul(x, w)
+    return alternating_ms(fns, rounds=rounds, iters=iters)
 
 
 def main():
     name = torch.cuda.get_device_name(0)
-    for layer in LAYERS:
-        times = variants_ms(layer)
-        print(f"P1 {layer} [{name}], medians of 5 alternating rounds: "
-              + ", ".join(f"{key} {statistics.median(t):.4f} ms "
-                          f"[{min(t):.4f}, {max(t):.4f}]"
-                          for key, t in times.items()))
+    for stats in (False, True):
+        for layer in LAYERS:
+            times = variants_ms(layer, stats)
+            print(f"{'P2' if stats else 'P1'} {layer} [{name}], medians of "
+                  f"5 alternating rounds: "
+                  + ", ".join(f"{key} {statistics.median(t):.4f} ms "
+                              f"[{min(t):.4f}, {max(t):.4f}]"
+                              for key, t in times.items()))
     for layer in LAYERS:
         for stats in (False, True):
             r = case(layer, stats)

@@ -725,11 +725,83 @@ def test_probe_mm_matches_plain_version_on_card(m, k, n):
 
 
 def test_probe_mm_stats_are_reproducible_on_card():
-    """No atomics: two P2 calls give the same bits."""
+    """No atomics: two P2 calls give the same bits, through its stream at
+    ResNet-50's layer 2 (a fixed item walk and fixed-order reduces)."""
     x, w = matmul_probe.probe_inputs(100352, 128, 512)
+    assert matmul_probe._mm_variant(x, w) == "stream"
+    before = matmul_probe.NARROW_LAUNCHES["probe_mm_stats"]
     a = matmul_probe.probe_mm(x, w, stats=True)
     b = matmul_probe.probe_mm(x, w, stats=True)
+    assert matmul_probe.NARROW_LAUNCHES["probe_mm_stats"] == before
     for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _check_mm_stats(x, w, got):
+    """P2's (y, s1, s2) against ``mm_stats_plain``'s f32 product: y within
+    one bf16 spacing (``_mm_bound``), the sums within 1e-5 of their
+    largest value (f32 sums in another order)."""
+    want = x.float() @ w.float()
+    y, s1, s2 = got
+    m, n = want.shape
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert bool(((y.float() - want).abs() <= _mm_bound(x, w, want)).all())
+    _, s1_plain, s2_plain = matmul_probe.mm_stats_plain(x, w)
+    for got_sum, ref in [(s1, s1_plain), (s2, s2_plain)]:
+        assert got_sum.shape == (1, n) and got_sum.dtype == torch.float32
+        err = (got_sum - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+P2_STREAM_CASES = [(401408, 64, 256),   # ResNet-50's layer 1
+                   (100352, 128, 512),  # layer 2
+                   (1000, 64, 256),     # a ragged M: 15.6 items
+                   (300, 128, 192),     # ragged, 3 chunks of 64 columns
+                   (4096, 64, 64),      # one chunk: the consumers take turns
+                   (300, 128, 128),     # 5 items: fewer than SMs
+                   (4096, 64, 512),     # 4 chunks at a ring of 6
+                   (4096, 64, 384),     # 3 chunks of 128 columns
+                   (777, 128, 448)]     # 7 chunks of 64 columns
+
+
+@pytest.mark.parametrize("m,k,n", P2_STREAM_CASES)
+def test_probe_mm_stats_stream_on_card(m, k, n):
+    """P2's stream (P1's stream with the column sums in its epilogue) at
+    ResNet-50's layers, ragged M, fewer items than SMs and N 64 to 512 (1
+    to 7 chunks a consumer pair shares): against ``mm_stats_plain``, no
+    narrow launch, and the same bits from a second launch."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m + n)
+    assert matmul_probe._mm_variant(x, w) == "stream"
+    before = (matmul_probe.KERNEL_LAUNCHES["probe_mm_stats"],
+              matmul_probe.NARROW_LAUNCHES["probe_mm_stats"])
+    got = matmul_probe.probe_mm(x, w, stats=True)
+    again = matmul_probe.probe_mm(x, w, stats=True)
+    torch.cuda.synchronize()
+    assert (matmul_probe.KERNEL_LAUNCHES["probe_mm_stats"],
+            matmul_probe.NARROW_LAUNCHES["probe_mm_stats"]) == (
+                before[0] + 2, before[1])
+    _check_mm_stats(x, w, got)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("m,k,n,offset", [(300, 48, 128, 0),
+                                          (1000, 64, 256, 2)])
+def test_probe_mm_stats_narrow_variant_on_card(m, k, n, offset):
+    """What P2's stream does not take goes to its narrow variant (the
+    mma.sync kernel with per-block partials), counted, and matches: K 48,
+    and x 4 bytes off 16-byte alignment; the same bits from a second
+    launch."""
+    x, w = matmul_probe.probe_inputs(m, k, n, seed=m + k)
+    if offset:
+        x = matmul_probe.offset_copy(x, offset)
+    assert matmul_probe._mm_variant(x, w) == "narrow"
+    before = matmul_probe.NARROW_LAUNCHES["probe_mm_stats"]
+    got = matmul_probe.probe_mm(x, w, stats=True)
+    torch.cuda.synchronize()
+    assert matmul_probe.NARROW_LAUNCHES["probe_mm_stats"] == before + 1
+    _check_mm_stats(x, w, got)
+    for u, v in zip(got, matmul_probe.probe_mm(x, w, stats=True)):
         assert torch.equal(u, v)
 
 

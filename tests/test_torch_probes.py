@@ -148,7 +148,7 @@ def test_scale_checks_dtype_and_device():
             torch.zeros(16, 64, dtype=torch.bfloat16, device="meta"))
 
 
-@pytest.mark.parametrize("k,n,offset,want", [
+VARIANT_CASES = [
     (64, 256, 0, "stream"),    # ResNet-50's layer 1
     (128, 512, 0, "stream"),   # layer 2
     (64, 64, 0, "stream"),
@@ -159,15 +159,29 @@ def test_scale_checks_dtype_and_device():
     (112, 128, 0, "narrow"),
     (64, 256, 2, "narrow"),    # x 4 bytes off 16-byte alignment
     (64, 256, 8, "stream"),    # 16 bytes in: aligned
-])
-def test_mm_variant(k, n, offset, want):
-    """P1 picks its kernel from K, N and the alignment of x and w alone, as
-    ``csrc/probes.cu`` documents, and launches nothing to do so."""
+]
+
+
+# P1's cases keep their names; P2's carry "-stats"
+@pytest.mark.parametrize("k,n,offset,want,stats", [
+    pytest.param(*case, stats,
+                 id="-".join(map(str, case)) + ("-stats" if stats else ""))
+    for stats in (False, True) for case in VARIANT_CASES])
+def test_mm_variant(k, n, offset, want, stats, monkeypatch):
+    """P1 and P2 pick their kernel by one rule, from K, N and the
+    alignment of x and w alone, as ``csrc/probes.cu`` documents, and
+    launch nothing to do so."""
+    def no_build():
+        raise AssertionError("choosing a variant reached the kernel")
+
+    monkeypatch.setattr(matmul_probe, "_lib", no_build)
     x = torch.zeros(300 * k + offset, dtype=torch.bfloat16)[offset:].view(
         300, k)
     w = torch.zeros(k, n, dtype=torch.bfloat16)
+    name = "probe_mm_stats" if stats else "probe_mm"
     before = (dict(matmul_probe.KERNEL_LAUNCHES),
               dict(matmul_probe.NARROW_LAUNCHES))
+    assert name in before[0] and name in before[1]
     assert matmul_probe._mm_variant(x, w) == want
     assert (matmul_probe.KERNEL_LAUNCHES,
             matmul_probe.NARROW_LAUNCHES) == before
