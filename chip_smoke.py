@@ -54,7 +54,18 @@ Phases, each of which raises (exit code 1) on failure:
      on bf16) beside the port's ``bn_train`` at the probes' shapes, and
      compares an f32 batch-8 step with the CPU;
  10. CLIs: trains a scratch imagenet/resnet50 recipe through the train CLI
-     (2 epochs, then a resume to 3) and evaluates it through the test CLI.
+     (2 epochs, then a resume to 3) and evaluates it through the test CLI;
+ 11. SAM CLIs: trains SAM-B 1024x1024 (the sa_1b/sam_b recipe's fields,
+     32 synthetic images, 1 epoch with its per-dataset IoU) through
+     ``tools.train_interactive_segmentation`` and evaluates its best
+     checkpoint through ``tools.test_interactive_segmentation``, in this
+     process, counting the rel-pos kernels' launches;
+ 12. DINO-DETR CLIs: trains DINO-DETR R50 1024x1024 (the
+     res50_dinodetr_yoloresize1024 recipe's fields at batch 2, 16 synthetic
+     images, 1 epoch with its COCO evaluation) through
+     ``tools.train_detr_detection`` and evaluates its best checkpoint
+     through ``tools.test_detection``, in this process, counting the MSDA
+     kernels' launches.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -100,6 +111,12 @@ from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
+from simpleaicv_tpu_torch.tools import test_detection as det_test_cli
+from simpleaicv_tpu_torch.tools import test_interactive_segmentation as \
+    sam_test_cli
+from simpleaicv_tpu_torch.tools import train_detr_detection as det_train_cli
+from simpleaicv_tpu_torch.tools import train_interactive_segmentation as \
+    sam_train_cli
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -1116,18 +1133,8 @@ def _prompt_kinds(count, seed):
     """One prompt kind per batch by ``PROMPT_PROBS``, as the trainer draws
     them, from a seeded generator so that every run takes the same ones."""
     rng = random.Random(seed)
-    kinds = []
-    for _ in range(count):
-        r = rng.random()
-        kinds.append("point" if r < PROMPT_PROBS["point"] else
-                     "box" if r < PROMPT_PROBS["point"] + PROMPT_PROBS["box"]
-                     else "mask")
-    return kinds
-
-
-def _keep_prompt(batch, kind):
-    return {k: (v if not k.startswith("prompt_") or k == f"prompt_{kind}"
-                else None) for k, v in batch.items()}
+    return [sam_train_cli.draw_prompt_kind(PROMPT_PROBS, rng)
+            for _ in range(count)]
 
 
 def _launch_delta(before):
@@ -1136,46 +1143,38 @@ def _launch_delta(before):
 
 def _sam_train_batch(state, step, predict, batch, kind, click_generator,
                      records):
-    """The trainer's loop body for one batch: one optimizer step, or
-    ``DECODER_POINT_ITERS`` of them on a point batch with a no-grad
-    best-mask prediction and one new click at an error pixel between two
-    steps. Appends (kind, what, ms, loss or None) to ``records`` and fails
-    on a launch count other than the expected one."""
-    batch = _keep_prompt(batch, kind)
-    iters = DECODER_POINT_ITERS if kind == "point" else 1
-    for it in range(iters):
-        before = dict(fa.KERNEL_LAUNCHES)
+    """The train CLI's loop body for one batch (``train_batch``): one
+    optimizer step, or ``DECODER_POINT_ITERS`` of them on a point batch
+    with a no-grad best-mask prediction and one new click at an error pixel
+    between two steps. Appends (kind, what, ms, loss or None) to ``records``
+    and fails on a launch count other than the expected one."""
+    torch.cuda.synchronize()
+    mark = [time.perf_counter(), dict(fa.KERNEL_LAUNCHES)]
+
+    def observe(what, value):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, seed=0)
+        ms = (time.perf_counter() - mark[0]) * 1e3
+        delta = _launch_delta(mark[1])
+        want = SAM_STEP_LAUNCHES if what == "step" else SAM_PREDICT_LAUNCHES
+        if delta != want:
+            raise RuntimeError(f"a {kind} {what} launched {delta}, expected "
+                               f"{want}")
+        loss = None
+        if what == "step":
+            loss = value["loss"].item()
+            if not np.isfinite(loss) or float(value["skipped"]) != 0.0:
+                raise RuntimeError(f"{kind} step: loss {loss}, skipped "
+                                   f"{float(value['skipped'])}")
+        elif not (value != batch["prompt_point"]).any():
+            raise RuntimeError("the refinement added no click")
+        records.append((kind, "refine" if what == "refine" else "step", ms,
+                        loss))
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        if _launch_delta(before) != SAM_STEP_LAUNCHES:
-            raise RuntimeError(f"a {kind} step launched "
-                               f"{_launch_delta(before)}, expected "
-                               f"{SAM_STEP_LAUNCHES}")
-        loss = metrics["loss"].item()
-        if not np.isfinite(loss) or float(metrics["skipped"]) != 0.0:
-            raise RuntimeError(f"{kind} step: loss {loss}, skipped "
-                               f"{float(metrics['skipped'])}")
-        records.append((kind, "step", ms, loss))
-        if it + 1 < iters:
-            before = dict(fa.KERNEL_LAUNCHES)
-            t0 = time.perf_counter()
-            masks = predict(state.model, batch["image"],
-                            batch["prompt_point"])
-            points = sam_task.sample_error_region_points(
-                masks, batch["mask"], batch["prompt_point"],
-                generator=click_generator)
-            torch.cuda.synchronize()
-            records.append((kind, "refine",
-                            (time.perf_counter() - t0) * 1e3, None))
-            if _launch_delta(before) != SAM_PREDICT_LAUNCHES:
-                raise RuntimeError(f"the prediction launched "
-                                   f"{_launch_delta(before)}")
-            if not (points != batch["prompt_point"]).any():
-                raise RuntimeError("the refinement added no click")
-            batch = dict(batch, prompt_point=points)
+        mark[:] = [time.perf_counter(), dict(fa.KERNEL_LAUNCHES)]
+
+    state, _ = sam_train_cli.train_batch(step, state, predict, batch, kind,
+                                         DECODER_POINT_ITERS, click_generator,
+                                         observe=observe)
     return state
 
 
@@ -1252,14 +1251,15 @@ def phase_sam_training(card, timed_batches=6):
         "kind (a refinement is the no-grad prediction and the new click "
         "between a point batch's two steps)", flush=True)
     step_ms = float(np.mean([r[2] for r in timed_steps]))
+    ips = SAM_BATCH * len(timed_steps) / window_ms * 1e3
     print(f"SAM-B 1024^2 training, batch {SAM_BATCH} [{card}]: "
-          f"{SAM_BATCH * len(timed_steps) / window_ms * 1e3:.2f} images/s "
+          f"{ips:.2f} images/s "
           f"over the window of {len(timed_steps)} steps and their "
           f"refinements ({window_ms:.1f} ms), {step_ms:.2f} ms per step, "
           f"peak memory {peak_gib:.2f} GiB", flush=True)
 
     # one more box step under the profiler
-    box = _keep_prompt(batches[0], "box")
+    box = sam_train_cli.keep_prompt(batches[0], "box")
     busy_ms, events = _profile_device(lambda: step(state, box, seed=0))
     box_ms = float(np.mean(by_kind["box"]))
     if busy_ms > 0:
@@ -1278,7 +1278,7 @@ def phase_sam_training(card, timed_batches=6):
     plain.load_state_dict(model.state_dict())
     plain_state, _ = _sam_state(plain)
     plain_state.step = state.step
-    point = _keep_prompt(batches[1], "point")
+    point = sam_train_cli.keep_prompt(batches[1], "point")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     loss_a, grads_a = _step_loss_and_grads(step, state, point)
@@ -1327,7 +1327,7 @@ def phase_sam_training(card, timed_batches=6):
             and rel <= 2e-2 and table_rel <= 2e-2 and cos >= 0.99
             and table_cos >= 0.999):
         raise RuntimeError("the flash path disagrees with the einsum path")
-    return launches
+    return launches, ips
 
 # ------------------- multi-scale deformable attention -------------------
 
@@ -1946,8 +1946,9 @@ def phase_dino_training(card, warm_up=3, timed=10):
         raise RuntimeError(f"non-finite loss or skipped step: {losses}")
     if state.step != steps or state.optimizer.step_count != steps:
         raise RuntimeError("step counters disagree with the steps taken")
+    ips = DINO_BATCH / step_ms * 1e3
     print(f"DINO-DETR R50 1024^2 training, batch {DINO_BATCH} [{card}]: "
-          f"{DINO_BATCH / step_ms * 1e3:.3f} images/s, {step_ms:.2f} ms per "
+          f"{ips:.3f} images/s, {step_ms:.2f} ms per "
           f"step over {timed} steps, peak memory {peak_gib:.2f} GiB",
           flush=True)
 
@@ -2087,7 +2088,7 @@ def phase_dino_training(card, warm_up=3, timed=10):
     if not (abs(loss_a - loss_b) <= 1e-4 * abs(loss_b) and rel <= 1e-2
             and cos >= 0.99 and fed_rel <= 1e-2 and fed_cos >= 0.999):
         raise RuntimeError("the kernel path disagrees with the plain MSDA")
-    return launches
+    return launches, ips
 
 
 PROBE_KERNELS = ("probe_mm", "probe_mm_stats", "probe_scale")
@@ -2732,28 +2733,269 @@ def phase_cli(card, resident_ips):
         raise RuntimeError("the train CLI logged no rate for an epoch")
 
 
+SAM_CLI_TRAIN_CONFIG = '''"""SAM-B on SA-1B as
+experiments/13.interactive_segmentation_training/sa_1b/sam_b/train_config.py
+states it (sam_b at 1024^2 with gradient checkpointing, SAMMultiLevelLoss,
+prompt kinds 0.5 / 0.25 / 0.25, 2 decoder point iterations, AdamW 1e-4 /
+1e-4, CosineLR with a 1-epoch warm-up, batch 8), cut to: synthetic data,
+FakeSAMSegmentationDataset of 32 train 1024^2 images and one named test set
+of 8 under SamResize(1024) (no SA-1B here); 1 epoch (not 100); 8 loader
+workers (not 16)."""
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.interactive_segmentation import (FakeSAMSegmentationDataset,
+                                                 SAMBatchCollater, SamResize)
+
+
+class config:
+    network = "sam_b"
+    input_image_size = 1024
+
+    model = MODELS.create(network, image_size=input_image_size,
+                          use_gradient_checkpoint=True)
+    train_criterion = LOSSES.create("SAMMultiLevelLoss")
+
+    train_dataset = FakeSAMSegmentationDataset(
+        32, input_image_size, transform=SamResize(input_image_size))
+    test_dataset = {{"synthetic": FakeSAMSegmentationDataset(
+        8, input_image_size, transform=SamResize(input_image_size))}}
+    train_collater = SAMBatchCollater(resize=input_image_size)
+    test_collater = SAMBatchCollater(resize=input_image_size,
+                                     use_noise_bbox=False)
+
+    prompt_probs = {{"point": 0.5, "box": 0.25, "mask": 0.25}}
+    decoder_point_iters = 2
+
+    seed = 0
+    batch_size = 8
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-4,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1}})
+    epochs = 1
+    print_interval = 2
+    use_ema_model = False
+'''
+
+DINO_CLI_TRAIN_CONFIG = '''"""DINO-DETR R50 on COCO as
+experiments/3.detection_training/coco/res50_dinodetr_yoloresize1024/
+train_config.py states it (resnet50_dinodetr, 80 classes, full depth,
+DINODETRLoss, DINODETRDecoder, yolo-style 1024 resize with multi_scale, the
+flip and crop, Normalize, DETRDetectionCollater at 1024, AdamW 1e-4 with the
+backbone at 1e-5 and clipping at 0.1, MultiStepLR at 33), cut to: batch 2
+(not 16, one card); synthetic data, FakeDetectionDataset of 16 train and 8
+test 1024^2 images with up to 20 boxes (no COCO here); 1 epoch (not 39); 4
+loader workers (not 16)."""
+
+from {pkg}.core.registry import DECODERS, LOSSES, MODELS
+from {pkg}.data.datasets.coco import FakeDetectionDataset
+from {pkg}.data.detection import (DetectionResize, DETRDetectionCollater,
+                                  Normalize, RandomCrop,
+                                  RandomHorizontalFlip)
+from {pkg}.data.transforms import Compose
+
+
+class config:
+    network = "resnet50_dinodetr"
+    num_classes = 80
+    input_image_size = 1024
+
+    model = MODELS.create(network, num_classes=num_classes)
+    train_criterion = LOSSES.create("DINODETRLoss", num_classes=num_classes)
+    decoder = DECODERS.create("DINODETRDecoder", num_classes=num_classes)
+
+    train_dataset = FakeDetectionDataset(
+        num_samples=16, image_hw=1024, num_classes=num_classes, max_boxes=20,
+        transform=Compose([
+            DetectionResize(resize=input_image_size,
+                            resize_type="yolo_style", multi_scale=True),
+            RandomHorizontalFlip(prob=0.5), RandomCrop(prob=0.5),
+            Normalize()]))
+    test_dataset = FakeDetectionDataset(
+        num_samples=8, image_hw=1024, num_classes=num_classes, max_boxes=20,
+        transform=Compose([
+            DetectionResize(resize=input_image_size,
+                            resize_type="yolo_style"), Normalize()]))
+    train_collater = DETRDetectionCollater(resize=input_image_size,
+                                           resize_type="yolo_style")
+    test_collater = DETRDetectionCollater(resize=input_image_size,
+                                          resize_type="yolo_style")
+
+    seed = 0
+    batch_size = 2
+    num_workers = 4
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-4,
+                           "sub_layer_lr": {{"backbone": 1e-5}},
+                           "no_weight_decay_layer_name_list": [],
+                           "clip_max_norm": 0.1}})
+    scheduler = ("MultiStepLR", {{"warm_up_epochs": 0, "gamma": 0.1,
+                                 "milestones": [33]}})
+    epochs = 1
+    print_interval = 2
+    use_ema_model = False
+'''
+
+# a test config over the train config's model: its test set (the first of
+# a named set), collater, decoder and classes where it has them
+CLI_EVAL_CONFIG = '''import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from train_config import config as _train  # noqa: E402
+
+
+class config:
+    network = _train.network
+    input_image_size = _train.input_image_size
+    model = _train.model
+    trained_model_path = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "checkpoints", "best")
+    test_dataset = _train.test_dataset
+    if isinstance(test_dataset, dict):
+        test_dataset = next(iter(test_dataset.values()))
+    test_collater = _train.test_collater
+    decoder = getattr(_train, "decoder", None)
+    num_classes = getattr(_train, "num_classes", None)
+    seed = _train.seed
+    batch_size = _train.batch_size
+    num_workers = _train.num_workers
+'''
+
+
+def _loader_rates(work_dir):
+    """Images/s of one pass of the train config's host loader alone, and
+    of one more pass with each batch copied to the card as the Trainer
+    copies it (pinned host memory): the host's share of the train CLI's
+    rate, apart from the step."""
+    from simpleaicv_tpu_torch.core.config import load_config
+    from simpleaicv_tpu_torch.core.trainer import batch_to_device
+    from simpleaicv_tpu_torch.data.loader import DataLoader
+    cfg = load_config(work_dir)
+    loader = DataLoader(cfg.train_dataset, cfg.batch_size,
+                        cfg.train_collater, num_workers=cfg.num_workers,
+                        seed=cfg.seed)
+    rates = []
+    for copy in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            if copy:
+                batch_to_device(batch, torch.device("cuda"))
+            n += cfg.batch_size
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    return rates
+
+
+def _cli_in_process(card, path, train_cli, test_cli, train_config,
+                    resident_ips, kernels):
+    """Trains ``train_config`` for one epoch through ``train_cli.main`` and
+    evaluates its best checkpoint through ``test_cli.main``, in this
+    process (the launch counts are this process's), in a scratch directory.
+    Prints the seconds per run, the logged images/s beside the resident
+    step's, peak memory, the eval metrics and the launches; returns the
+    launches. Fails when a CLI raises, writes no best checkpoint or logs no
+    evaluation, or when a kernel of ``kernels`` was not launched or a narrow
+    variant was."""
+    import os
+    import tempfile
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        for name, text in (("train_config.py", train_config.format(
+                pkg="simpleaicv_tpu")), ("test_config.py", CLI_EVAL_CONFIG)):
+            with open(os.path.join(work_dir, name), "w") as f:
+                f.write(text)
+        argv = ["--work-dir", work_dir]
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = train_cli.main(argv)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = test_cli.main(argv)
+        test_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: v for counts in (fa.KERNEL_LAUNCHES,
+                                        msda.KERNEL_LAUNCHES)
+                    for k, v in counts.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _wide_kernels_only(f"the {path} path")
+        if not os.path.isfile(os.path.join(work_dir, "checkpoints", "best")):
+            raise RuntimeError(f"{train_cli.__name__} wrote no best checkpoint")
+        with open(os.path.join(work_dir, "log", "train.log")) as f:
+            log = f.read()
+        loader_ips, copied_ips = _loader_rates(work_dir)
+    evals = [ln.split(" - ", 1)[-1] for ln in log.splitlines()
+             if "epoch 1 eval: {" in ln]
+    rates = _logged_rates(log, 1)
+    print(f"{path}: train CLI {train_s:.1f} s (1 epoch with its evaluation, "
+          f"both checkpoints), test CLI {test_s:.1f} s, peak memory "
+          f"{peak_gib:.2f} GiB [{card}]", flush=True)
+    print(f"{path}: logged images/s {rates} (cumulative over the epoch) "
+          f"beside the resident step's {resident_ips:.3f}; the host loader "
+          f"alone {loader_ips:.1f}, with the pinned copies to the card "
+          f"{copied_ips:.1f} [{card}]", flush=True)
+    print(f"{path}: {evals[0] if evals else 'no evaluation logged'}; best "
+          f"{best:.6f}; test CLI {metrics}", flush=True)
+    print(f"{path}: launches {({k: launches[k] for k in kernels})}",
+          flush=True)
+    if not evals or not metrics or not rates:
+        raise RuntimeError(f"the {path} path logged no evaluation or rate")
+    missing = [k for k in kernels if launches[k] < 1]
+    if missing:
+        raise RuntimeError(f"the {path} path did not launch {missing}")
+    return launches
+
+
+def phase_sam_cli(card, resident_ips):
+    """The SAM train and test CLIs on SAM-B 1024^2 (the sa_1b/sam_b
+    recipe's fields, synthetic data)."""
+    return _cli_in_process(card, "sam_cli", sam_train_cli, sam_test_cli,
+                           SAM_CLI_TRAIN_CONFIG, resident_ips, SAM_KERNELS)
+
+
+def phase_dino_cli(card, resident_ips):
+    """The DETR-family train CLI (with its per-epoch COCO evaluation) and
+    the detection test CLI on DINO-DETR R50 1024^2 (the
+    res50_dinodetr_yoloresize1024 recipe's fields, batch 2, synthetic
+    data)."""
+    return _cli_in_process(card, "dino_cli", det_train_cli, det_test_cli,
+                           DINO_CLI_TRAIN_CONFIG, resident_ips, MSDA_KERNELS)
+
+
 def main():
     card = phase_device()
     kernels = phase_kernels(card)
     serving = phase_serving(card)
     vit = phase_training(card)
-    sam = phase_sam_training(card)
+    sam, sam_ips = phase_sam_training(card)
     kernels += phase_msda_kernels(card)
-    dino = phase_dino_training(card)
+    dino, dino_ips = phase_dino_training(card)
     probes, probe_launches = phase_probes(card)
     kernels += probes
     resnet, resident_ips = phase_resnet50_training(
         card, next(k["ms"] for k in probes if k["name"] == "probe_mm_stats"))
     phase_cli(card, resident_ips)
+    sam_cli = phase_sam_cli(card, sam_ips)
+    dino_cli = phase_dino_cli(card, dino_ips)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
     # step launches no hand kernel (cuDNN convolutions, plain-PyTorch
-    # BatchNorm); its counts are read all the same, and the CLIs, which run
-    # the same model in their own processes, are checked by their output.
+    # BatchNorm); its counts are read all the same, and the classification
+    # CLIs, which run the same model in their own processes, are checked by
+    # their output. The SAM and DINO-DETR CLIs run in this process: their
+    # counts are their own paths'.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
-             "resnet50_train": resnet}
+             "resnet50_train": resnet, "sam_cli": sam_cli,
+             "dino_cli": dino_cli}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

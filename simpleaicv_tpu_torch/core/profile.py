@@ -23,14 +23,22 @@ def count_params(model: nn.Module) -> int:
 @torch.no_grad()
 def compute_macs_and_params(model: nn.Module, example_input):
     """(MACs, parameters) of ``model(example_input)`` in eval mode; the
-    model's mode is put back after."""
+    model's mode is put back after. The parameters stop requiring gradients
+    meanwhile: the counter's module tracker hooks every module input that
+    requires one, and a view of a parameter taken under ``no_grad`` (a
+    broadcast query embedding) requires one but has no gradient function."""
     from torch.utils.flop_counter import FlopCounterMode
     was_training = model.training
+    grads = [(p, p.requires_grad) for p in model.parameters()]
     model.eval()
     try:
+        for p, _ in grads:
+            p.requires_grad_(False)
         with FlopCounterMode(display=False) as counter:
             model(example_input)
     finally:
+        for p, req in grads:
+            p.requires_grad_(req)
         model.train(was_training)
     return counter.get_total_flops() / 2.0, count_params(model)
 

@@ -242,6 +242,12 @@ class Trainer:
             t.record_stream(stream)  # allocated on the copy stream
         return batch
 
+    def train_batch(self, batch) -> dict:
+        """One batch on the device: one engine step; returns its metrics.
+        Task trainers that take several steps a batch override it."""
+        self.state, metrics = self.train_step(self.state, batch, self.seed)
+        return metrics
+
     def train_epoch(self, epoch: int) -> float:
         self.train_loader.set_epoch(epoch)
         loss_meter = AverageMeter()
@@ -249,8 +255,7 @@ class Trainer:
         n_images = 0
         for i, batch in enumerate(self._device_prefetch(self.train_loader),
                                   start=1):
-            self.state, metrics = self.train_step(self.state, batch,
-                                                  self.seed)
+            metrics = self.train_batch(batch)
             n_images += self.config.batch_size
             if i % self.print_interval == 0 or i == self.steps_per_epoch:
                 loss = float(metrics["loss"])

@@ -1,7 +1,7 @@
 """Moves parameters between the JAX package's trees and the port's modules.
 
 ``load_jax_params(model, params, batch_stats=None)`` takes
-``variables["params"]`` of a JAX SAM, ViT, ResNet or DINO-DETR (nested
+``variables["params"]`` of a JAX SAM, ViT, ResNet, DINO-DETR or DETR (nested
 dicts of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
@@ -12,9 +12,9 @@ gives the BatchNorm running statistics as the ``batch_stats`` tree.
 SAM's and ViT's state_dict keys are the reference models' names; ``_RULES``
 maps them onto the JAX package's parameter paths (copies of the
 ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
-``simpleaicv_tpu/core/converters.py``). ResNet's and DINO-DETR's keys are
-the JAX paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
-``encoder.0.self_attn.value_proj``). Layouts:
+``simpleaicv_tpu/core/converters.py``). ResNet's, DINO-DETR's and DETR's
+keys are the JAX paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
+``encoder.0.self_attn.value_proj``, ``reg_head.1``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
   * Conv kernel HWIO        -> Conv2d weight OIHW;
   * ConvTranspose HWIO      -> ConvTranspose2d weight IOHW, spatially
@@ -105,13 +105,14 @@ _RULES = [
     (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
     (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
     (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
-    # ResNet backbones (alone or as DINO-DETR's ``backbone``) and DINO-DETR:
-    # the JAX path itself
+    # ResNet backbones (alone or as DINO-DETR's and DETR's ``backbone``),
+    # DINO-DETR and DETR: the JAX path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
      r"label_encoder|decoder|ref_point_head|decoder_norm|bbox_embed|"
-     r"class_embed)(?:\..+)?$", lambda m: path_form(m.group(0))),
+     r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out)"
+     r"(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 
 

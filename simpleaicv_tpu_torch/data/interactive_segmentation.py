@@ -1,13 +1,13 @@
 """SAM data pipeline (counterpart of
-``simpleaicv_tpu/data/interactive_segmentation.py``), numpy only:
-``noise_bbox``, ``SAMBatchCollater`` and ``FakeSAMSegmentationDataset``.
+``simpleaicv_tpu/data/interactive_segmentation.py``), without OpenCV:
+``SamResize``, ``noise_bbox``, ``SAMBatchCollater`` and
+``FakeSAMSegmentationDataset``.
 
 Against the JAX package, which draws from the global ``random`` and
 ``numpy.random`` state, the collater and ``noise_bbox`` draw from a
 ``random.Random`` and a ``numpy.random.RandomState`` that the caller passes
 in, in the same order, so two runs seeded alike give the same batch.
-``SamResize`` and ``SAMMattingCollater`` are not ported yet: they need an
-image resize that does without OpenCV.
+``SAMMattingCollater`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +16,41 @@ import random
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
-__all__ = ["noise_bbox", "SAMBatchCollater", "FakeSAMSegmentationDataset"]
+from .transforms import resize_bilinear
+
+__all__ = ["SamResize", "noise_bbox", "SAMBatchCollater",
+           "FakeSAMSegmentationDataset"]
+
+
+def resize_nearest(mask, out_h: int, out_w: int):
+    """[h, w] -> [out_h, out_w] f32 by nearest neighbour: source index
+    floor(dst * in / out), OpenCV's ``INTER_NEAREST``."""
+    t = torch.from_numpy(np.ascontiguousarray(mask, np.float32))
+    return F.interpolate(t[None, None], size=(out_h, out_w),
+                         mode="nearest")[0, 0].numpy()
+
+
+class SamResize:
+    """Resizes the long side to ``resize`` (the short side rounded to the
+    nearest pixel): the image bilinearly at pixel centres, the mask by
+    nearest neighbour; multiplies 'scale' by the factor. The collater pads
+    both onto its square canvas."""
+
+    def __init__(self, resize=1024):
+        self.resize = resize
+
+    def __call__(self, sample):
+        image, mask = sample["image"], sample["mask"]
+        h, w = image.shape[:2]
+        factor = self.resize / max(h, w)
+        nh, nw = int(round(h * factor)), int(round(w * factor))
+        sample["image"] = resize_bilinear(image, nh, nw)
+        sample["mask"] = resize_nearest(mask, nh, nw)
+        sample["scale"] = sample.get("scale", 1.0) * np.float32(factor)
+        return sample
 
 
 def noise_bbox(box, h, w, np_rng, std_ratio=0.1, max_offset=20):

@@ -878,3 +878,50 @@ def test_probe_mm_narrow_variant_on_card(m, k, n, offset):
     assert matmul_probe.NARROW_LAUNCHES["probe_mm"] == before + 1
     assert bool(((y.float() - want).abs() <= _mm_bound(x, w, want)).all())
     assert torch.equal(y, matmul_probe.probe_mm(x, w))
+
+
+def _detections(b, k, seed):
+    """[b, k, 4] clustered xyxy boxes, [b, k] distinct scores, and DINO-DETR
+    predictions for the decoder."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.uniform(20, 100, (b, 6, 2))[:, rng.randint(0, 6, k)] \
+        + rng.randn(b, k, 2) * 6
+    wh = rng.uniform(8, 60, (b, k, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    scores = np.stack([rng.permutation(k) for _ in range(b)]) / k + 0.001
+    preds = {"pred_logits": rng.randn(b, k, 80) * 2 - 9,
+             "pred_boxes": rng.uniform(0.05, 0.95, (b, k, 4))
+             * np.array([1, 1, 0.5, 0.5])}
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(scores.astype(np.float32)),
+            {key: torch.from_numpy(v.astype(np.float32))
+             for key, v in preds.items()})
+
+
+@pytest.mark.parametrize("nms_type", ["python_nms", "diou_python_nms"])
+def test_nms_and_dinodetr_decoder_on_card_equal_the_cpu(nms_type):
+    """``batched_nms`` (the overlap matrix built on the card) and the
+    DINO-DETR decoder at the recipe's settings (900 queries, top 300, 100
+    kept, 80 classes) on CUDA tensors: the same keep sets, indices and
+    classes as on the CPU; scores and boxes within 1e-6 relative (a
+    sigmoid on the card may part from the CPU's by an ulp)."""
+    from simpleaicv_tpu_torch.models.detection.dinodetr_decode import \
+        DINODETRDecoder
+    from simpleaicv_tpu_torch.ops.nms import batched_nms
+    boxes, scores, preds = _detections(2, 900, seed=0)
+    cpu = batched_nms(boxes[:, :150], scores[:, :150], 100, 0.5, nms_type)
+    card = batched_nms(boxes[:, :150].cuda(), scores[:, :150].cuda(), 100,
+                       0.5, nms_type)
+    for got, want in zip(card, cpu):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert 0 < int(cpu[2].sum()) < 200
+
+    decoder = DINODETRDecoder(num_classes=80, nms_type=nms_type)
+    sizes = torch.tensor([[1024.0, 768.0], [640.0, 1024.0]])
+    want = decoder(preds, sizes)
+    got = decoder({k: v.cuda() for k, v in preds.items()}, sizes.cuda())
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=1e-4)
+    assert (want[0] > -1).any() and (want[0] == -1).any()
