@@ -65,7 +65,27 @@ Phases, each of which raises (exit code 1) on failure:
      images, 1 epoch with its COCO evaluation) through
      ``tools.train_detr_detection`` and evaluates its best checkpoint
      through ``tools.test_detection``, in this process, counting the MSDA
-     kernels' launches.
+     kernels' launches;
+ 13. DeepLabV3+ training (seg_train): takes resnet50_deeplabv3plus 512x512
+     bf16 train steps at batch 16 with 150 classes through
+     ``make_train_step`` (the ade20k recipe's SegCELoss, AdamW and PolyLR)
+     on a resident batch with ignored pixels, profiles one step, replays
+     each BatchNorm call of a step and the f32 logits path (prediction
+     convolution, the align-corners resize, the loss) alone for their
+     shares, and times the logits' resize beside ``F.interpolate``;
+ 14. segmentation CLIs (seg_cli): trains DeepLabV3+ R50 (the ade20k
+     recipe's fields and train transforms, 32 synthetic 640x640 images, 1
+     epoch with its mIoU evaluation) through
+     ``tools.train_semantic_segmentation`` and evaluates its best through
+     ``tools.test_semantic_segmentation``, in this process;
+ 15. PFAN (pfan_train, pfan_cli): takes PFAN R50 832x832 train steps at
+     batch 8 on a resident batch, then trains it (the combined/resnet50_pfan
+     recipe's fields, 32 synthetic images, 1 epoch) through
+     ``tools.train_salient_object_detection`` and evaluates its best
+     through ``tools.test_salient_object_detection``;
+ 16. seg_learns: trains resnet18_deeplabv3plus on 64 synthetic 64x64
+     images for 12 epochs and fails unless its best mIoU reaches 60.
+The paths of phases 13-16 launch no hand kernel, which each checks.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -89,26 +109,36 @@ from simpleaicv_tpu_torch.core.engine import (EngineConfig,
 from simpleaicv_tpu_torch.core.optim import OptimizerConfig, build_optimizer
 from simpleaicv_tpu_torch.core.registry import BACKBONES, LOSSES, MODELS
 from simpleaicv_tpu_torch.core.schedule import SchedulerConfig
+from simpleaicv_tpu_torch.core.trainer import (
+    optimizer_config_from_reference, scheduler_config_from_reference)
+from simpleaicv_tpu_torch.data.binary_segmentation import (BinarySegCollater,
+                                                           BinarySegResize)
 from simpleaicv_tpu_torch.data.datasets import FakeDetectionDataset
 from simpleaicv_tpu_torch.data.detection import (DETRDetectionCollater,
                                                  Normalize)
 from simpleaicv_tpu_torch.data.interactive_segmentation import (
     FakeSAMSegmentationDataset, SAMBatchCollater)
+from simpleaicv_tpu_torch.data.segmentation import (
+    FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
+from simpleaicv_tpu_torch.data.transforms import Compose
 from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
 from simpleaicv_tpu_torch.losses import dinodetr as dino_loss
-from simpleaicv_tpu_torch.models.common import init_params
+from simpleaicv_tpu_torch.models.common import BatchNorm, init_params
 from simpleaicv_tpu_torch.models.detection import dinodetr
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
-from simpleaicv_tpu_torch.ops.fused_bn import bn_train
+from simpleaicv_tpu_torch.ops.fused_bn import FusedBatchNorm, bn_train
+from simpleaicv_tpu_torch.ops.upsample import resize_bilinear
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
 from simpleaicv_tpu_torch.perf.msda_split import (DINO_BATCH, DINO_LEVELS,
                                                   DINO_POINTS, launch_inputs)
 from simpleaicv_tpu_torch.perf.timing import alternating_ms as _alternating
 from simpleaicv_tpu_torch.perf.timing import bound as _bound
 from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
+from simpleaicv_tpu_torch.tasks import binary_segmentation as bseg_task
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
+from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
 from simpleaicv_tpu_torch.tools import test_detection as det_test_cli
@@ -117,6 +147,14 @@ from simpleaicv_tpu_torch.tools import test_interactive_segmentation as \
 from simpleaicv_tpu_torch.tools import train_detr_detection as det_train_cli
 from simpleaicv_tpu_torch.tools import train_interactive_segmentation as \
     sam_train_cli
+from simpleaicv_tpu_torch.tools import test_salient_object_detection as \
+    sod_test_cli
+from simpleaicv_tpu_torch.tools import test_semantic_segmentation as \
+    seg_test_cli
+from simpleaicv_tpu_torch.tools import train_salient_object_detection as \
+    sod_train_cli
+from simpleaicv_tpu_torch.tools import train_semantic_segmentation as \
+    seg_train_cli
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -2902,7 +2940,7 @@ def _cli_in_process(card, path, train_cli, test_cli, train_config,
     step's, peak memory, the eval metrics and the launches; returns the
     launches. Fails when a CLI raises, writes no best checkpoint or logs no
     evaluation, or when a kernel of ``kernels`` was not launched or a narrow
-    variant was."""
+    variant was; with no ``kernels``, when any hand kernel was launched."""
     import os
     import tempfile
     torch.cuda.empty_cache()
@@ -2926,6 +2964,8 @@ def _cli_in_process(card, path, train_cli, test_cli, train_config,
                     for k, v in counts.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         _wide_kernels_only(f"the {path} path")
+        if not kernels:
+            _no_hand_kernel(path)
         if not os.path.isfile(os.path.join(work_dir, "checkpoints", "best")):
             raise RuntimeError(f"{train_cli.__name__} wrote no best checkpoint")
         with open(os.path.join(work_dir, "log", "train.log")) as f:
@@ -2943,7 +2983,8 @@ def _cli_in_process(card, path, train_cli, test_cli, train_config,
           f"{copied_ips:.1f} [{card}]", flush=True)
     print(f"{path}: {evals[0] if evals else 'no evaluation logged'}; best "
           f"{best:.6f}; test CLI {metrics}", flush=True)
-    print(f"{path}: launches {({k: launches[k] for k in kernels})}",
+    print(f"{path}: launches "
+          f"{({k: launches[k] for k in kernels}) if kernels else 'none'}",
           flush=True)
     if not evals or not metrics or not rates:
         raise RuntimeError(f"the {path} path logged no evaluation or rate")
@@ -2969,6 +3010,470 @@ def phase_dino_cli(card, resident_ips):
                            DINO_CLI_TRAIN_CONFIG, resident_ips, MSDA_KERNELS)
 
 
+# ---- slice 13: DeepLabV3+ and PFAN ----------------------------------------
+
+# the ade20k/resnet50_deeplabv3plus recipe: 512^2, 150 classes, batch 16,
+# SegCELoss(ignore_index=255), AdamW 1e-4 / 1e-3, PolyLR 0.9 over 128 epochs
+# after a 1-epoch warm-up, bf16 compute; ADE20K's 20,210 training images
+# make 1,263 steps an epoch
+SEG_RECIPE_OPT = ("AdamW", {"lr": 1e-4, "global_weight_decay": False,
+                            "weight_decay": 1e-3,
+                            "no_weight_decay_layer_name_list": []})
+SEG_RECIPE_SCHED = ("PolyLR", {"warm_up_epochs": 1, "power": 0.9})
+SEG_EPOCHS, SEG_STEPS_PER_EPOCH = 128, 20210 // 16
+SEG_BATCH, SEG_IMAGE, SEG_CLASSES, SEG_IGNORE = 16, 512, 150, 255
+# the combined/resnet50_pfan recipe at 832^2: BinaryBCELoss + BCEIouloss
+# 1:1, AdamW 1e-4 / 1e-3, CosineLR to 1e-6 over 100 epochs after a 1-epoch
+# warm-up; batch 96 cut to 8 on one card
+PFAN_RECIPE_OPT = SEG_RECIPE_OPT
+PFAN_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1, "min_lr": 1e-6})
+PFAN_BATCH, PFAN_IMAGE = 8, 832
+
+
+def _no_hand_kernel(path):
+    """The launches of every hand kernel since the counts were last set to
+    0; fails if any was launched (a path of this slice runs none)."""
+    launched = {k: v for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES,
+                                    matmul_probe.KERNEL_LAUNCHES,
+                                    bw_probe.KERNEL_LAUNCHES)
+                for k, v in counts.items() if v}
+    if launched:
+        raise RuntimeError(f"the {path} path launched hand kernels, none "
+                           f"expected: {launched}")
+    return launched
+
+
+def _recipe_state(model, opt, sched, epochs, steps_per_epoch):
+    optimizer, _ = build_optimizer(
+        optimizer_config_from_reference(opt),
+        scheduler_config_from_reference(sched, opt, epochs), steps_per_epoch,
+        model, device="cuda")
+    return create_train_state(model, optimizer, EngineConfig(), "cuda")
+
+
+def _timed_steps(step, state, batch, warm_up, timed):
+    """(ms a step over ``timed`` steps after ``warm_up``, the losses)."""
+    losses = []
+    for i in range(warm_up + timed):
+        if i == warm_up:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch, seed=0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    losses = [v.item() for v in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss: {losses}")
+    return ms, losses
+
+
+def _seg_batch():
+    """The recipe's batch from the port's synthetic dataset and collater,
+    on the card, with the bottom 32 rows of every mask ignored."""
+    ds = FakeSegmentationDataset(SEG_BATCH, SEG_IMAGE, SEG_CLASSES,
+                                 transform=Compose([SegNormalize()]))
+    batch = SemanticSegmentationCollater(SEG_IMAGE, SEG_IGNORE)(
+        [ds[i] for i in range(SEG_BATCH)])
+    batch["mask"][:, -32:] = SEG_IGNORE
+    return {k: torch.from_numpy(batch[k]).cuda() for k in ("image", "mask")}
+
+
+def _norm_calls(model, run):
+    """(kind, input shape, dtype) -> calls of the model's BatchNorms in
+    ``run``: ``bn_train`` (the backbone's ``FusedBatchNorm``) or ``flax``
+    (the head's ``BatchNorm``)."""
+    import collections
+    calls = collections.Counter()
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, (FusedBatchNorm, BatchNorm)):
+            kind = "bn_train" if isinstance(m, FusedBatchNorm) else "flax"
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out, kind=kind: calls.update(
+                    [(kind, tuple(args[0].shape), args[0].dtype)])))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _fwd_bwd(fn, *inputs):
+    """A callable that runs ``fn(*inputs)`` forward and backward, with a
+    random output gradient; the floating inputs require gradients."""
+    inputs = [x.detach().requires_grad_(x.is_floating_point())
+              for x in inputs]
+    dy = torch.randn_like(fn(*inputs))
+
+    def run():
+        for x in inputs:
+            x.grad = None
+        fn(*inputs).backward(dy)
+
+    return run
+
+
+def _fwd_bwd_ms(fn, *inputs, iters=10):
+    """Device ms of ``fn(*inputs)`` forward and backward, by CUDA
+    events."""
+    return _cuda_ms(_fwd_bwd(fn, *inputs), iters)
+
+
+def _norm_replay_ms(calls):
+    """Device ms of one step's BatchNorm calls by kind, each call's
+    forward and backward replayed alone at its shape and dtype."""
+    out = {}
+    for (kind, shape, dtype), n in sorted(calls.items(), key=str):
+        layer = (FusedBatchNorm if kind == "bn_train" else BatchNorm)(
+            shape[-1]).cuda()
+        layer.reset_parameters(None)
+        x = torch.randn(shape, device="cuda").to(dtype)
+        ms = _fwd_bwd_ms(lambda t: layer(t, True), x)
+        out[kind] = out.get(kind, 0.0) + n * ms
+    return out
+
+
+def phase_seg_train(card, warm_up=3, timed=10):
+    """DeepLabV3+ R50 at the ADE20K recipe's full width through
+    ``make_train_step`` on a resident batch; one profiled step, the shares
+    of both BatchNorms and of the f32 logits path (replayed alone), and the
+    logits' align-corners resize beside ``F.interpolate``. Returns (the
+    hand-kernel launches of the timed run: none, images per second)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create("resnet50_deeplabv3plus",
+                                      num_classes=SEG_CLASSES),
+                        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, SEG_RECIPE_OPT, SEG_RECIPE_SCHED,
+                          SEG_EPOCHS, SEG_STEPS_PER_EPOCH)
+    criterion = LOSSES.create("SegCELoss", ignore_index=SEG_IGNORE)
+    step = make_train_step(seg_task.make_loss_fn(criterion), EngineConfig())
+    batch = _seg_batch()
+    print(f"resnet50_deeplabv3plus {SEG_IMAGE}^2 bf16, {SEG_CLASSES} classes "
+          f"({sum(p.numel() for p in model.parameters())} parameters), its "
+          f"AdamW state and a resident batch of {SEG_BATCH} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel("seg_train")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the work of a step as three forwards: the flop counter's convolution
+    # backward counts a depthwise (grouped) weight gradient as a dense one,
+    # C times too much
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(batch["image"], train=False)
+    flops = 3 * counter.get_total_flops()
+    ips = SEG_BATCH / step_ms * 1e3
+    print(f"trained {warm_up + timed} steps; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    print(f"DeepLabV3+ R50 {SEG_IMAGE}^2 bf16 training, batch {SEG_BATCH}, "
+          f"{SEG_CLASSES} classes [{card}]: {ips:.2f} images/s, "
+          f"{step_ms:.2f} ms per step over {timed} steps, peak memory "
+          f"{peak_gib:.2f} GiB; {flops / 1e12:.3f} TFLOP per step (3 x the "
+          f"flop counter's forward), {flops / step_ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+
+    busy_ms, events = _profile_device(lambda: step(state, batch, seed=0))
+    if busy_ms <= 0:
+        raise RuntimeError("the profiled DeepLabV3+ step recorded no device "
+                           "time")
+    print(f"profiled DeepLabV3+ step [{card}]: device busy {busy_ms:.2f} ms "
+          f"of a {step_ms:.2f} ms step, idle share "
+          f"{1 - busy_ms / step_ms:.3f}", flush=True)
+    groups = {}
+    for e in events:
+        kind = _row_group(e.key)
+        ms, n = groups.get(kind, (0.0, 0))
+        groups[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for kind, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {kind}: {ms:.3f} ms, {100 * ms / busy_ms:.1f}%, "
+              f"{n} launches")
+    _print_rows(events, busy_ms, 20)
+
+    # shares, each part's forward and backward replayed alone at the
+    # step's shapes
+    calls = _norm_calls(model, lambda: step(state, batch, seed=0))
+    norms = _norm_replay_ms(calls)
+    head_in = torch.randn(SEG_BATCH, SEG_IMAGE // 4, SEG_IMAGE // 4, 256,
+                          device="cuda")
+    logits = torch.randn(SEG_BATCH, SEG_IMAGE // 4, SEG_IMAGE // 4,
+                         SEG_CLASSES, device="cuda")
+    full = (SEG_IMAGE, SEG_IMAGE)
+    logit_parts = {
+        "predict_conv (1x1, 256 -> 150, f32)": _fwd_bwd_ms(
+            model.head.predict_conv, head_in),
+        "align-corners resize 128 -> 512 (f32)": _fwd_bwd_ms(
+            lambda t: resize_bilinear(t, full, align_corners=True), logits),
+        "SegCELoss (f32)": _fwd_bwd_ms(
+            lambda t: criterion(t, batch["mask"]),
+            resize_bilinear(logits, full, align_corners=True)),
+    }
+    del head_in
+    counts = {}
+    for (kind, _, _), n in calls.items():
+        counts[kind] = counts.get(kind, 0) + n
+    for kind, label in (("bn_train", "bn_train (FusedBatchNorm, backbone)"),
+                        ("flax", "flax BatchNorm (head)")):
+        print(f"  replayed {label}: {counts.get(kind, 0)} calls a step, "
+              f"{norms.get(kind, 0.0):.3f} ms forward + backward, "
+              f"{100 * norms.get(kind, 0.0) / busy_ms:.1f}% of the step's "
+              f"busy time [{card}]", flush=True)
+    total = sum(logit_parts.values())
+    for label, ms in logit_parts.items():
+        print(f"  replayed {label}: {ms:.3f} ms forward + backward, "
+              f"{100 * ms / busy_ms:.1f}% of the busy time", flush=True)
+    print(f"  the f32 logits path: {total:.3f} ms, "
+          f"{100 * total / busy_ms:.1f}% of the busy time [{card}]",
+          flush=True)
+
+    # the logits' resize beside F.interpolate, forward and backward, on the
+    # same f32 tensor
+    x = logits.detach().requires_grad_()
+
+    def interp(t):
+        return torch.nn.functional.interpolate(
+            t.permute(0, 3, 1, 2), size=full, mode="bilinear",
+            align_corners=True).permute(0, 2, 3, 1)
+
+    with torch.no_grad():
+        diff = (resize_bilinear(x, full, align_corners=True)
+                - interp(x)).abs().max().item()
+        # F.interpolate rounds each source coordinate to f32 (up to 3.8e-6
+        # at 127), times a step between neighbours of up to the range
+        diff_bound = 1e-5 * (x.max() - x.min()).item()
+    ms = _alternating({
+        "resize_bilinear": _fwd_bwd(
+            lambda t: resize_bilinear(t, full, align_corners=True), x),
+        "F.interpolate": _fwd_bwd(interp, x)}, rounds=5, iters=5)
+    print(f"  logits resize [{SEG_BATCH}, 128, 128, {SEG_CLASSES}] -> 512^2 "
+          f"f32, forward + backward, median of 5 alternating rounds of 5 "
+          f"[{card}]: "
+          f"resize_bilinear(align_corners=True) "
+          f"{statistics.median(ms['resize_bilinear']):.3f} ms, "
+          f"F.interpolate(bilinear, align_corners=True) "
+          f"{statistics.median(ms['F.interpolate']):.3f} ms; largest "
+          f"difference of the outputs {diff:.3e} (bound {diff_bound:.3e})",
+          flush=True)
+    if diff > diff_bound:
+        raise RuntimeError(f"the align-corners resize parts from "
+                           f"F.interpolate by {diff}")
+    del state, model, step, batch, logits, x
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+SEG_CLI_TRAIN_CONFIG = '''"""DeepLabV3+ R50 on ADE20K as
+experiments/4.semantic_segmentation_training/ade20k/resnet50_deeplabv3plus/
+train_config.py states it (resnet50_deeplabv3plus, 150 classes, 512^2,
+SegCELoss(ignore_index=255), SegRandomCropResize((2048, 512), (0.5, 2.0),
+512^2), the flip, SegPhotoMetricDistortion, SegNormalize, the collater at
+512, AdamW 1e-4 / 1e-3, PolyLR 0.9 with a 1-epoch warm-up, batch 16, 8
+loader workers), cut to: synthetic data, FakeSegmentationDataset of 32
+train and 16 test 640^2 images with 150 classes (no ADE20K here); 1 epoch
+(not 128)."""
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.segmentation import (FakeSegmentationDataset,
+                                     SegNormalize, SegPhotoMetricDistortion,
+                                     SegRandomCropResize,
+                                     SegRandomHorizontalFlip, SegResize,
+                                     SemanticSegmentationCollater)
+from {pkg}.data.transforms import Compose
+
+
+class config:
+    network = "resnet50_deeplabv3plus"
+    num_classes = 150
+    input_image_size = 512
+    ignore_index = 255
+
+    model = MODELS.create(network, num_classes=num_classes)
+    train_criterion = LOSSES.create("SegCELoss", ignore_index=ignore_index)
+
+    train_dataset = FakeSegmentationDataset(
+        32, 640, num_classes, transform=Compose([
+            SegRandomCropResize(image_scale=(2048, 512),
+                                multi_scale_range=(0.5, 2.0),
+                                crop_size=(input_image_size,
+                                           input_image_size)),
+            SegRandomHorizontalFlip(prob=0.5),
+            SegPhotoMetricDistortion(),
+            SegNormalize(),
+        ]))
+    test_dataset = FakeSegmentationDataset(
+        16, 640, num_classes, transform=Compose([
+            SegResize(resize=input_image_size),
+            SegNormalize(),
+        ]))
+    train_collater = SemanticSegmentationCollater(resize=input_image_size,
+                                                  ignore_index=ignore_index)
+    test_collater = SemanticSegmentationCollater(resize=input_image_size,
+                                                 ignore_index=ignore_index)
+
+    seed = 0
+    batch_size = 16
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-3,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("PolyLR", {{"warm_up_epochs": 1, "power": 0.9}})
+    epochs = 1
+    print_interval = 1
+    use_ema_model = False
+'''
+
+PFAN_CLI_TRAIN_CONFIG = '''"""PFAN R50 salient-object detection as
+experiments/6.salient_object_detection_training/combined/resnet50_pfan/
+train_config.py states it (resnet50_pfan_segmentation at 832^2,
+BinaryBCELoss + BCEIouloss 1:1, BinarySegResize(832), the flip,
+normalisation, BinarySegCollater(832), AdamW 1e-4 / 1e-3, CosineLR to 1e-6
+with a 1-epoch warm-up), cut to: batch 8 (not 96, one card); synthetic
+data, FakeSegmentationDataset of 32 train and 8 test 640^2 images with the
+mask binarised and the image divided by 255 as
+fake_synthetic/resnet18_pfan's _BinaryWrap does (no DIS5K, HRS10K, HRSOD
+or UHRSD here); 1 epoch (not 100); 8 loader workers (not 16)."""
+
+import numpy as np
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.binary_segmentation import (BinarySegCollater,
+                                            BinarySegRandomHorizontalFlip,
+                                            BinarySegResize)
+from {pkg}.data.segmentation import FakeSegmentationDataset
+from {pkg}.data.transforms import Compose
+
+
+class _BinaryWrap:
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        s = self.ds[i]
+        s["mask"] = (s["mask"] > 0).astype(np.float32)
+        s["image"] = s["image"] / 255.0
+        return s
+
+
+class config:
+    network = "resnet50_pfan_segmentation"
+    input_image_size = 832
+
+    model = MODELS.create(network)
+    train_criterion = None
+    criterion_list = [
+        ("BinaryBCELoss", 1.0, LOSSES.create("BinaryBCELoss")),
+        ("BCEIouloss", 1.0, LOSSES.create("BCEIouloss")),
+    ]
+
+    train_dataset = _BinaryWrap(FakeSegmentationDataset(
+        32, 640, 2, transform=Compose([
+            BinarySegResize(resize=input_image_size),
+            BinarySegRandomHorizontalFlip(prob=0.5)])))
+    test_dataset = _BinaryWrap(FakeSegmentationDataset(
+        8, 640, 2, transform=BinarySegResize(resize=input_image_size)))
+    train_collater = BinarySegCollater(resize=input_image_size)
+    test_collater = BinarySegCollater(resize=input_image_size)
+
+    seed = 0
+    batch_size = 8
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-3,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1, "min_lr": 1e-6}})
+    epochs = 1
+    print_interval = 1
+    use_ema_model = False
+'''
+
+
+def phase_seg_cli(card, resident_ips):
+    """The semantic-segmentation train and test CLIs on DeepLabV3+ R50 (the
+    ade20k/resnet50_deeplabv3plus recipe's fields and train transforms,
+    synthetic data); no hand kernel on this path."""
+    return _cli_in_process(card, "seg_cli", seg_train_cli, seg_test_cli,
+                           SEG_CLI_TRAIN_CONFIG, resident_ips, ())
+
+
+def _pfan_resident_ips(card, warm_up=2, timed=5):
+    """Images/s of PFAN R50's step at 832^2, batch 8, on a resident batch
+    from the pfan_cli config's data."""
+    model = init_params(MODELS.create("resnet50_pfan_segmentation"),
+                        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, PFAN_RECIPE_OPT, PFAN_RECIPE_SCHED, 100, 1)
+    step = make_train_step(bseg_task.make_loss_fn(
+        [("BinaryBCELoss", 1.0, LOSSES.create("BinaryBCELoss")),
+         ("BCEIouloss", 1.0, LOSSES.create("BCEIouloss"))]), EngineConfig())
+    ds = FakeSegmentationDataset(PFAN_BATCH, 640, 2,
+                                 transform=BinarySegResize(PFAN_IMAGE))
+    samples = [ds[i] for i in range(PFAN_BATCH)]
+    for s in samples:
+        s["mask"] = (s["mask"] > 0).astype(np.float32)
+        s["image"] = s["image"] / 255.0
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in BinarySegCollater(PFAN_IMAGE)(samples).items()}
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel("pfan_train")
+    ips = PFAN_BATCH / step_ms * 1e3
+    print(f"PFAN R50 {PFAN_IMAGE}^2 bf16 training, batch {PFAN_BATCH} "
+          f"[{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per step over "
+          f"{timed} steps, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_pfan_cli(card):
+    """PFAN R50's resident step, then the salient-object-detection train and
+    test CLIs on it (the combined/resnet50_pfan recipe's fields at batch 8,
+    synthetic data); no hand kernel on either path."""
+    launches, ips = _pfan_resident_ips(card)
+    return launches, _cli_in_process(
+        card, "pfan_cli", sod_train_cli, sod_test_cli, PFAN_CLI_TRAIN_CONFIG,
+        ips, ())
+
+
+def phase_seg_learns(card):
+    """``tests/test_torch_convergence.py``'s DeepLabV3+ recipe on the card
+    (resnet18_deeplabv3plus, 64 synthetic 64^2 images, 12 epochs): fails
+    unless the best mIoU reaches 60."""
+    import importlib.util
+    import os
+    import tempfile
+    # by its path: the card's machine may have a package named ``tests``
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_convergence.py")
+    spec = importlib.util.spec_from_file_location("test_torch_convergence",
+                                                  path)
+    convergence = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convergence)
+    _reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        best = convergence.train_deeplab(work_dir, "cuda")
+    launches = _no_hand_kernel("seg_learns")
+    print(f"seg_learns: resnet18_deeplabv3plus 64^2, 12 epochs in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]: best mIoU "
+          f"{best:.2f} (60 required)", flush=True)
+    if not best >= 60.0:
+        raise RuntimeError(f"DeepLabV3+ did not learn: best mIoU {best:.2f}")
+    return launches
+
+
 def main():
     card = phase_device()
     kernels = phase_kernels(card)
@@ -2984,6 +3489,10 @@ def main():
     phase_cli(card, resident_ips)
     sam_cli = phase_sam_cli(card, sam_ips)
     dino_cli = phase_dino_cli(card, dino_ips)
+    seg, seg_ips = phase_seg_train(card)
+    seg_cli = phase_seg_cli(card, seg_ips)
+    pfan, pfan_cli = phase_pfan_cli(card)
+    seg_learns = phase_seg_learns(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -2991,11 +3500,14 @@ def main():
     # BatchNorm); its counts are read all the same, and the classification
     # CLIs, which run the same model in their own processes, are checked by
     # their output. The SAM and DINO-DETR CLIs run in this process: their
-    # counts are their own paths'.
+    # counts are their own paths'. The DeepLabV3+ and PFAN paths launch no
+    # hand kernel, which their phases check.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
-             "dino_cli": dino_cli}
+             "dino_cli": dino_cli, "seg_train": seg, "seg_cli": seg_cli,
+             "pfan_train": pfan, "pfan_cli": pfan_cli,
+             "seg_learns": seg_learns}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -1,7 +1,8 @@
 """Moves parameters between the JAX package's trees and the port's modules.
 
 ``load_jax_params(model, params, batch_stats=None)`` takes
-``variables["params"]`` of a JAX SAM, ViT, ResNet, DINO-DETR or DETR (nested
+``variables["params"]`` of a JAX SAM, ViT, ResNet, DINO-DETR, DETR,
+DeepLabV3+ or PFAN model (nested
 dicts of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
@@ -12,14 +13,17 @@ gives the BatchNorm running statistics as the ``batch_stats`` tree.
 SAM's and ViT's state_dict keys are the reference models' names; ``_RULES``
 maps them onto the JAX package's parameter paths (copies of the
 ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
-``simpleaicv_tpu/core/converters.py``). ResNet's, DINO-DETR's and DETR's
-keys are the JAX paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
-``encoder.0.self_attn.value_proj``, ``reg_head.1``). Layouts:
+``simpleaicv_tpu/core/converters.py``). The keys of ResNet, DINO-DETR,
+DETR, DeepLabV3+ and PFAN are the JAX paths with ``_N`` written ``.N``
+(``layer1.0.conv1.conv``, ``encoder.0.self_attn.value_proj``,
+``reg_head.1``, ``head.aspp2.aspp1.dw.conv``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
-  * Conv kernel HWIO        -> Conv2d weight OIHW;
+  * Conv kernel HWIO        -> Conv2d weight OIHW (a depthwise kernel,
+    I = 1, to [C, 1, kH, kW]);
   * ConvTranspose HWIO      -> ConvTranspose2d weight IOHW, spatially
     flipped (flax does not mirror the kernel, torch does);
-  * LayerNorm, GroupNorm and BatchNorm ``scale`` -> ``weight``;
+  * LayerNorm, GroupNorm and BatchNorm (both kinds) ``scale`` ->
+    ``weight``;
   * BatchNorm ``batch_stats`` ``mean``/``var`` -> buffers ``running_mean``/
     ``running_var``;
   * Embed ``embedding``     -> ``weight``;
@@ -38,8 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.common import (Conv2d, ConvTranspose2d, Embed, GroupNorm,
-                             LayerNorm, Linear)
+from ..models.common import (BatchNorm, Conv2d, ConvTranspose2d, Embed,
+                             GroupNorm, LayerNorm, Linear)
 from ..models.interactive_segmentation.image_encoder import \
     LayerNormChannelsLast
 from ..ops.fused_bn import FusedBatchNorm
@@ -105,13 +109,17 @@ _RULES = [
     (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
     (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
     (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
-    # ResNet backbones (alone or as DINO-DETR's and DETR's ``backbone``),
-    # DINO-DETR and DETR: the JAX path itself
+    # ResNet backbones (alone or as DINO-DETR's, DETR's, DeepLabV3+'s and
+    # PFAN's ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``) and PFAN
+    # (``decoder``, the matting branches, the prediction convolutions): the
+    # JAX path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
      r"label_encoder|decoder|ref_point_head|decoder_norm|bbox_embed|"
-     r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out)"
+     r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out|"
+     r"head|global_decoder|local_decoder|pred_conv|global_pred_conv|"
+     r"local_pred_conv)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 
@@ -163,6 +171,7 @@ _LAYER_LEAVES = {
                      ("running_var", BATCH_STATS + "var", None, None)],
     Embed: [("weight", "embedding", None, None)],
 }
+_LAYER_LEAVES[BatchNorm] = _LAYER_LEAVES[FusedBatchNorm]
 
 
 def _leaves(model: nn.Module, root: str):

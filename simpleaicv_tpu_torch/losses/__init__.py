@@ -7,3 +7,8 @@ from .dinodetr import DINODETRLoss  # noqa: F401
 from .interactive_segmentation import (  # noqa: F401
     SAMDistillLoss, SAMDistillMSELoss, SAMMultiLevelAssignLoss,
     SAMMultiLevelIoUMaxLoss, SAMMultiLevelLoss)
+from .segmentation import (SegCELoss, SegCombinedLoss,  # noqa: F401
+                           SegDiceLoss, SegIoULoss, SegLovaszLoss,
+                           SegMultiClassBCELoss)
+from .binary_segmentation import (BCEDiceLoss, BCEIouloss,  # noqa: F401
+                                  BinaryBCELoss, OHEMBCELoss)

@@ -3,3 +3,5 @@
 from . import backbones  # noqa: F401
 from . import detection  # noqa: F401
 from . import interactive_segmentation  # noqa: F401
+from . import pfan  # noqa: F401
+from . import segmentation  # noqa: F401

@@ -30,9 +30,9 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops.fused_bn import FusedBatchNorm
 
-__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm", "GroupNorm",
-           "Embed", "ConvBnAct", "max_pool_same", "DropPath", "dropout",
-           "checkpoint", "resolve_device", "init_params"]
+__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "BatchNorm", "LayerNorm",
+           "GroupNorm", "Embed", "ConvBnAct", "max_pool_same", "DropPath",
+           "dropout", "checkpoint", "resolve_device", "init_params"]
 
 
 def resolve_device(device) -> torch.device:
@@ -84,16 +84,20 @@ class Linear(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv(dtype=...)`` on NHWC tensors; weight OIHW."""
+    """flax ``nn.Conv(dtype=...)`` on NHWC tensors; weight OIHW (O, I /
+    groups, kH, kW). ``dilation`` is flax's ``kernel_dilation``, ``groups``
+    its ``feature_group_count``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, kernel_size))
+            out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.dilation, self.groups = dilation, groups
 
     def reset_parameters(self, generator):
         _lecun_normal(self.weight, self.weight[0].numel(), generator)
@@ -104,31 +108,83 @@ class Conv2d(nn.Module):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     self.stride, self.padding)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose2d(nn.Module):
-    """flax ``nn.ConvTranspose(dtype=float32)`` with kernel == stride on
-    NHWC tensors; weight IOHW as torch stores it."""
+    """flax ``nn.ConvTranspose(dtype=...)`` with kernel == stride on NHWC
+    tensors, computed in ``dtype`` from f32 parameters; weight IOHW as
+    torch stores it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int):
+                 stride: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             in_channels, out_channels, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_channels))
-        self.stride = stride
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.stride, self.dtype = stride, dtype
 
     def reset_parameters(self, generator):
         fan_in = self.weight.shape[0] * self.weight[0, 0].numel()
         _lecun_normal(self.weight, fan_in, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), self.weight,
-                               self.bias, self.stride)
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), b, self.stride)
         return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
+    the last axis of an NHWC tensor, as flax 0.12 computes it (unlike
+    ``ops.fused_bn``): train-mode statistics in f32 as ``E[x]`` and
+    ``max(E[x^2] - E[x]^2, 0)``, with no shift; the running variance blends
+    this *biased* batch variance; the output ``(x - mean) * (scale *
+    rsqrt(var + eps)) + bias`` in f32, differentiated by autograd through
+    the statistics. Parameters ``weight`` and ``bias`` (flax ``scale`` and
+    ``bias``), buffers ``running_mean`` and ``running_var`` (flax
+    ``batch_stats`` ``mean`` and ``var``)."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x, train: bool, update_stats: bool = True):
+        """``train`` selects the batch statistics; ``update_stats`` (train
+        mode only) blends them into the running ones, which a recomputation
+        in the backward must not do a second time."""
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp(xf.square().mean(dim=dims) - mean.square(),
+                              min=0.0)
+            if update_stats:
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.mul_(m).add_((1 - m) * mean)
+                    self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,69 @@
+"""Semantic-segmentation evaluation (counterpart of
+``tools/test_semantic_segmentation.py``):
+
+    python -m simpleaicv_tpu_torch.tools.test_semantic_segmentation --work-dir <dir>
+
+reads ``<dir>/test_config.py``, restores ``trained_model_path`` (a port
+checkpoint, for example ``checkpoints/best``, with its BatchNorm
+statistics) onto the seeded model, logs its MACs and parameters, then the
+mIoU, precision, recall and dice. The face- and human-parsing CLIs evaluate
+the same way. It runs on the card, or on the CPU under
+``SIMPLEAICV_PLATFORM=cpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.engine import make_eval_step
+from ..core.logging_utils import get_logger
+from ..core.platform import device_from_env
+from ..core.profile import compute_macs_and_params, format_macs_params
+from ..core.trainer import batch_to_device
+from ..data.loader import DataLoader
+from ..models.common import init_params, resolve_device
+from ..tasks import semantic_segmentation as seg
+from .common import load_test_config, parse_work_dir, restore_trained_params
+
+
+def evaluate(description: str, argv=None):
+    """Evaluates the work dir's test config; returns the metrics and
+    'key_metric' (the mIoU)."""
+    args = parse_work_dir(description, argv)
+    config = load_test_config(args)
+    logger = get_logger("test")
+    device = resolve_device(device_from_env())
+    ignore_index = getattr(config, "ignore_index", 255)
+
+    model = init_params(config.model, torch.Generator().manual_seed(
+        getattr(config, "seed", 0)))
+    ckpt_path = getattr(config, "trained_model_path", "")
+    if ckpt_path:
+        n = restore_trained_params(ckpt_path, model)
+        logger.info(f"loaded {n} tensors from {ckpt_path}")
+    model.to(device)
+
+    s = config.input_image_size
+    macs, params = compute_macs_and_params(
+        model, torch.zeros((1, s, s, 3), device=device))
+    logger.info(format_macs_params(macs, params))
+
+    loader = DataLoader(config.test_dataset, config.batch_size,
+                        config.test_collater, shuffle=False, drop_last=False,
+                        num_workers=getattr(config, "num_workers", 4))
+    eval_step = make_eval_step(
+        seg.make_eval_fn(config.num_classes, ignore_index), device)
+    stats = seg.make_evaluate(config.num_classes)(
+        eval_step, model, loader,
+        lambda batch: batch_to_device(batch, device))
+    for k, v in stats.items():
+        logger.info(f"{k}: {v}")
+    return stats
+
+
+def main(argv=None):
+    return evaluate("semantic-segmentation evaluation", argv)
+
+
+if __name__ == "__main__":
+    main()

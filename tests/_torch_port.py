@@ -1,7 +1,8 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 f32 compute on the JAX side, seeded numpy parameters and BatchNorm
-statistics for both sides, the tiny SAM and DINO-DETR configurations, and
-a tiny port classifier for the runtime's tests."""
+statistics for both sides, the tiny SAM and DINO-DETR configurations, a
+tiny port classifier for the runtime's tests, and a single-thread PyTorch
+context for files of many small ops."""
 
 from __future__ import annotations
 
@@ -27,6 +28,21 @@ TINY_SAM = dict(image_encoder_embedding_planes=64, image_encoder_block_nums=2,
 TINY_DINO = dict(num_classes=8, query_nums=20, encoder_layer_nums=1,
                  decoder_layer_nums=2, hidden_inplanes=64,
                  feedforward_planes=128, dn_number=6)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """PyTorch's CPU ops on one intra-op thread while the block runs. The
+    suite runs its files in parallel processes, several to a core: there
+    a thread pool per process spins against the others' (a CLI test file
+    took 657 s in six copies at once with the default pool, 21 s with one
+    thread), while alone one thread costs these tiny models little."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(previous)
 
 
 @contextlib.contextmanager
