@@ -84,8 +84,26 @@ Phases, each of which raises (exit code 1) on failure:
      ``tools.train_salient_object_detection`` and evaluates its best
      through ``tools.test_salient_object_detection``;
  16. seg_learns: trains resnet18_deeplabv3plus on 64 synthetic 64x64
-     images for 12 epochs and fails unless its best mIoU reaches 60.
-The paths of phases 13-16 launch no hand kernel, which each checks.
+     images for 12 epochs and fails unless its best mIoU reaches 60;
+ 17. fcos_train: takes FCOS R50 train steps on the coco recipe's 1333x1333
+     canvas at batch 8 (FCOSLoss, AdamW, MultiStepLR) on a resident batch,
+     profiles one step and replays the loss alone;
+ 18. retina_train: the same for RetinaNet R50 (RetinaLoss) and RetinaFace
+     R50 at 1024x1024 (the widerface recipe, RetinaFaceLoss);
+ 19. sapiens_train: takes Sapiens-0.3B face-parsing steps at 512x512,
+     batch 8 (the CelebAMask-HQ recipe: SegCELoss + SegIoULoss, AdamW,
+     CosineLR), profiles one step and replays the einsum attention and the
+     parsing head alone;
+ 20. dense_parity: holds one f32 step of FCOS R50 and of Sapiens-0.3B at
+     256x256 on the card (TF32 off) against the CPU, and the FCOS decoder
+     on the card against the CPU on the same predictions;
+ 21. dense_cli: trains and tests fake_synthetic/resnet18_fcos and
+     resnet18_retinaface through their CLIs, and Sapiens-0.3B through the
+     face-parsing CLIs on 16 synthetic images, in this process;
+ 22. fcos_learns: trains resnet18_fcos on 64 synthetic 96x96 images for 16
+     epochs and fails unless its best mAP reaches 30.
+The paths of phases 13-22 launch no hand kernel, which each checks. The
+script prints its total time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -107,14 +125,17 @@ from simpleaicv_tpu_torch.core.engine import (EngineConfig,
                                               create_train_state,
                                               make_train_step)
 from simpleaicv_tpu_torch.core.optim import OptimizerConfig, build_optimizer
-from simpleaicv_tpu_torch.core.registry import BACKBONES, LOSSES, MODELS
+from simpleaicv_tpu_torch.core.registry import (BACKBONES, DECODERS, LOSSES,
+                                                MODELS)
 from simpleaicv_tpu_torch.core.schedule import SchedulerConfig
 from simpleaicv_tpu_torch.core.trainer import (
     optimizer_config_from_reference, scheduler_config_from_reference)
 from simpleaicv_tpu_torch.data.binary_segmentation import (BinarySegCollater,
                                                            BinarySegResize)
 from simpleaicv_tpu_torch.data.datasets import FakeDetectionDataset
-from simpleaicv_tpu_torch.data.detection import (DETRDetectionCollater,
+from simpleaicv_tpu_torch.data.detection import (DetectionCollater,
+                                                 DetectionResize,
+                                                 DETRDetectionCollater,
                                                  Normalize)
 from simpleaicv_tpu_torch.data.interactive_segmentation import (
     FakeSAMSegmentationDataset, SAMBatchCollater)
@@ -137,14 +158,24 @@ from simpleaicv_tpu_torch.perf.timing import alternating_ms as _alternating
 from simpleaicv_tpu_torch.perf.timing import bound as _bound
 from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
 from simpleaicv_tpu_torch.tasks import binary_segmentation as bseg_task
+from simpleaicv_tpu_torch.tasks import detection as det_task
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
 from simpleaicv_tpu_torch.tools import test_detection as det_test_cli
+from simpleaicv_tpu_torch.tools import test_face_detection as \
+    face_det_test_cli
+from simpleaicv_tpu_torch.tools import test_face_parsing as \
+    face_parsing_test_cli
 from simpleaicv_tpu_torch.tools import test_interactive_segmentation as \
     sam_test_cli
+from simpleaicv_tpu_torch.tools import train_detection as dense_train_cli
 from simpleaicv_tpu_torch.tools import train_detr_detection as det_train_cli
+from simpleaicv_tpu_torch.tools import train_face_detection as \
+    face_det_train_cli
+from simpleaicv_tpu_torch.tools import train_face_parsing as \
+    face_parsing_train_cli
 from simpleaicv_tpu_torch.tools import train_interactive_segmentation as \
     sam_train_cli
 from simpleaicv_tpu_torch.tools import test_salient_object_detection as \
@@ -3068,13 +3099,14 @@ def _timed_steps(step, state, batch, warm_up, timed):
     return ms, losses
 
 
-def _seg_batch():
-    """The recipe's batch from the port's synthetic dataset and collater,
-    on the card, with the bottom 32 rows of every mask ignored."""
-    ds = FakeSegmentationDataset(SEG_BATCH, SEG_IMAGE, SEG_CLASSES,
+def _seg_batch(n=SEG_BATCH, image=SEG_IMAGE, classes=SEG_CLASSES):
+    """A batch of ``n`` from the port's synthetic dataset and collater (the
+    ADE20K recipe's by default), on the card, with the bottom 32 rows of
+    every mask ignored."""
+    ds = FakeSegmentationDataset(n, image, classes,
                                  transform=Compose([SegNormalize()]))
-    batch = SemanticSegmentationCollater(SEG_IMAGE, SEG_IGNORE)(
-        [ds[i] for i in range(SEG_BATCH)])
+    batch = SemanticSegmentationCollater(image, SEG_IGNORE)(
+        [ds[i] for i in range(n)])
     batch["mask"][:, -32:] = SEG_IGNORE
     return {k: torch.from_numpy(batch[k]).cuda() for k in ("image", "mask")}
 
@@ -3135,6 +3167,28 @@ def _norm_replay_ms(calls):
     return out
 
 
+def _profiled_step(card, label, step, state, batch, step_ms, top=15):
+    """One step under the profiler: busy time and idle share beside the
+    timed step, the device time by kind and the largest rows."""
+    busy_ms, events = _profile_device(lambda: step(state, batch, seed=0))
+    if busy_ms <= 0:
+        raise RuntimeError(f"the profiled {label} step recorded no device "
+                           f"time")
+    print(f"profiled {label} step [{card}]: device busy {busy_ms:.2f} ms of "
+          f"a {step_ms:.2f} ms step, idle share {1 - busy_ms / step_ms:.3f}",
+          flush=True)
+    groups = {}
+    for e in events:
+        kind = _row_group(e.key)
+        ms, n = groups.get(kind, (0.0, 0))
+        groups[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for kind, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {kind}: {ms:.3f} ms, {100 * ms / busy_ms:.1f}%, "
+              f"{n} launches")
+    _print_rows(events, busy_ms, top)
+    return busy_ms
+
+
 def phase_seg_train(card, warm_up=3, timed=10):
     """DeepLabV3+ R50 at the ADE20K recipe's full width through
     ``make_train_step`` on a resident batch; one profiled step, the shares
@@ -3177,22 +3231,8 @@ def phase_seg_train(card, warm_up=3, timed=10):
           f"flop counter's forward), {flops / step_ms / 1e9:.1f} TFLOP/s",
           flush=True)
 
-    busy_ms, events = _profile_device(lambda: step(state, batch, seed=0))
-    if busy_ms <= 0:
-        raise RuntimeError("the profiled DeepLabV3+ step recorded no device "
-                           "time")
-    print(f"profiled DeepLabV3+ step [{card}]: device busy {busy_ms:.2f} ms "
-          f"of a {step_ms:.2f} ms step, idle share "
-          f"{1 - busy_ms / step_ms:.3f}", flush=True)
-    groups = {}
-    for e in events:
-        kind = _row_group(e.key)
-        ms, n = groups.get(kind, (0.0, 0))
-        groups[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    for kind, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {kind}: {ms:.3f} ms, {100 * ms / busy_ms:.1f}%, "
-              f"{n} launches")
-    _print_rows(events, busy_ms, 20)
+    busy_ms = _profiled_step(card, "DeepLabV3+", step, state, batch,
+                             step_ms, top=20)
 
     # shares, each part's forward and backward replayed alone at the
     # step's shapes
@@ -3474,7 +3514,463 @@ def phase_seg_learns(card):
     return launches
 
 
+# ---- dense detection and Sapiens parsing -----------------------------------
+
+# the coco/res50_{fcos,retinanet}_retinaresize800 recipes: 80 classes, the
+# retina-style resize to 800 on a 1333^2 canvas, AdamW 1e-4 / 1e-3,
+# MultiStepLR x0.1 at epochs 8 and 12 of 13 after a half-epoch warm-up,
+# bf16 compute; batch 32 cut to 8 on one card, where COCO's 117,266
+# training images with boxes make 14,658 steps an epoch
+DET_RECIPE_OPT = SEG_RECIPE_OPT
+DET_RECIPE_SCHED = ("MultiStepLR", {"warm_up_epochs": 0.5, "gamma": 0.1,
+                                    "milestones": [8, 12]})
+DET_EPOCHS, DET_STEPS_PER_EPOCH = 13, 117266 // 8
+DET_BATCH, DET_RESIZE, DET_CLASSES = 8, 800, 80
+# widerface/resnet50_retinaface: 1 class, the yolo-style resize to 1024,
+# AdamW 1e-4 / 1e-3, CosineLR over 100 epochs after a 1-epoch warm-up;
+# batch 32 cut to 8, where WIDER FACE's 12,880 training images make 1,610
+# steps an epoch
+FACE_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1})
+FACE_EPOCHS, FACE_STEPS_PER_EPOCH = 100, 12880 // 8
+FACE_BATCH, FACE_IMAGE = 8, 1024
+# CelebAMask-HQ/sapiens_0_3b_face_parsing: 512^2, 19 classes, SegCELoss +
+# softmax SegIoULoss 1:1 with 255 ignored, AdamW 1e-4 / 1e-3, CosineLR to
+# 1e-6 over 100 epochs after a 1-epoch warm-up; batch 160 cut to 8, an
+# epoch taken as 1,000 steps (it only sets the learning rate's schedule)
+SAPIENS_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1, "min_lr": 1e-6})
+SAPIENS_EPOCHS, SAPIENS_STEPS_PER_EPOCH = 100, 1000
+SAPIENS_BATCH, SAPIENS_IMAGE, SAPIENS_CLASSES = 8, 512, 19
+SAPIENS_LOSS = [("SegCELoss", 1.0, {"ignore_index": SEG_IGNORE}),
+                ("SegIoULoss", 1.0, {"logit_type": "softmax",
+                                     "ignore_index": SEG_IGNORE})]
+
+
+def _det_batch(n, image_hw, resize, resize_type, classes):
+    """A resident batch of ``n`` synthetic images through the recipe's
+    resize, normalisation and collater, on the card."""
+    ds = FakeDetectionDataset(n, image_hw, classes, transform=Compose([
+        DetectionResize(resize=resize, resize_type=resize_type),
+        Normalize()]))
+    batch = DetectionCollater(resize, resize_type)([ds[i] for i in range(n)])
+    return {k: torch.from_numpy(batch[k]).cuda() for k in ("image", "annots")}
+
+
+def _loss_replay_ms(criterion, preds, annots):
+    """Device ms of the criterion alone (assignment, forward and backward)
+    on the step's predictions."""
+    sizes = [len(group) for group in preds]
+    flat = [t.detach() for group in preds for t in group]
+
+    def loss(*tensors):
+        groups, i = [], 0
+        for n in sizes:
+            groups.append(list(tensors[i:i + n]))
+            i += n
+        return sum(criterion(groups, annots).values())
+
+    return _fwd_bwd_ms(loss, *flat)
+
+
+def _dense_train(card, path, network, model_kwargs, loss_name, batch, sched,
+                 epochs, steps_per_epoch, warm_up, timed):
+    """A dense detector at full width through ``make_train_step`` on a
+    resident batch: images/s, ms a step, peak memory, a profiled step and
+    the loss's share of it. Returns (the hand-kernel launches: none,
+    images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create(network, **model_kwargs),
+                        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, DET_RECIPE_OPT, sched, epochs,
+                          steps_per_epoch)
+    criterion = LOSSES.create(loss_name)
+    step = make_train_step(det_task.make_loss_fn(criterion), EngineConfig())
+    b, side = batch["image"].shape[0], batch["image"].shape[1]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{network} {side}^2 bf16 ({n_params} parameters), its AdamW "
+          f"state and a resident batch of {b} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel(path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = b / step_ms * 1e3
+    print(f"{path}: {network} {side}^2 bf16 training, batch {b} [{card}]: "
+          f"{ips:.2f} images/s, {step_ms:.2f} ms per step over {timed} "
+          f"steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    busy_ms = _profiled_step(card, network, step, state, batch, step_ms)
+    with torch.no_grad():
+        preds = model(batch["image"], train=True)
+    ms = _loss_replay_ms(criterion, preds, batch["annots"])
+    print(f"  replayed {loss_name} (assignment over {batch['annots'].shape[1]}"
+          f" annotation slots, forward + backward): {ms:.3f} ms, "
+          f"{100 * ms / busy_ms:.1f}% of the step's busy time [{card}]",
+          flush=True)
+    del state, model, step, preds
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_fcos_train(card, warm_up=3, timed=10):
+    """FCOS R50 at the coco/res50_fcos_retinaresize800 recipe's full width
+    (80 classes, 1333^2 canvas, FCOSLoss, AdamW, MultiStepLR), batch 8."""
+    batch = _det_batch(DET_BATCH, 640, DET_RESIZE, "retina_style",
+                       DET_CLASSES)
+    return _dense_train(card, "fcos_train", "resnet50_fcos",
+                        {"num_classes": DET_CLASSES}, "FCOSLoss", batch,
+                        DET_RECIPE_SCHED, DET_EPOCHS, DET_STEPS_PER_EPOCH,
+                        warm_up, timed)
+
+
+def phase_retina_train(card, warm_up=2, timed=5):
+    """RetinaNet R50 (coco/res50_retinanet_retinaresize800: 80 classes,
+    1333^2 canvas, RetinaLoss, AdamW, MultiStepLR) and RetinaFace R50
+    (widerface/resnet50_retinaface: 1024^2, RetinaFaceLoss, AdamW,
+    CosineLR), batch 8 each. Returns (the launches of both: none, the
+    images per second of each)."""
+    batch = _det_batch(DET_BATCH, 640, DET_RESIZE, "retina_style",
+                       DET_CLASSES)
+    retina, retina_ips = _dense_train(
+        card, "retina_train", "resnet50_retinanet",
+        {"num_classes": DET_CLASSES}, "RetinaLoss", batch, DET_RECIPE_SCHED,
+        DET_EPOCHS, DET_STEPS_PER_EPOCH, warm_up, timed)
+    del batch
+    batch = _det_batch(FACE_BATCH, 800, FACE_IMAGE, "yolo_style", 1)
+    face, face_ips = _dense_train(
+        card, "retina_train", "resnet50_retinaface", {}, "RetinaFaceLoss",
+        batch, FACE_RECIPE_SCHED, FACE_EPOCHS, FACE_STEPS_PER_EPOCH, warm_up,
+        timed)
+    return {**retina, **face}, (retina_ips, face_ips)
+
+
+def _einsum_attention(q, k, v):
+    """The ViT's einsum attention (``models/backbones/vit.py``): f32
+    products of the compute-dtype q and k, an f32 softmax, the
+    probabilities cast to the compute dtype before p.v in f32."""
+    attn = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float())
+    attn = torch.softmax(attn * q.shape[-1]**-0.5, dim=-1)
+    return torch.einsum("bhnm,bhmd->bhnd", attn.to(q.dtype).float(),
+                        v.float())
+
+
+def phase_sapiens_train(card, warm_up=3, timed=10):
+    """Sapiens-0.3B face parsing at the CelebAMask-HQ recipe's full width
+    (512^2, 19 classes, SegCombinedLoss, AdamW, CosineLR), batch 8, through
+    ``make_train_step`` on a resident batch: the numbers of the dense
+    phases, the einsum attention's share (its 24 layers' attention core
+    replayed alone at the step's shapes) and the parsing head's (the 8
+    transposed and 1x1 convolutions with their f32 InstanceNorms).
+    Returns (the launches: none, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create(
+        "sapiens_0_3b_face_parsing", num_classes=SAPIENS_CLASSES,
+        image_size=SAPIENS_IMAGE), torch.Generator().manual_seed(0))
+    state = _recipe_state(model, SEG_RECIPE_OPT, SAPIENS_RECIPE_SCHED,
+                          SAPIENS_EPOCHS, SAPIENS_STEPS_PER_EPOCH)
+    criterion = LOSSES.create("SegCombinedLoss", loss_cfg=SAPIENS_LOSS)
+    step = make_train_step(seg_task.make_loss_fn(criterion), EngineConfig())
+    batch = _seg_batch(SAPIENS_BATCH, SAPIENS_IMAGE, SAPIENS_CLASSES)
+    print(f"sapiens_0_3b_face_parsing {SAPIENS_IMAGE}^2 bf16 "
+          f"({sum(p.numel() for p in model.parameters())} parameters), its "
+          f"AdamW state and a resident batch of {SAPIENS_BATCH} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel("sapiens_train")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = SAPIENS_BATCH / step_ms * 1e3
+    print(f"sapiens_train: Sapiens-0.3B {SAPIENS_IMAGE}^2 bf16 training, "
+          f"batch {SAPIENS_BATCH}, {SAPIENS_CLASSES} classes [{card}]: "
+          f"{ips:.2f} images/s, {step_ms:.2f} ms per step over {timed} "
+          f"steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    busy_ms = _profiled_step(card, "Sapiens-0.3B", step, state, batch,
+                             step_ms)
+    blk = model.blocks[0].attn
+    heads, n = blk.head_nums, (SAPIENS_IMAGE // 16)**2
+    d = model.patch_embedding.weight.shape[0] // heads
+    qkv = [torch.randn(SAPIENS_BATCH, heads, n, d, device="cuda",
+                       dtype=torch.bfloat16) for _ in range(3)]
+    attn_ms = len(model.blocks) * _fwd_bwd_ms(_einsum_attention, *qkv)
+    del qkv
+
+    def head(y):
+        for i in range(model.n_deconv):
+            y = torch.nn.functional.silu(model.norm(
+                getattr(model, f"convt{i + 1}")(y)))
+        for i in range(model.n_conv):
+            y = torch.nn.functional.silu(model.norm(
+                getattr(model, f"conv{i + 1}")(y)))
+        return model.pred_conv(y)
+
+    side = SAPIENS_IMAGE // 16
+    head_ms = _fwd_bwd_ms(head, torch.randn(
+        SAPIENS_BATCH, side, side, model.patch_embedding.weight.shape[0],
+        device="cuda"))
+    print(f"  replayed einsum attention (f32 scores [{SAPIENS_BATCH}, {heads}"
+          f", {n}, {n}], forward + backward) x {len(model.blocks)} layers: "
+          f"{attn_ms:.3f} ms, {100 * attn_ms / busy_ms:.1f}% of the step's "
+          f"busy time [{card}]", flush=True)
+    print(f"  replayed parsing head (4 transposed + 4 1x1 convolutions with "
+          f"f32 InstanceNorm and SiLU, to {SAPIENS_IMAGE}^2, forward + "
+          f"backward): {head_ms:.3f} ms, {100 * head_ms / busy_ms:.1f}% of "
+          f"the busy time [{card}]", flush=True)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def _grads_on(device, model, loss_fn, batch):
+    """(loss, each parameter's gradient as f64 on the CPU) of one f32
+    train-mode forward and backward on ``device``."""
+    model = model.to(device).train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, {k: v.to(device) for k, v in batch.items()},
+                      None, True)
+    loss.backward()
+    return loss.item(), [p.grad.double().cpu() for p in model.parameters()]
+
+
+def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
+            grad_cos):
+    """The card's f32 step (TF32 off) against the CPU's from the same
+    weights and batch: fails unless the loss agrees within ``loss_rel``,
+    all gradients within ``grad_rel`` in L2 and each parameter's at a
+    cosine of at least ``grad_cos``. Returns the CPU model."""
+    t0 = time.perf_counter()
+    cpu_model = make_model()
+    card_model = make_model()
+    card_model.load_state_dict(cpu_model.state_dict())
+    loss_c, grads_c = _grads_on("cuda", card_model, loss_fn, batch)
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss_h, grads_h = _grads_on("cpu", cpu_model, loss_fn, batch)
+    flat_c = torch.cat([g.flatten() for g in grads_c])
+    flat_h = torch.cat([g.flatten() for g in grads_h])
+    rel = ((flat_c - flat_h).norm() / flat_h.norm()).item()
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.flatten(), b.flatten(), dim=0).item()
+        for a, b in zip(grads_c, grads_h) if b.norm() > 0)
+    print(f"dense_parity: {label}, f32 train step, card (TF32 off) vs CPU "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]: loss {loss_c:.6f} "
+          f"vs {loss_h:.6f}, gradient relative L2 difference {rel:.3e} "
+          f"(bound {grad_rel}), least per-parameter cosine {cos:.6f} "
+          f"(bound {grad_cos})", flush=True)
+    if not (abs(loss_c - loss_h) <= loss_rel * abs(loss_h) and rel <= grad_rel
+            and cos >= grad_cos):
+        raise RuntimeError(f"the f32 {label} step on the card disagrees "
+                           f"with the CPU")
+    del card_model
+    torch.cuda.empty_cache()
+    return cpu_model
+
+
+def phase_dense_parity(card):
+    """FCOS R50 at 256^2, batch 2, and Sapiens-0.3B at 256^2, batch 1: one
+    f32 train step's loss and gradients on the card (TF32 off) against the
+    CPU, and the FCOS decoder's output on the card against the CPU's on
+    the same predictions. Returns the launches (none)."""
+    _reset_launches()
+    fcos_batch = _det_batch(2, 256, 256, "yolo_style", DET_CLASSES)
+    fcos_batch = {k: v.cpu() for k, v in fcos_batch.items()}
+    # train-mode BatchNorm at batch 2 spreads each rounding switch (a ReLU
+    # input within f32 rounding of 0) over its channel, as in the ResNet-50
+    # f32 step: the gradients are held in L2 and by cosine
+    cpu_fcos = _parity(
+        card, "resnet50_fcos 256^2, batch 2",
+        lambda: init_params(MODELS.create(
+            "resnet50_fcos", num_classes=DET_CLASSES, dtype=torch.float32),
+            torch.Generator().manual_seed(3)),
+        det_task.make_loss_fn(LOSSES.create("FCOSLoss")), fcos_batch,
+        loss_rel=1e-3, grad_rel=5e-2, grad_cos=0.99)
+    with torch.no_grad():
+        preds = cpu_fcos.eval()(fcos_batch["image"])
+    decoder = DECODERS.create("FCOSDecoder")
+    want = decoder(preds)
+    got = decoder([[t.cuda() for t in group] for group in preds])
+    valid = int((want[0] > -1).sum())
+    same = (np.allclose(got[0], want[0], rtol=1e-6, atol=0)
+            and np.array_equal(got[1], want[1])
+            and np.array_equal(got[2], want[2]))
+    print(f"dense_parity: FCOSDecoder on the card vs the CPU on the same "
+          f"predictions: {valid} detections, scores within 1e-6 relative, "
+          f"classes and boxes equal: {same}", flush=True)
+    if not same or valid == 0:
+        raise RuntimeError("the FCOS decoder on the card disagrees with the "
+                           "CPU")
+    del cpu_fcos, preds
+    seg_batch = _seg_batch(1, 256, SAPIENS_CLASSES)
+    seg_batch = {k: v.cpu() for k, v in seg_batch.items()}
+    _parity(card, "sapiens_0_3b_face_parsing 256^2, batch 1",
+            lambda: init_params(MODELS.create(
+                "sapiens_0_3b_face_parsing", num_classes=SAPIENS_CLASSES,
+                image_size=256, dtype=torch.float32),
+                torch.Generator().manual_seed(4)),
+            seg_task.make_loss_fn(LOSSES.create(
+                "SegCombinedLoss", loss_cfg=SAPIENS_LOSS)), seg_batch,
+            loss_rel=1e-4, grad_rel=1e-3, grad_cos=0.9999)
+    return _no_hand_kernel("dense_parity")
+
+
+SAPIENS_CLI_TRAIN_CONFIG = """\"\"\"Sapiens-0.3B face parsing on CelebAMask-HQ
+as experiments/11.face_parsing_training/CelebAMask-HQ/sapiens_0_3b_face_parsing/
+train_config.py states it (sapiens_0_3b_face_parsing, 19 classes, 512^2,
+SegCELoss + softmax SegIoULoss 1:1 with 255 ignored, SegResize(512), the
+flip, SegNormalize, the collater at 512, AdamW 1e-4 / 1e-3, CosineLR to
+1e-6 with a 1-epoch warm-up), cut to: batch 8 (not 160, one card);
+synthetic data, FakeSegmentationDataset of 16 train and 8 test 640^2
+images with 19 classes in place of FaceParsingDataset (no CelebAMask-HQ
+here); 1 epoch (not 100); 8 loader workers (not 16).\"\"\"
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.segmentation import (FakeSegmentationDataset,
+                                     SegNormalize, SegRandomHorizontalFlip,
+                                     SegResize, SemanticSegmentationCollater)
+from {pkg}.data.transforms import Compose
+
+
+class config:
+    network = "sapiens_0_3b_face_parsing"
+    num_classes = 19
+    input_image_size = 512
+    ignore_index = 255
+
+    model = MODELS.create(network, num_classes=num_classes,
+                          image_size=input_image_size)
+    train_criterion = LOSSES.create("SegCombinedLoss", loss_cfg=[
+        ("SegCELoss", 1.0, {{"ignore_index": ignore_index}}),
+        ("SegIoULoss", 1.0, {{"logit_type": "softmax",
+                             "ignore_index": ignore_index}}),
+    ])
+    train_dataset = FakeSegmentationDataset(
+        16, 640, num_classes, transform=Compose([
+            SegResize(resize=input_image_size),
+            SegRandomHorizontalFlip(prob=0.5), SegNormalize()]))
+    test_dataset = FakeSegmentationDataset(
+        8, 640, num_classes, transform=Compose([
+            SegResize(resize=input_image_size), SegNormalize()]))
+    train_collater = SemanticSegmentationCollater(resize=input_image_size)
+    test_collater = SemanticSegmentationCollater(resize=input_image_size)
+
+    seed = 0
+    batch_size = 8
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-3,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1, "min_lr": 1e-6}})
+    epochs = 1
+    print_interval = 1
+    use_ema_model = False
+"""
+
+
+def _experiment_cli(card, path, rel, train_cli, test_cli):
+    """A repository experiment (``experiments/<rel>``) through its train and
+    test CLIs in this process, in a scratch copy whose test config restores
+    the best checkpoint. Prints the seconds, peak memory and the metrics;
+    fails when a CLI raises, writes no best checkpoint or logs no
+    evaluation, or when a hand kernel was launched. Returns the
+    launches."""
+    import os
+    import shutil
+    import tempfile
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "experiments", rel)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        for name in os.listdir(src):
+            if name.endswith(".py"):
+                shutil.copy(os.path.join(src, name), work_dir)
+        test_path = os.path.join(work_dir, "test_config.py")
+        with open(test_path) as f:
+            text = f.read()
+        with open(test_path, "w") as f:
+            f.write(text.replace('trained_model_path = ""',
+                                 "trained_model_path = os.path.join(os.path."
+                                 "dirname(os.path.abspath(__file__)), "
+                                 "\"checkpoints\", \"best\")"))
+        argv = ["--work-dir", work_dir]
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = train_cli.main(argv)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = test_cli.main(argv)
+        test_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _no_hand_kernel(path)
+        if not os.path.isfile(os.path.join(work_dir, "checkpoints", "best")):
+            raise RuntimeError(f"{rel}: no best checkpoint")
+        with open(os.path.join(work_dir, "log", "train.log")) as f:
+            log = f.read()
+    evals = [ln for ln in log.splitlines() if " eval: {" in ln]
+    print(f"{path}: {rel}: train CLI {train_s:.1f} s ({len(evals)} epochs "
+          f"with their evaluation), test CLI {test_s:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]; "
+          f"best mAP x 100 {best:.6f}; test CLI key metric "
+          f"{metrics.get('key_metric')}", flush=True)
+    if not evals or abs(metrics["key_metric"] - best) > 1e-6:
+        raise RuntimeError(f"{rel}: no evaluation logged, or the test CLI's "
+                           f"{metrics.get('key_metric')} is not the best "
+                           f"{best}")
+    return launches
+
+
+def phase_dense_cli(card, sapiens_ips):
+    """fake_synthetic/resnet18_fcos and resnet18_retinaface through the
+    detection and face-detection train and test CLIs, and Sapiens-0.3B
+    through the face-parsing ones on the CelebAMask-HQ recipe's fields
+    with synthetic data; no hand kernel on these paths."""
+    launches = {}
+    for rel, train_cli, test_cli in (
+            ("3.detection_training/fake_synthetic/resnet18_fcos",
+             dense_train_cli, det_test_cli),
+            ("10.face_detection_training/fake_synthetic/resnet18_retinaface",
+             face_det_train_cli, face_det_test_cli)):
+        launches.update(_experiment_cli(card, "dense_cli", rel, train_cli,
+                                        test_cli))
+    launches.update(_cli_in_process(
+        card, "dense_cli", face_parsing_train_cli, face_parsing_test_cli,
+        SAPIENS_CLI_TRAIN_CONFIG, sapiens_ips, ()))
+    return launches
+
+
+def phase_fcos_learns(card):
+    """``tests/test_torch_convergence.py``'s FCOS recipe on the card
+    (resnet18_fcos, 64 synthetic 96^2 images of one rectangle, 16 epochs):
+    fails unless the best mAP reaches 30 and the final model's mAP at IoU
+    0.5 reaches 0.5."""
+    import importlib.util
+    import os
+    import tempfile
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_convergence.py")
+    spec = importlib.util.spec_from_file_location("test_torch_convergence",
+                                                  path)
+    convergence = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convergence)
+    _reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        best, final = convergence.train_fcos(work_dir, "cuda")
+    launches = _no_hand_kernel("fcos_learns")
+    ap50 = final["IoU=0.5,area=all,maxDets=100,mAP"]
+    print(f"fcos_learns: resnet18_fcos 96^2, 16 epochs in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]: best mAP {best:.2f} "
+          f"(30 required), final mAP at IoU 0.5 {ap50:.4f} (0.5 required)",
+          flush=True)
+    if not (best >= 30.0 and ap50 >= 0.5):
+        raise RuntimeError(f"FCOS did not learn: best mAP {best:.2f}, final "
+                           f"mAP at IoU 0.5 {ap50:.4f}")
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     kernels = phase_kernels(card)
     serving = phase_serving(card)
@@ -3493,6 +3989,12 @@ def main():
     seg_cli = phase_seg_cli(card, seg_ips)
     pfan, pfan_cli = phase_pfan_cli(card)
     seg_learns = phase_seg_learns(card)
+    fcos, _ = phase_fcos_train(card)
+    retina, _ = phase_retina_train(card)
+    sapiens, sapiens_ips = phase_sapiens_train(card)
+    parity = phase_dense_parity(card)
+    dense_cli = phase_dense_cli(card, sapiens_ips)
+    fcos_learns = phase_fcos_learns(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -3500,14 +4002,17 @@ def main():
     # BatchNorm); its counts are read all the same, and the classification
     # CLIs, which run the same model in their own processes, are checked by
     # their output. The SAM and DINO-DETR CLIs run in this process: their
-    # counts are their own paths'. The DeepLabV3+ and PFAN paths launch no
-    # hand kernel, which their phases check.
+    # counts are their own paths'. The DeepLabV3+, PFAN, dense-detection and
+    # Sapiens paths launch no hand kernel, which their phases check.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
              "dino_cli": dino_cli, "seg_train": seg, "seg_cli": seg_cli,
              "pfan_train": pfan, "pfan_cli": pfan_cli,
-             "seg_learns": seg_learns}
+             "seg_learns": seg_learns, "fcos_train": fcos,
+             "retina_train": retina, "sapiens_train": sapiens,
+             "dense_parity": parity, "dense_cli": dense_cli,
+             "fcos_learns": fcos_learns}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()
@@ -3517,6 +4022,8 @@ def main():
         if kernel["launches"] < 1:
             raise RuntimeError(f"{kernel['name']} was not launched on a "
                                f"main path")
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,5 +4,5 @@ Imports torch and never jax; importing the package registers its models and
 losses.
 """
 
-from . import losses  # noqa: F401
 from . import models  # noqa: F401
+from . import losses  # noqa: F401

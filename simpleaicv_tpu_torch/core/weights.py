@@ -2,7 +2,7 @@
 
 ``load_jax_params(model, params, batch_stats=None)`` takes
 ``variables["params"]`` of a JAX SAM, ViT, ResNet, DINO-DETR, DETR,
-DeepLabV3+ or PFAN model (nested
+DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace or Sapiens model (nested
 dicts of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
@@ -10,13 +10,15 @@ sub-modules when called with that sub-module's sub-tree.
 any tensors keyed like them: gradients, optimizer moments, EMA) as a nested
 dict of numpy arrays in the JAX tree's layout; ``export_jax_batch_stats``
 gives the BatchNorm running statistics as the ``batch_stats`` tree.
-SAM's and ViT's state_dict keys are the reference models' names; ``_RULES``
-maps them onto the JAX package's parameter paths (copies of the
-``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
+SAM's, ViT's and Sapiens' backbone's state_dict keys are the reference
+models' names; ``_RULES`` maps them onto the JAX package's parameter paths
+(copies of the ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
 ``simpleaicv_tpu/core/converters.py``). The keys of ResNet, DINO-DETR,
-DETR, DeepLabV3+ and PFAN are the JAX paths with ``_N`` written ``.N``
-(``layer1.0.conv1.conv``, ``encoder.0.self_attn.value_proj``,
-``reg_head.1``, ``head.aspp2.aspp1.dw.conv``). Layouts:
+DETR, DeepLabV3+, PFAN, the dense detectors and Sapiens' head are the JAX
+paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
+``encoder.0.self_attn.value_proj``, ``reg_head.1``,
+``head.aspp2.aspp1.dw.conv``, ``clsregcnt_head.cls_gn.0``,
+``sshs.2.conv7X7_1.bn``, ``convt3``). Layouts:
   * Dense kernel [in, out]  -> Linear weight [out, in];
   * Conv kernel HWIO        -> Conv2d weight OIHW (a depthwise kernel,
     I = 1, to [C, 1, kH, kW]);
@@ -109,17 +111,20 @@ _RULES = [
     (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
     (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
     (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
-    # ResNet backbones (alone or as DINO-DETR's, DETR's, DeepLabV3+'s and
-    # PFAN's ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``) and PFAN
-    # (``decoder``, the matting branches, the prediction convolutions): the
-    # JAX path itself
+    # ResNet backbones (alone or as a detector's or segmenter's
+    # ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``), PFAN
+    # (``decoder``, the matting branches, the prediction convolutions),
+    # RetinaNet and FCOS (``fpn``, the heads, FCOS's ``scales``), RetinaFace
+    # (``sshs``, ``cls_convs``, ``box_convs``) and Sapiens' parsing head
+    # (``convt1``, ``conv1``): the JAX path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
      r"label_encoder|decoder|ref_point_head|decoder_norm|bbox_embed|"
      r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out|"
      r"head|global_decoder|local_decoder|pred_conv|global_pred_conv|"
-     r"local_pred_conv)"
+     r"local_pred_conv|fpn|clsregcnt_head|scales|sshs|cls_convs|box_convs|"
+     r"convt\d+|conv\d+)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 

@@ -2,4 +2,5 @@
 
 from .coco import FakeDetectionDataset  # noqa: F401
 from .synthetic import (FakeClassificationDataset,  # noqa: F401
-                        LearnableClassificationDataset)
+                        LearnableClassificationDataset,
+                        LearnableDetectionDataset)

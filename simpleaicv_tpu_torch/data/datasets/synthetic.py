@@ -1,6 +1,6 @@
-"""Synthetic classification datasets (counterpart of part of
-``simpleaicv_tpu/data/datasets/synthetic.py``), numpy only. Sample ``idx``
-holds the same arrays as the JAX package's."""
+"""Synthetic classification and detection datasets (counterpart of part
+of ``simpleaicv_tpu/data/datasets/synthetic.py``), numpy only. Sample
+``idx`` holds the same arrays as the JAX package's."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["FakeClassificationDataset", "LearnableClassificationDataset"]
+__all__ = ["FakeClassificationDataset", "LearnableClassificationDataset",
+           "LearnableDetectionDataset"]
 
 
 class FakeClassificationDataset:
@@ -69,6 +70,49 @@ class LearnableClassificationDataset:
         image = self.templates[label] + self.noise * rng.randn(
             self.image_hw, self.image_hw, 3).astype(np.float32)
         sample = {"image": np.clip(image, 0.0, 255.0), "label": int(label)}
+        if self.transform is not None:
+            sample = self.transform(sample)
+        return sample
+
+
+class LearnableDetectionDataset:
+    """A separable detection task: one pure-colour rectangle (sides
+    ``image_hw`` / 4 to / 2) on dim noise, the class its colour channel (3
+    classes), drawn from ``np.random.RandomState(seed_base + idx)``. Every
+    box is wholly visible, so a small detector learns it in a few hundred
+    steps. ``set_name`` other than "train" offsets the seeds, so train and
+    val draws are disjoint."""
+
+    def __init__(self, num_samples: int = 64, image_hw: int = 96,
+                 set_name: str = "train",
+                 transform: Optional[Callable] = None):
+        self.num_samples = num_samples
+        self.image_hw = image_hw
+        self.num_classes = 3
+        self.seed_base = 0 if set_name == "train" else 1_000_003
+        self.transform = transform
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self.seed_base + idx)
+        hw = self.image_hw
+        image = rng.uniform(0, 60, (hw, hw, 3)).astype(np.float32)
+        w = rng.randint(hw // 4, hw // 2)
+        h = rng.randint(hw // 4, hw // 2)
+        x1 = rng.randint(0, hw - w)
+        y1 = rng.randint(0, hw - h)
+        cls = rng.randint(0, 3)
+        color = np.zeros(3, np.float32)
+        color[cls] = 230.0
+        image[y1:y1 + h, x1:x1 + w] = color
+        sample = {"image": image,
+                  "annots": np.asarray([[x1, y1, x1 + w, y1 + h, cls]],
+                                       np.float32),
+                  "scale": np.float32(1.0),
+                  "size": np.array([hw, hw], np.float32),
+                  "image_id": idx}
         if self.transform is not None:
             sample = self.transform(sample)
         return sample

@@ -2,6 +2,7 @@
 
 from .classification import (CELoss, FocalCELoss, LabelSmoothCELoss,
                              OneHotLabelCELoss, SemanticSoftmaxLoss)  # noqa: F401
+from .detection import FCOSLoss, RetinaLoss  # noqa: F401
 from .detr import DETRLoss  # noqa: F401
 from .dinodetr import DINODETRLoss  # noqa: F401
 from .interactive_segmentation import (  # noqa: F401

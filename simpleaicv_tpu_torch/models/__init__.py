@@ -2,6 +2,8 @@
 
 from . import backbones  # noqa: F401
 from . import detection  # noqa: F401
+from . import face_detection  # noqa: F401
 from . import interactive_segmentation  # noqa: F401
 from . import pfan  # noqa: F401
+from . import sapiens_parsing  # noqa: F401
 from . import segmentation  # noqa: F401

@@ -155,6 +155,10 @@ class ViT(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         c = embedding_planes
+        # the JAX module's fields, which Sapiens' parsing model reads
+        self.patch_size, self.embedding_planes = patch_size, embedding_planes
+        self.block_nums, self.head_nums = block_nums, head_nums
+        self.feedforward_ratio = feedforward_ratio
         self.dropout_prob = dropout_prob
         self.global_pool = global_pool
         self.use_gradient_checkpoint = use_gradient_checkpoint

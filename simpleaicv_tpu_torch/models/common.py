@@ -31,8 +31,9 @@ from torch.utils import checkpoint as torch_checkpoint
 from ..ops.fused_bn import FusedBatchNorm
 
 __all__ = ["Linear", "Conv2d", "ConvTranspose2d", "BatchNorm", "LayerNorm",
-           "GroupNorm", "Embed", "ConvBnAct", "max_pool_same", "DropPath",
-           "dropout", "checkpoint", "resolve_device", "init_params"]
+           "GroupNorm", "InstanceNorm", "Embed", "ConvBnAct", "max_pool_same",
+           "DropPath", "dropout", "checkpoint", "resolve_device",
+           "init_params"]
 
 
 def resolve_device(device) -> torch.device:
@@ -86,23 +87,33 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     """flax ``nn.Conv(dtype=...)`` on NHWC tensors; weight OIHW (O, I /
     groups, kH, kW). ``dilation`` is flax's ``kernel_dilation``, ``groups``
-    its ``feature_group_count``."""
+    its ``feature_group_count``. Initialisers: lecun normal (flax's
+    default) or a normal of deviation ``normal_std``; the bias is
+    ``bias_fill``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
                  dtype: torch.dtype = torch.float32, dilation: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, normal_std: float | None = None,
+                 bias_fill: float = 0.0):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
         self.dilation, self.groups = dilation, groups
+        self.normal_std, self.bias_fill = normal_std, bias_fill
 
     def reset_parameters(self, generator):
-        _lecun_normal(self.weight, self.weight[0].numel(), generator)
+        if self.normal_std is None:
+            _lecun_normal(self.weight, self.weight[0].numel(), generator)
+        else:
+            with torch.no_grad():
+                self.weight.copy_(torch.randn(self.weight.shape,
+                                              generator=generator)
+                                  * self.normal_std)
         if self.bias is not None:
-            nn.init.zeros_(self.bias)
+            nn.init.constant_(self.bias, self.bias_fill)
 
     def forward(self, x):
         dt = self.dtype
@@ -113,18 +124,22 @@ class Conv2d(nn.Module):
 
 
 class ConvTranspose2d(nn.Module):
-    """flax ``nn.ConvTranspose(dtype=...)`` with kernel == stride on NHWC
-    tensors, computed in ``dtype`` from f32 parameters; weight IOHW as
-    torch stores it."""
+    """flax ``nn.ConvTranspose(dtype=...)`` on NHWC tensors, computed in
+    ``dtype`` from f32 parameters; weight IOHW as torch stores it, which
+    ``core.weights`` flips spatially against flax's kernel. ``padding`` is
+    torch's: flax's explicit padding ``p`` per side on the stride-dilated
+    input is torch's ``kernel_size - 1 - p`` (kernel 4, stride 2, flax
+    ((2, 2), (2, 2)) -> torch 1: exactly twice the input's size); with
+    kernel == stride both are 0."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, bias: bool = True,
+                 stride: int, padding: int = 0, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             in_channels, out_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
-        self.stride, self.dtype = stride, dtype
+        self.stride, self.padding, self.dtype = stride, padding, dtype
 
     def reset_parameters(self, generator):
         fan_in = self.weight.shape[0] * self.weight[0, 0].numel()
@@ -136,7 +151,8 @@ class ConvTranspose2d(nn.Module):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), b, self.stride)
+                               self.weight.to(dt), b, self.stride,
+                               self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -225,6 +241,25 @@ class GroupNorm(nn.Module):
         y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
                          self.weight, self.bias, self.eps)
         return y.permute(0, 2, 3, 1)
+
+
+class InstanceNorm(nn.Module):
+    """flax ``nn.InstanceNorm(epsilon=1e-5, use_bias=False,
+    use_scale=False)`` on an NHWC tensor, as flax 0.12 computes it: no
+    parameters; per sample and channel over H and W, in f32, ``E[x]`` and
+    ``max(E[x^2] - E[x]^2, 0)`` with no shift (``use_fast_variance``),
+    output ``(x - mean) * rsqrt(var + eps)`` in f32."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = torch.clamp(xf.square().mean(dim=(1, 2), keepdim=True)
+                          - mean.square(), min=0.0)
+        return (xf - mean) * torch.rsqrt(var + self.eps)
 
 
 class Embed(nn.Module):

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from ...core.registry import DECODERS
-from .dinodetr_decode import pad_detections, scaled_xyxy, top_sorted
+from .decode import pad_detections, top_sorted
+from .dinodetr_decode import scaled_xyxy
 
 __all__ = ["DETRDecoder"]
 

@@ -14,12 +14,11 @@ with invalid slots, as ``DETRDecoder`` pads; the JAX decoder raises there.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ...core.registry import DECODERS
-from ...ops.nms import nms_keep_mask
+from .decode import decode_batch
 
-__all__ = ["DINODETRDecoder", "scaled_xyxy", "top_sorted"]
+__all__ = ["DINODETRDecoder", "scaled_xyxy"]
 
 
 def scaled_xyxy(boxes, sizes):
@@ -32,22 +31,6 @@ def scaled_xyxy(boxes, sizes):
     scale = torch.stack([sizes[:, 1], sizes[:, 0], sizes[:, 1],
                          sizes[:, 0]], -1)[:, None, :]
     return xyxy * scale
-
-
-def top_sorted(scores, k: int):
-    """The ``k`` largest of each row [B, N] by descending score, ties to the
-    lower index (``jax.lax.top_k``'s order): (values, indices)."""
-    values, indices = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[:, :k], indices[:, :k]
-
-
-def pad_detections(scores, classes, boxes, count: int):
-    """Pads [B, k] scores and classes with -1 and [B, k, 4] boxes with 0 up
-    to ``count`` slots."""
-    pad = max(count - scores.shape[1], 0)
-    return (F.pad(scores, (0, pad), value=-1.0),
-            F.pad(classes, (0, pad), value=-1.0),
-            F.pad(boxes, (0, 0, 0, pad)))
 
 
 @DECODERS.register()
@@ -75,31 +58,6 @@ class DINODETRDecoder:
         probs = torch.sigmoid(preds["pred_logits"].float())
         scores, classes = probs.max(-1)
         boxes = scaled_xyxy(preds["pred_boxes"], scaled_sizes)
-
-        inf = torch.full_like(scores, -torch.inf)
-        masked = torch.where(scores > self.min_score_threshold, scores, inf)
-        top_s, top_i = top_sorted(masked, min(self.topn, scores.shape[1]))
-        top_valid = top_s > -torch.inf
-        top_b = boxes.gather(1, top_i[..., None].expand(-1, -1, 4))
-        top_c = classes.gather(1, top_i)
-        keep = top_valid
-        if self.nms_type:
-            nms_boxes = torch.where(top_valid[..., None], top_b,
-                                    torch.full_like(top_b, -1e8))
-            keep = nms_keep_mask(
-                nms_boxes, torch.where(top_valid, top_s,
-                                       torch.full_like(top_s, -1e9)),
-                self.nms_threshold, self.nms_type) & top_valid
-        final = torch.where(keep, top_s, torch.full_like(top_s, -torch.inf))
-        out_s, out_i = top_sorted(final, min(self.max_object_num,
-                                             final.shape[1]))
-        ok = out_s > -torch.inf
-        out = pad_detections(
-            torch.where(ok, out_s, torch.full_like(out_s, -1.0)),
-            torch.where(ok, top_c.gather(1, out_i).float(),
-                        torch.full_like(out_s, -1.0)),
-            torch.where(ok[..., None],
-                        top_b.gather(1, out_i[..., None].expand(-1, -1, 4)),
-                        torch.zeros((), device=top_b.device)),
-            self.max_object_num)
-        return [t.cpu().numpy() for t in out]
+        return decode_batch(scores, classes, boxes, self.max_object_num,
+                            self.min_score_threshold, self.topn,
+                            self.nms_type, self.nms_threshold)

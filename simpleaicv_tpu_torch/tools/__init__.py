@@ -5,7 +5,13 @@
     python -m simpleaicv_tpu_torch.tools.train_interactive_segmentation --work-dir <dir>
     python -m simpleaicv_tpu_torch.tools.test_interactive_segmentation --work-dir <dir>
     python -m simpleaicv_tpu_torch.tools.train_detr_detection --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.train_detection --work-dir <dir>
     python -m simpleaicv_tpu_torch.tools.test_detection --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.train_face_detection --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.test_face_detection --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.{train,test}_semantic_segmentation --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.{train,test}_salient_object_detection --work-dir <dir>
+    python -m simpleaicv_tpu_torch.tools.{train,test}_{face,human}_parsing --work-dir <dir>
     python -m simpleaicv_tpu_torch.tools.run_synthetic_smokes [filter ...]
 
 They run on the card; ``SIMPLEAICV_PLATFORM=cpu`` runs them on the CPU

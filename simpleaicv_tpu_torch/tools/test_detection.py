@@ -5,8 +5,10 @@
 reads ``<dir>/test_config.py``, restores ``trained_model_path`` (a port
 checkpoint, for example ``checkpoints/best``) onto the seeded model, logs
 its MACs and parameters, and runs the COCO evaluation once with the
-config's ``decoder``. It runs on the card, or on the CPU under
-``SIMPLEAICV_PLATFORM=cpu``.
+config's ``decoder``: a DETR-family one (which takes the collater's 'size')
+or a dense one (RetinaNet, FCOS). It runs on the card, or on the CPU under
+``SIMPLEAICV_PLATFORM=cpu``. The face-detection evaluation runs the same
+way over one class.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from ..tasks import detection
 from .common import load_test_config, parse_work_dir, restore_trained_params
 
 
-def main(argv=None):
-    """Returns the COCO statistics and 'key_metric' (mAP x 100)."""
-    args = parse_work_dir("detection evaluation", argv)
+def evaluate(description: str, argv=None, num_classes=None):
+    """Returns the COCO statistics and 'key_metric' (mAP x 100), over
+    ``num_classes`` classes (default: the config's)."""
+    args = parse_work_dir(description, argv)
     config = load_test_config(args)
     logger = get_logger("test")
     device = resolve_device(device_from_env())
@@ -47,11 +50,16 @@ def main(argv=None):
                         config.test_collater, shuffle=False, drop_last=False,
                         num_workers=getattr(config, "num_workers", 4))
     stats = detection.evaluate_coco(
-        model, config.decoder, loader, config.num_classes,
+        model, config.decoder, loader,
+        config.num_classes if num_classes is None else num_classes,
         lambda batch: batch_to_device(batch, device))
     for k, v in stats.items():
         logger.info(f"{k}: {v}")
     return stats
+
+
+def main(argv=None):
+    return evaluate("detection evaluation", argv)
 
 
 if __name__ == "__main__":

@@ -16,28 +16,13 @@ serves.
 
 from __future__ import annotations
 
-from ..core.platform import device_from_env
-from ..core.trainer import Trainer
 from ..tasks import detection
-from .common import load_train_config, parse_work_dir
+from .train_detection import train
 
 
 def main(argv=None):
-    args = parse_work_dir("DETR-family detection training", argv)
-    config = load_train_config(args)
-
-    def evaluate(eval_step, model, loader, to_device):
-        del eval_step
-        return detection.evaluate_coco(model, config.decoder, loader,
-                                       config.num_classes, to_device)
-
-    has_eval = (getattr(config, "test_dataset", None) is not None
-                and getattr(config, "decoder", None) is not None)
-    trainer = Trainer(config, args.work_dir,
-                      make_loss_fn=detection.make_detr_loss_fn,
-                      evaluate=evaluate if has_eval else None,
-                      device=device_from_env())
-    return trainer.run()
+    return train("DETR-family detection training", argv,
+                 make_loss_fn=detection.make_detr_loss_fn)
 
 
 if __name__ == "__main__":

@@ -1,19 +1,25 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 f32 compute on the JAX side, seeded numpy parameters and BatchNorm
-statistics for both sides, the tiny SAM and DINO-DETR configurations, a
-tiny port classifier for the runtime's tests, and a single-thread PyTorch
-context for files of many small ops."""
+statistics for both sides, the tiny SAM, DINO-DETR and Sapiens
+configurations, a tiny port classifier for the runtime's tests, a
+single-thread PyTorch context for files of many small ops, and the check
+of a train step's parameter changes against the JAX step's."""
 
 from __future__ import annotations
 
 import contextlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 from torch import nn
 
+from simpleaicv_tpu.core.registry import BACKBONES as JAX_BACKBONES
 from simpleaicv_tpu.models import common as jax_common
+from simpleaicv_tpu.models.backbones.vit import ViT as JaxViT
+from simpleaicv_tpu_torch.core.registry import BACKBONES
+from simpleaicv_tpu_torch.models.backbones.vit import ViT
 from simpleaicv_tpu_torch.models.common import ConvBnAct, Linear
 
 # sam_b at 256^2, 64 wide: the 16x16 token grid pads to 20 for 5x5 windows,
@@ -28,6 +34,25 @@ TINY_SAM = dict(image_encoder_embedding_planes=64, image_encoder_block_nums=2,
 TINY_DINO = dict(num_classes=8, query_nums=20, encoder_layer_nums=1,
                  decoder_layer_nums=2, hidden_inplanes=64,
                  feedforward_planes=128, dn_number=6)
+
+
+# Sapiens' ViT backbone cut to 64 wide, 2 blocks of 2 heads, patch 16; its
+# parsing head to (32, 16, 16, 8) and (8, 8, 8, 8) planes
+TINY_SAPIENS_BACKBONE = dict(patch_size=16, embedding_planes=64,
+                             block_nums=2, head_nums=2, feedforward_ratio=4)
+TINY_SAPIENS = dict(backbone_type="tiny_sapiens",
+                    deconv_planes=(32, 16, 16, 8), conv_planes=(8, 8, 8, 8))
+
+
+def register_tiny_sapiens():
+    """Registers ``tiny_sapiens`` in both packages' backbone registries
+    (once per process)."""
+    if "tiny_sapiens" not in BACKBONES:
+        BACKBONES.register("tiny_sapiens")(
+            lambda **kw: ViT(**TINY_SAPIENS_BACKBONE, **kw))
+    if "tiny_sapiens" not in JAX_BACKBONES:
+        JAX_BACKBONES.register("tiny_sapiens")(
+            lambda **kw: JaxViT(**TINY_SAPIENS_BACKBONE, **kw))
 
 
 @contextlib.contextmanager
@@ -133,3 +158,47 @@ class TinyClassifier(nn.Module):
 
     def forward(self, x, generator=None):
         return self.fc(self.stem(x, self.training).mean(dim=(1, 2)))
+
+
+def assert_updates_agree(got, want, start, opt):
+    """A train step's parameter changes (nested trees ``got`` and ``want``
+    after the step, ``start`` before it) against the JAX step's, for the
+    optimizer ``opt`` (an ``OptimizerConfig``'s fields). The train-mode
+    gradients part by rounding: train-mode BatchNorm at batch 2 amplifies
+    the f32 rounding of its batch statistics, which the two sides sum in
+    other orders (as ``tests/test_torch_segmentation_task.py`` found for
+    DeepLabV3+). SGD's change is the gradient's: each leaf's within 5% of
+    the JAX change in L2, at a cosine above 0.99, and a leaf that JAX
+    leaves alone (a level without positives: RetinaFace's last box
+    convolution's bias) stays. AdamW's first change is about lr times the
+    sign of each gradient element, so where rounding flips a sign near 0
+    the two sides part by 2 lr: no element by more than 2 lr, at most 0.5%
+    of them by more than lr / 10, and the whole change at a cosine above
+    0.99 (1 - 2 x 0.5%)."""
+    got, want, start = (flatten_tree(jax.tree.map(np.asarray, t))
+                        for t in (got, want, start))
+    assert set(got) == set(want) == set(start)
+    lr, far, total = opt["lr"], 0, 0
+    flat_g, flat_w = [], []
+    for path, w in want.items():
+        dw, dg = w - start[path], got[path] - start[path]
+        if opt["name"] == "SGD":
+            norm = np.linalg.norm(dw)
+            if norm == 0:
+                assert not dg.any(), path
+                continue
+            assert np.linalg.norm(dg - dw) <= 0.05 * norm, path
+            cos = np.dot(dg.ravel(), dw.ravel()) / (np.linalg.norm(dg) * norm)
+            assert cos > 0.99, (path, cos)
+        else:
+            diff = np.abs(dg - dw)
+            assert diff.max() <= 2 * lr * (1 + 1e-2), (path, diff.max())
+            far += int((diff > 0.1 * lr).sum())
+            total += diff.size
+            flat_g.append(dg.ravel())
+            flat_w.append(dw.ravel())
+    if opt["name"] != "SGD":
+        assert far <= 0.005 * total, (far, total)
+        dg, dw = np.concatenate(flat_g), np.concatenate(flat_w)
+        cos = np.dot(dg, dw) / (np.linalg.norm(dg) * np.linalg.norm(dw))
+        assert cos > 0.99, cos

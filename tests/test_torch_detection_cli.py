@@ -13,6 +13,8 @@ import pytest
 from simpleaicv_tpu_torch.tools import test_detection as test_cli
 from simpleaicv_tpu_torch.tools import train_detr_detection as train_cli
 
+from _torch_port import one_torch_thread
+
 REPO = Path(__file__).resolve().parent.parent
 RECIPES = REPO / "experiments/3.detection_training/fake_synthetic"
 EVAL_SET = '''FakeDetectionDataset(
@@ -23,6 +25,12 @@ EVAL_SET = '''FakeDetectionDataset(
             Normalize(),
         ]))
     decoder = DECODERS.create("{decoder}", num_classes=num_classes)'''
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    with one_torch_thread():
+        yield
 
 
 def _shrunk_recipe(work_dir, name, epochs, restore=True):

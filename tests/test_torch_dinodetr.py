@@ -31,7 +31,7 @@ from simpleaicv_tpu_torch.core.weights import (export_jax_batch_stats,
 from simpleaicv_tpu_torch.models.common import init_params
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
 
-from _torch_port import (TINY_DINO, flatten_tree, jax_f32,
+from _torch_port import (TINY_DINO, flatten_tree, jax_f32, one_torch_thread,
                          random_batch_stats, random_params)
 
 IMG = 128
@@ -46,6 +46,12 @@ OPT = dict(name="AdamW", lr=1e-4, weight_decay=1e-4,
            no_weight_decay_layer_name_list=(), clip_max_norm=0.1)
 SCHED = dict(scheduler="MultiStepLR", lr=1e-4, epochs=39, warm_up_epochs=0,
              gamma=0.1, milestones=(33,))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    with one_torch_thread():
+        yield
 
 
 def _annotations():

@@ -27,7 +27,8 @@ from simpleaicv_tpu_torch.data.interactive_segmentation import (
     FakeSAMSegmentationDataset, SAMBatchCollater)
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as port_task
 
-from _torch_port import TINY_SAM, flatten_tree, jax_f32, random_params
+from _torch_port import (TINY_SAM, flatten_tree, jax_f32, one_torch_thread,
+                         random_params)
 
 IMG = 256   # the global layer's 16x16 = 256 tokens take the flash path
 PROMPTS = ("prompt_point", "prompt_box", "prompt_mask")
@@ -36,6 +37,12 @@ OPT = dict(name="AdamW", lr=1e-4, weight_decay=1e-4,
            global_weight_decay=False, no_weight_decay_layer_name_list=())
 SCHED = dict(scheduler="CosineLR", lr=1e-4, epochs=4, warm_up_epochs=1)
 STEPS_PER_EPOCH = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    with one_torch_thread():
+        yield
 
 
 def _to_torch(batch):

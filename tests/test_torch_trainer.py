@@ -42,10 +42,17 @@ from simpleaicv_tpu_torch.data.datasets import (FakeClassificationDataset,
 from simpleaicv_tpu_torch.losses import CELoss
 from simpleaicv_tpu_torch.tasks import classification as port_task
 
-from _torch_port import TinyClassifier, flatten_tree, jax_f32
+from _torch_port import (TinyClassifier, flatten_tree, jax_f32,
+                         one_torch_thread)
 
 REPO = Path(__file__).resolve().parent.parent
 RECIPE = REPO / "experiments/0.classification_training/fake_synthetic/resnet18"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    with one_torch_thread():
+        yield
 
 
 def _recipe(**fields):
