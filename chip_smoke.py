@@ -101,9 +101,37 @@ Phases, each of which raises (exit code 1) on failure:
      resnet18_retinaface through their CLIs, and Sapiens-0.3B through the
      face-parsing CLIs on 16 synthetic images, in this process;
  22. fcos_learns: trains resnet18_fcos on 64 synthetic 96x96 images for 16
-     epochs and fails unless its best mAP reaches 30.
-The paths of phases 13-22 launch no hand kernel, which each checks. The
-script prints its total time.
+     epochs and fails unless its best mAP reaches 30;
+ 23. moe_train: takes ViT-MoE-B/16 224x224 bf16 train steps at batch 128
+     (the imagenet/vit_moe_base_patch16 recipe's model fields: global pool,
+     drop-path 0.1, 8 experts, top-2, capacity factor 1.25; flash attention
+     on; OneHotLabelCELoss plus 0.01 x the MoE auxiliary loss; AdamW with
+     layer decay 0.75 and no decay on the router; CosineLR) on a resident
+     batch, counts K1-K3 (12 launches each a step, none narrow), prints the
+     share of token choices dropped past capacity, profiles one step,
+     replays the routing alone (router, positions, dispatch and combine)
+     for its share, and holds one MoE layer's index dispatch against the
+     one-hot form at batch 16;
+ 24. mae_train: the imagenet/vit_base_mae recipe (ViT-B/16 encoder, 8-block
+     512-wide decoder, mask ratio 0.75, MAEMSELoss, AdamW at beta2 0.95) at
+     batch 256, cut from 1024, on a resident batch;
+ 25. kd_train: the imagenet/resnet152_to_resnet50_kd recipe (frozen R152
+     teacher, R50 student, CE + KD at T 1, SGD 0.1) at batch 128, cut from
+     256, and fails if the teacher's BatchNorm statistics move;
+ 26. deviceaug_train: the ResNet-50 step at batch 128 on resident uint8
+     batches through ``make_train_step``'s ``augment_fn``, with the
+     imagenet/vit_base_patch16_deviceaug pipeline (RandAugment(2, 9),
+     erasing 0.25, mixup/cutmix) and with AutoAugment v0, times the
+     augmentation alone beside the step, and holds the card's augmented
+     batch against the CPU's on the same draws;
+ 27. cls_cli: trains fake_synthetic/vit_moe_tiny, resnet18_kd, tiny_vit_mae
+     and resnet18_deviceaug through the port's train CLIs in this process,
+     and tests vit_moe_tiny and resnet18_deviceaug through
+     ``tools.test_classification``.
+Phases 23-27 print images/s, ms a step, peak memory, the idle share and the
+top rows of one profiled step where they train on a resident batch. The
+paths of phases 13-22 and 24-27 launch no hand kernel, which each checks.
+The script prints its total time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -157,13 +185,23 @@ from simpleaicv_tpu_torch.perf.msda_split import (DINO_BATCH, DINO_LEVELS,
 from simpleaicv_tpu_torch.perf.timing import alternating_ms as _alternating
 from simpleaicv_tpu_torch.perf.timing import bound as _bound
 from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
+from simpleaicv_tpu_torch.data import device_augment as dev_aug
+from simpleaicv_tpu_torch.parallel import moe
 from simpleaicv_tpu_torch.tasks import binary_segmentation as bseg_task
+from simpleaicv_tpu_torch.tasks import distillation as kd_task
+from simpleaicv_tpu_torch.tasks import mae as mae_task
 from simpleaicv_tpu_torch.tasks import detection as det_task
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
+from simpleaicv_tpu_torch.tools import test_classification as cls_test_cli
 from simpleaicv_tpu_torch.tools import test_detection as det_test_cli
+from simpleaicv_tpu_torch.tools import train_classification as cls_train_cli
+from simpleaicv_tpu_torch.tools import train_distill_classification as \
+    kd_train_cli
+from simpleaicv_tpu_torch.tools import train_mae_self_supervised as \
+    mae_train_cli
 from simpleaicv_tpu_torch.tools import test_face_detection as \
     face_det_test_cli
 from simpleaicv_tpu_torch.tools import test_face_parsing as \
@@ -3868,12 +3906,13 @@ class config:
 
 
 def _experiment_cli(card, path, rel, train_cli, test_cli):
-    """A repository experiment (``experiments/<rel>``) through its train and
-    test CLIs in this process, in a scratch copy whose test config restores
-    the best checkpoint. Prints the seconds, peak memory and the metrics;
-    fails when a CLI raises, writes no best checkpoint or logs no
-    evaluation, or when a hand kernel was launched. Returns the
-    launches."""
+    """A repository experiment (``experiments/<rel>``) through its train CLI
+    and, where its family has one (``test_cli`` not None), its test CLI, in
+    this process, in a scratch copy whose test config restores the best
+    checkpoint. Prints the seconds, peak memory and the metrics; fails when
+    a CLI raises or writes no best checkpoint, when a family with a test
+    CLI logs no evaluation or tests another metric than the best, or when a
+    hand kernel was launched. Returns the launches."""
     import os
     import shutil
     import tempfile
@@ -3898,9 +3937,11 @@ def _experiment_cli(card, path, rel, train_cli, test_cli):
         t0 = time.perf_counter()
         best = train_cli.main(argv)
         train_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        metrics = test_cli.main(argv)
-        test_s = time.perf_counter() - t0
+        metrics, test_s = None, 0.0
+        if test_cli is not None:
+            t0 = time.perf_counter()
+            metrics = test_cli.main(argv)
+            test_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = _no_hand_kernel(path)
         if not os.path.isfile(os.path.join(work_dir, "checkpoints", "best")):
@@ -3908,15 +3949,19 @@ def _experiment_cli(card, path, rel, train_cli, test_cli):
         with open(os.path.join(work_dir, "log", "train.log")) as f:
             log = f.read()
     evals = [ln for ln in log.splitlines() if " eval: {" in ln]
-    print(f"{path}: {rel}: train CLI {train_s:.1f} s ({len(evals)} epochs "
-          f"with their evaluation), test CLI {test_s:.1f} s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]; "
-          f"best mAP x 100 {best:.6f}; test CLI key metric "
-          f"{metrics.get('key_metric')}", flush=True)
-    if not evals or abs(metrics["key_metric"] - best) > 1e-6:
-        raise RuntimeError(f"{rel}: no evaluation logged, or the test CLI's "
-                           f"{metrics.get('key_metric')} is not the best "
-                           f"{best}")
+    epochs = [ln for ln in log.splitlines() if " done; loss " in ln]
+    tested = None if metrics is None else metrics.get("key_metric")
+    print(f"{path}: {rel}: train CLI {train_s:.1f} s ({len(epochs)} epochs, "
+          f"{len(evals)} with their evaluation), test CLI {test_s:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]; best key metric {best:.6f} (mAP, top-1 x 100; minus "
+          f"the loss without an evaluation); test CLI key metric {tested}; "
+          f"{epochs[-1].split(' - ')[-1] if epochs else 'no epoch'}",
+          flush=True)
+    if not epochs or not np.isfinite(best) or metrics is not None and (
+            not evals or abs(tested - best) > 1e-6):
+        raise RuntimeError(f"{rel}: no epoch or evaluation logged, or the "
+                           f"test CLI's {tested} is not the best {best}")
     return launches
 
 
@@ -3969,6 +4014,400 @@ def phase_fcos_learns(card):
     return launches
 
 
+# ---------------------------------------------------------------- slice 15
+
+MOE_RECIPE_OPT = ("AdamW", {"lr": 1e-3, "global_weight_decay": False,
+                            "weight_decay": 0.05, "beta1": 0.9,
+                            "beta2": 0.999,
+                            "no_weight_decay_layer_name_list": [
+                                "position_encoding", "cls_token", "router"],
+                            "lr_layer_decay": 0.75,
+                            "lr_layer_decay_block_nums": 12,
+                            "block_name": "blocks"})
+MOE_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 5, "min_lr": 1e-6})
+MAE_BATCH = 256  # the imagenet/vit_base_mae recipe's 1024, cut
+MAE_RECIPE_OPT = ("AdamW", {"lr": 1.5e-4 * 1024 / 256, "beta1": 0.9,
+                            "beta2": 0.95, "global_weight_decay": False,
+                            "weight_decay": 0.05,
+                            "no_weight_decay_layer_name_list": [
+                                "cls_token", "mask_token"]})
+MAE_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 40})
+KD_BATCH = 128  # the resnet152_to_resnet50_kd recipe's 256, cut
+KD_RECIPE_OPT = ("SGD", {"lr": 0.1, "momentum": 0.9,
+                         "global_weight_decay": False, "weight_decay": 1e-4,
+                         "no_weight_decay_layer_name_list": []})
+KD_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 5})
+KD_LOSS_LIST = [{"loss_name": "CELoss", "loss_ratio": 1.0},
+                {"loss_name": "KDLoss", "loss_ratio": 1.0, "T": 1.0}]
+# epochs cut to 4 steps, so that a warm-up spans a few steps of this run
+RECIPE_STEPS_PER_EPOCH = 4
+
+
+def _moe_layers(model):
+    return [m for m in model.modules() if isinstance(m, moe.MoEFeedForward)]
+
+
+def _routing_alone(layer, xt):
+    """A callable running one MoE layer's routing alone, forward and
+    backward: the router, the positions, the dispatch gather into the expert
+    buffers and the combine gather, with the experts' FFN left out (the
+    buffers go straight to the combine)."""
+    xt = xt.detach().requires_grad_()
+    e, cap = layer.num_experts, layer.capacity(xt.shape[0])
+
+    def run():
+        xt.grad = None
+        layer.router.grad = None
+        _, slots, gates, aux = layer.route(xt)
+        out = moe.dispatch(xt, slots, cap, e).float()
+        y = moe.combine(out.reshape(e * cap, -1), slots, gates)
+        (y.sum() + aux).backward()
+
+    return run
+
+
+def _moe_dispatch_vs_one_hot(card, batch=16):
+    """One MoE layer's index dispatch and combine against the one-hot
+    einsums (``top_k_dispatch``, the JAX formula, which shares no code with
+    the index routing) on the card at ``batch`` images of 197 tokens: the
+    expert buffers exactly, the combine to 1e-6 of its scale, and the
+    card's slots equal to the CPU's on the same probabilities."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t, e, c = batch * 197, 8, 768
+    layer = init_params(moe.MoEFeedForward(c, 4 * c, num_experts=e, top_k=2),
+                        torch.Generator().manual_seed(0)).cuda()
+    cap = layer.capacity(t)
+    xt = torch.randn(t, c, generator=g, device="cuda").bfloat16()
+    _, slots, gates, _ = layer.route(xt)
+    probs = torch.softmax(xt.float() @ layer.router, -1)
+    one_hot, gated, _ = moe.top_k_dispatch(probs, cap, 2)
+    cpu_slots, _, _ = moe.top_k_route(probs.cpu(), cap, 2)
+    same_slots = all(torch.equal(a.cpu(), b) for a, b in zip(slots,
+                                                              cpu_slots))
+    buffers = moe.dispatch(xt, slots, cap, e)
+    want = torch.einsum("tec,td->ecd", one_hot, xt.float())
+    out = torch.randn(e * cap, c, generator=g, device="cuda")
+    y = moe.combine(out, slots, gates)
+    y_ref = torch.einsum("tec,ecd->td", gated, out.reshape(e, cap, c))
+    err = ((y - y_ref).abs().max() / y_ref.abs().max()).item()
+    exact = torch.equal(buffers.float(), want)
+    print(f"moe_train: one MoE layer's index dispatch against the one-hot "
+          f"form at batch {batch} (T {t}, Cap {cap}, [T, E, Cap] f32 "
+          f"{one_hot.numel() * 4 / 1e6:.0f} MB) [{card}]: expert buffers "
+          f"{'equal' if exact else 'DIFFER'}, combine max error {err:.3e} of "
+          f"its scale, slots {'equal to' if same_slots else 'DIFFER from'} "
+          f"the CPU's", flush=True)
+    if not exact or err > 1e-6 or not same_slots:
+        raise RuntimeError("the MoE index dispatch disagrees with the "
+                           "one-hot form")
+
+
+def phase_moe_train(card, warm_up=2, timed=6):
+    """ViT-MoE-B/16 at 224^2, bf16, batch 128, with the
+    imagenet/vit_moe_base_patch16 recipe's model fields (global pool,
+    drop-path 0.1, 8 experts, top-2, capacity factor 1.25), flash attention
+    on, OneHotLabelCELoss plus 0.01 x the MoE auxiliary loss, the recipe's
+    AdamW (layer decay 0.75, no decay on the router) and CosineLR, through
+    ``make_train_step`` on a resident batch. K1-K3: 12 launches each a
+    step, none narrow. Returns (the launches of the timed run, images
+    per second)."""
+    t0 = time.perf_counter()
+    model = init_params(BACKBONES.create(
+        "vit_moe_base_patch16", image_size=224, num_classes=1000,
+        global_pool=True, drop_path_prob=0.1, num_experts=8, top_k=2,
+        capacity_factor=1.25, use_flash_attention=True),
+        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, MOE_RECIPE_OPT, MOE_RECIPE_SCHED, 100,
+                          RECIPE_STEPS_PER_EPOCH)
+    step = make_train_step(make_loss_fn(LOSSES.create("OneHotLabelCELoss"),
+                                        moe_aux_weight=0.01), EngineConfig())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g,
+                           device="cuda")
+    batch = {"image": torch.randn(TRAIN_BATCH, 224, 224, 3, generator=g,
+                                  device="cuda"),
+             "label": torch.nn.functional.one_hot(labels, 1000).float()}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vit_moe_base_patch16 224^2 bf16 ({n_params} parameters, "
+          f"{len(_moe_layers(model))} MoE layers), its AdamW state and a "
+          f"resident batch of {TRAIN_BATCH} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = dict(fa.KERNEL_LAUNCHES)
+    steps = warm_up + timed
+    print(f"moe_train: kernel launches "
+          f"{ {k: launches[k] for k in TRAIN_KERNELS} } over {steps} steps "
+          f"(12 per step each expected)", flush=True)
+    if any(launches[k] != 12 * steps for k in TRAIN_KERNELS):
+        raise RuntimeError("the ViT-MoE step did not launch each flash "
+                           "kernel 12 times")
+    _wide_kernels_only("the ViT-MoE train step")
+    dropped = [float(m.dropped) for m in _moe_layers(model)]
+    aux = moe.moe_aux_loss(model).item()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = TRAIN_BATCH / step_ms * 1e3
+    print(f"moe_train: ViT-MoE-B/16 224^2 bf16 training, batch "
+          f"{TRAIN_BATCH} [{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per "
+          f"step over {timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; last step's summed "
+          f"auxiliary loss {aux:.4f}; share of token choices dropped past "
+          f"capacity by layer {' '.join(f'{d:.4f}' for d in dropped)} "
+          f"(mean {np.mean(dropped):.4f}); expert products' route: "
+          f"torch.bmm(out_dtype=float32), the backward's on the f32 "
+          f"gradient in two bf16 parts", flush=True)
+    busy_ms = _profiled_step(card, "ViT-MoE-B/16", step, state, batch,
+                             step_ms)
+    # the routing of each MoE layer replayed alone on a layer input of the
+    # step's shape (the normalised residual stream, bf16)
+    seen = {}
+    layer = _moe_layers(model)[0]
+    hook = layer.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0].detach()))
+    with torch.no_grad():
+        model(batch["image"])
+    hook.remove()
+    xt = seen["x"].reshape(-1, seen["x"].shape[-1])
+    routing = _routing_alone(layer, xt)
+    ms = _cuda_ms(routing, 10) * len(_moe_layers(model))
+    print(f"  replayed the routing alone (router, positions, dispatch and "
+          f"combine gathers, forward + backward) x {len(_moe_layers(model))}"
+          f" layers: {ms:.3f} ms, {100 * ms / busy_ms:.1f}% of the step's "
+          f"busy time [{card}]; one layer's rows:", flush=True)
+    one_ms, events = _profile_device(routing)
+    _print_rows(events, one_ms, 8)
+    del state, model, step, batch, seen, xt
+    torch.cuda.empty_cache()
+    _moe_dispatch_vs_one_hot(card)
+    return launches, ips
+
+
+def phase_mae_train(card, warm_up=2, timed=6):
+    """The imagenet/vit_base_mae recipe: ViT-B/16 encoder, an 8-block
+    512-wide decoder, mask ratio 0.75, MAEMSELoss, AdamW at beta2 0.95,
+    bf16, at batch 256 (cut from 1024) on a resident batch. No hand
+    kernel. Returns (the launches: none, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create(
+        "vit_base_patch16_224_mae_pretrain_model"),
+        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, MAE_RECIPE_OPT, MAE_RECIPE_SCHED, 400,
+                          RECIPE_STEPS_PER_EPOCH)
+    step = make_train_step(mae_task.make_loss_fn(LOSSES.create("MAEMSELoss")),
+                           EngineConfig())
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"image": torch.randn(MAE_BATCH, 224, 224, 3, generator=g,
+                                  device="cuda")}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vit_base_patch16_224_mae_pretrain_model 224^2 bf16 ({n_params} "
+          f"parameters), its AdamW state and a resident batch of "
+          f"{MAE_BATCH} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel("mae_train")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = MAE_BATCH / step_ms * 1e3
+    print(f"mae_train: ViT-B/16 MAE 224^2 bf16 pretraining, batch "
+          f"{MAE_BATCH} [{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per "
+          f"step over {timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the MAE loss did not fall: {losses}")
+    _profiled_step(card, "MAE", step, state, batch, step_ms)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_kd_train(card, warm_up=2, timed=6):
+    """The imagenet/resnet152_to_resnet50_kd recipe: a frozen R152 teacher
+    and an R50 student, CE + KD at T 1, SGD 0.1, 224^2, bf16, batch 128
+    (cut from 256) on a resident batch; the teacher's BatchNorm statistics
+    must not move. No hand kernel. Returns (the launches: none, images per
+    second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create(
+        "KDTeacherStudent", teacher_type="resnet152",
+        student_type="resnet50", num_classes=1000),
+        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, KD_RECIPE_OPT, KD_RECIPE_SCHED, 300,
+                          RECIPE_STEPS_PER_EPOCH)
+    step = make_train_step(kd_task.make_loss_fn(
+        kd_task.build_criterion_list(KD_LOSS_LIST)), EngineConfig())
+    g = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"image": torch.randn(KD_BATCH, 224, 224, 3, generator=g,
+                                  device="cuda"),
+             "label": torch.randint(0, 1000, (KD_BATCH,), generator=g,
+                                    device="cuda")}
+    stats = {k: v.clone() for k, v in model.teacher.state_dict().items()
+             if "running" in k}
+    print(f"KDTeacherStudent resnet152 -> resnet50 224^2 bf16, its SGD "
+          f"state and a resident batch of {KD_BATCH} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_hand_kernel("kd_train")
+    moved = [k for k, v in model.teacher.state_dict().items()
+             if "running" in k and not torch.equal(v, stats[k])]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = KD_BATCH / step_ms * 1e3
+    print(f"kd_train: R152 -> R50 distillation 224^2 bf16, batch {KD_BATCH} "
+          f"[{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per step over "
+          f"{timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; teacher BatchNorm "
+          f"statistics moved in {len(moved)} of {len(stats)} buffers",
+          flush=True)
+    if moved:
+        raise RuntimeError(f"the frozen teacher's statistics moved: "
+                           f"{moved[:4]}")
+    _profiled_step(card, "KD", step, state, batch, step_ms)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def _to_device(tree, device):
+    """A nest of dicts, lists and tuples with its tensors on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+# pixels a rotated image may move between the card and the CPU: the bound
+# tests/test_torch_device_augment.py holds (torch's f32 cos/sin against
+# XLA's moved at most 5 of 224^2 over 20,000 angles)
+ROTATED_PX = 32
+
+
+def _augment_vs_cpu(card, label, pipe, batch):
+    """The card's augmented batch against the CPU's on the same draws (the
+    card's): the augment stage's lattice off by more than one level only in
+    rotated images, at most ROTATED_PX pixels in each, at most 0.5% of its
+    pixels off at all; the final batch
+    the same share, the labels to 1e-6 (the tests' bound)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    draws = pipe.draw(batch, g)
+    out = pipe.apply(batch, draws)
+    lattice = pipe.augment.apply(batch["image"].float(), draws["augment"])
+    cpu_draws = _to_device(draws, "cpu")
+    cpu_batch = _to_device(batch, "cpu")
+    t0 = time.perf_counter()
+    ref = pipe.apply(cpu_batch, cpu_draws)
+    cpu_s = time.perf_counter() - t0
+    ref_lattice = pipe.augment.apply(cpu_batch["image"].float(),
+                                     cpu_draws["augment"])
+    rotated = torch.zeros(batch["image"].shape[0], dtype=torch.bool)
+    for apply, _, cls, kind in cpu_draws["augment"]["slots"]:
+        rotated |= apply & (cls == dev_aug._CLS_GEOM) & (
+            kind == dev_aug._G_ROT)
+    diff = (lattice.cpu() - ref_lattice).abs()
+    far = (diff > 1).any(-1).sum((1, 2))
+    off = (diff > 0).any(-1).float().mean().item()
+    final_off = ((out["image"].cpu() - ref["image"]).abs() > 1e-6).any(
+        -1).float().mean().item()
+    label_err = (out["label"].cpu() - ref["label"]).abs().max().item()
+    print(f"  {label}: card against CPU on the same draws: {int(rotated.sum())}"
+          f" rotated images, pixels off by more than a level "
+          f"{int(far[rotated].sum())} in them and {int(far[~rotated].sum())} "
+          f"elsewhere; lattice pixels off {off:.2e}, final {final_off:.2e}; "
+          f"label max error {label_err:.1e}; the CPU's apply took "
+          f"{cpu_s:.1f} s [{card}]", flush=True)
+    if (far[~rotated] > 0).any() or (far[rotated] > ROTATED_PX).any() \
+            or off > 5e-3 or final_off > 5e-3 or label_err > 1e-6:
+        raise RuntimeError(f"{label}: the card's augmented batch parts from "
+                           f"the CPU's beyond the stated bound")
+
+
+def phase_deviceaug_train(card, warm_up=2, timed=6):
+    """The ResNet-50 step at 224^2, batch 128, on resident uint8 batches
+    through ``make_train_step``'s ``augment_fn``: the
+    imagenet/vit_base_patch16_deviceaug pipeline (RandAugment(2, 9),
+    erasing 0.25, mixup/cutmix) and AutoAugment v0 in its place; the
+    augmentation timed alone beside the step, and the card's augmented
+    batch held against the CPU's. No hand kernel. Returns (the launches:
+    none, images per second of each pipeline)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"image": torch.randint(0, 256, (RESNET_BATCH, 224, 224, 3),
+                                    generator=g, device="cuda").to(
+                                        torch.uint8),
+             "label": torch.randint(0, 1000, (RESNET_BATCH,), generator=g,
+                                    device="cuda")}
+    launches, rates = {}, {}
+    for label, augment in (("RandAugment(2, 9)",
+                            dev_aug.DeviceRandAugment(2, 9)),
+                           ("AutoAugment v0",
+                            dev_aug.DeviceAutoAugment("v0"))):
+        pipe = dev_aug.DeviceAugmentPipeline(
+            augment=augment, erasing=dev_aug.DeviceRandomErasing(prob=0.25),
+            mixupcutmix=dev_aug.DeviceMixupCutmix(
+                use_mixup=True, mixup_alpha=0.8, cutmix_alpha=1.0,
+                num_classes=1000))
+        model = _resnet50()
+        state = _resnet_state(model)
+        step = make_train_step(make_loss_fn(
+            LOSSES.create("OneHotLabelCELoss")), RESNET_CFG, augment_fn=pipe)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+        launches.update(_no_hand_kernel("deviceaug_train"))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        aug_ms = _cuda_ms(lambda: pipe(batch, gen), 10)
+        rates[label] = RESNET_BATCH / step_ms * 1e3
+        print(f"deviceaug_train: ResNet-50 224^2 bf16 on uint8 batches with "
+              f"{label} + erasing 0.25 + mixup/cutmix, batch {RESNET_BATCH} "
+              f"[{card}]: {rates[label]:.2f} images/s, {step_ms:.2f} ms per "
+              f"step over {timed} steps, the augmentation alone "
+              f"{aug_ms:.3f} ms ({100 * aug_ms / step_ms:.1f}% of the step),"
+              f" peak memory {peak_gib:.2f} GiB; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+        _profiled_step(card, f"ResNet-50 + {label}", step, state, batch,
+                       step_ms, top=10)
+        _augment_vs_cpu(card, label, pipe, batch)
+        del state, model, step
+        torch.cuda.empty_cache()
+    return launches, rates
+
+
+def phase_cls_cli(card):
+    """fake_synthetic/{vit_moe_tiny, resnet18_kd, tiny_vit_mae,
+    resnet18_deviceaug} through the port's train CLIs in this process, and
+    test_classification where the family has a test CLI. No hand kernel
+    (the tiny ViT-MoE config leaves flash off)."""
+    launches = {}
+    for rel, train_cli, test_cli in (
+            ("0.classification_training/fake_synthetic/vit_moe_tiny",
+             cls_train_cli, cls_test_cli),
+            ("1.distillation_training/fake_synthetic/resnet18_kd",
+             kd_train_cli, None),
+            ("2.masked_image_modeling_training/fake_synthetic/tiny_vit_mae",
+             mae_train_cli, None),
+            ("0.classification_training/fake_synthetic/resnet18_deviceaug",
+             cls_train_cli, cls_test_cli)):
+        launches.update(_experiment_cli(card, "cls_cli", rel, train_cli,
+                                        test_cli))
+    return launches
+
+
+def _slice_15(card):
+    """The phases of slice 15: {path: launches}."""
+    paths = {}
+    paths["moe_train"], _ = phase_moe_train(card)
+    paths["mae_train"], _ = phase_mae_train(card)
+    paths["kd_train"], _ = phase_kd_train(card)
+    paths["deviceaug_train"], _ = phase_deviceaug_train(card)
+    paths["cls_cli"] = phase_cls_cli(card)
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -3995,6 +4434,7 @@ def main():
     parity = phase_dense_parity(card)
     dense_cli = phase_dense_cli(card, sapiens_ips)
     fcos_learns = phase_fcos_learns(card)
+    slice_15 = _slice_15(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -4003,7 +4443,9 @@ def main():
     # CLIs, which run the same model in their own processes, are checked by
     # their output. The SAM and DINO-DETR CLIs run in this process: their
     # counts are their own paths'. The DeepLabV3+, PFAN, dense-detection and
-    # Sapiens paths launch no hand kernel, which their phases check.
+    # Sapiens paths launch no hand kernel, which their phases check; nor do
+    # the MAE, distillation, device-augmentation and slice-15 CLI paths.
+    # ViT-MoE's step launches K1-K3 12 times each (``moe_train``).
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
@@ -4012,7 +4454,7 @@ def main():
              "seg_learns": seg_learns, "fcos_train": fcos,
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
-             "fcos_learns": fcos_learns}
+             "fcos_learns": fcos_learns, **slice_15}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -16,6 +16,15 @@ from torch import nn
 __all__ = ["count_params", "compute_macs_and_params", "format_macs_params"]
 
 
+def _bmm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs):
+    """The operations of ``aten.bmm``, its ``out_dtype`` overload included
+    (the MoE expert products): the counter's own formula takes that
+    overload's third argument, the dtype, for the output shape and
+    raises."""
+    b, m, k = a_shape
+    return 2 * b * m * k * b_shape[2]
+
+
 def count_params(model: nn.Module) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
@@ -34,7 +43,8 @@ def compute_macs_and_params(model: nn.Module, example_input):
     try:
         for p, _ in grads:
             p.requires_grad_(False)
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False, custom_mapping={
+                torch.ops.aten.bmm: _bmm_flop}) as counter:
             model(example_input)
     finally:
         for p, req in grads:

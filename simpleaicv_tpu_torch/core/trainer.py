@@ -15,9 +15,12 @@ Against the JAX ``Trainer``:
   stream, the next batch's copy while the current step runs;
 * the loss and the learning rate are read on the host at the print
   interval only (the engine's step itself reads one finiteness flag);
-* a config with ``device_augment`` raises: on-device augmentation is not
-  ported, and training without it would be another recipe. Packed datasets
-  are not ported either; a config that names one fails when it is loaded.
+* a config's ``device_augment`` (``data.device_augment``'s pipeline) is
+  the engine step's ``augment_fn``, run on the card's batch before the
+  forward, drawing from the step's generator; packed datasets are not
+  ported, and a config that names one fails when it is loaded;
+* a config's ``moe_aux_weight`` goes to ``make_loss_fn`` (the MoE
+  recipes'), as the JAX Trainer passes it.
 """
 
 from __future__ import annotations
@@ -121,10 +124,6 @@ class Trainer:
         self.work_dir = os.path.abspath(work_dir)
         self.logger = get_logger("train", os.path.join(self.work_dir, "log"))
         self.device = resolve_device(device)
-        if getattr(config, "device_augment", None) is not None:
-            raise NotImplementedError(
-                "device_augment (simpleaicv_tpu/data/device_augment.py) is "
-                "not ported: this config cannot train on the port")
 
         # ---- model ----
         self.model = config.model
@@ -187,8 +186,12 @@ class Trainer:
         )
         self.state = create_train_state(self.model, optimizer,
                                         self.engine_cfg, self.device)
+        loss_kw = {}
+        if hasattr(config, "moe_aux_weight"):  # MoE recipes only
+            loss_kw["moe_aux_weight"] = config.moe_aux_weight
         self.train_step = make_train_step(
-            make_loss_fn(config.train_criterion), self.engine_cfg)
+            make_loss_fn(config.train_criterion, **loss_kw), self.engine_cfg,
+            augment_fn=getattr(config, "device_augment", None))
         self.eval_step = None
         self.evaluate = evaluate
         if make_eval_fn is not None:

@@ -1,9 +1,10 @@
 """Moves parameters between the JAX package's trees and the port's modules.
 
 ``load_jax_params(model, params, batch_stats=None)`` takes
-``variables["params"]`` of a JAX SAM, ViT, ResNet, DINO-DETR, DETR,
-DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace or Sapiens model (nested
-dicts of numpy arrays) and, for models with BatchNorm,
+``variables["params"]`` of a JAX SAM, ViT, ViT-MoE, ResNet, DINO-DETR,
+DETR, DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace, Sapiens, MAE
+pretraining or distillation (``KDModel``) model (nested dicts of numpy
+arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
 ``export_jax_params(model)`` goes the other way: the model's parameters (or
@@ -13,7 +14,12 @@ gives the BatchNorm running statistics as the ``batch_stats`` tree.
 SAM's, ViT's and Sapiens' backbone's state_dict keys are the reference
 models' names; ``_RULES`` maps them onto the JAX package's parameter paths
 (copies of the ``_REF_SAM_RULES`` and ``_MAE_VIT_RULES`` tables in
-``simpleaicv_tpu/core/converters.py``). The keys of ResNet, DINO-DETR,
+``simpleaicv_tpu/core/converters.py``); ViT-MoE's expert parameters
+(``blocks.N.moe_mlp.{router, wi, bi, wo, bo}``) and the MAE model's
+(``encoder_blocks.N``, ``decoder_blocks.N``, ``mask_token``,
+``encoder_to_decoder``, ...) keep the JAX names and layouts, and a
+``KDModel``'s ``teacher.`` and ``student.`` keys map to the ``teacher`` and
+``student`` sub-trees by their backbones' rules. The keys of ResNet, DINO-DETR,
 DETR, DeepLabV3+, PFAN, the dense detectors and Sapiens' head are the JAX
 paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
 ``encoder.0.self_attn.value_proj``, ``reg_head.1``,
@@ -111,6 +117,17 @@ _RULES = [
     (r"^blocks\.(\d+)\.(norm\d)$", r"blocks_\1/\2"),
     (r"^blocks\.(\d+)\.attn\.(qkv|proj)$", r"blocks_\1/attn/\2"),
     (r"^blocks\.(\d+)\.mlp\.(fc\d)$", r"blocks_\1/mlp/\2"),
+    # ViT-MoE's expert blocks: plain parameters in the JAX layouts
+    (r"^blocks\.(\d+)\.moe_mlp\.(router|wi|bi|wo|bo)$",
+     r"blocks_\1/moe_mlp/\2"),
+    # the MAE pretraining model
+    (r"^(mask_token|encoder_norm|encoder_to_decoder|decoder_norm|"
+     r"decoder_pred)$", r"\1"),
+    (r"^(encoder|decoder)_blocks\.(\d+)\.(norm\d)$", r"\1_blocks_\2/\3"),
+    (r"^(encoder|decoder)_blocks\.(\d+)\.attn\.(qkv|proj)$",
+     r"\1_blocks_\2/attn/\3"),
+    (r"^(encoder|decoder)_blocks\.(\d+)\.mlp\.(fc\d)$",
+     r"\1_blocks_\2/mlp/\3"),
     # ResNet backbones (alone or as a detector's or segmenter's
     # ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``), PFAN
     # (``decoder``, the matting branches, the prediction convolutions),
@@ -142,6 +159,10 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def _jax_path(name: str, root: str) -> str:
     full = f"{root}.{name}" if root else name
+    # a distillation model's two backbones: each its own tree
+    kd = re.match(r"^(teacher|student)\.(.+)$", full)
+    if kd and not root:
+        return f"{kd.group(1)}/{_jax_path(kd.group(2), '')}"
     for pattern, repl in _RULES:
         if re.match(pattern, full):
             path = re.sub(pattern, repl, full)

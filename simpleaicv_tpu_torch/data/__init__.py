@@ -1,1 +1,2 @@
-"""Host-side data pipelines of the PyTorch port (numpy only)."""
+"""Data pipelines of the PyTorch port: host-side datasets, transforms and
+collaters (numpy), and ``device_augment``, torch ops on the card's batch."""

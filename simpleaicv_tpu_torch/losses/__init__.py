@@ -13,3 +13,5 @@ from .segmentation import (SegCELoss, SegCombinedLoss,  # noqa: F401
                            SegMultiClassBCELoss)
 from .binary_segmentation import (BCEDiceLoss, BCEIouloss,  # noqa: F401
                                   BinaryBCELoss, OHEMBCELoss)
+from .distillation import DMLLoss, KDLoss, L2Loss  # noqa: F401
+from .mae import MAEL1Loss, MAEMSELoss  # noqa: F401

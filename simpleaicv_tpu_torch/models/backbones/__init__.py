@@ -2,3 +2,4 @@
 
 from .resnet import *  # noqa: F401,F403
 from .vit import *  # noqa: F401,F403
+from .vit_moe import *  # noqa: F401,F403

@@ -10,31 +10,42 @@ from typing import Callable
 import torch
 
 from ..core.meters import AccMeter
+from ..parallel.moe import moe_aux_loss
 
 
-def make_loss_fn(criterion) -> Callable:
+def make_loss_fn(criterion, moe_aux_weight: float = 0.01) -> Callable:
     """``loss_fn(model, batch, generator, train)`` for the engine, on a batch
     ``{"image": [B, H, W, 3], "label": ...}``.
 
-    The JAX package adds ``moe_aux_weight`` times the load-balance losses
-    that MoE backbones sow. Dense models sow none, so the term is zero for
-    every backbone the port has; it comes with ``vit_moe``.
+    In training the loss adds ``moe_aux_weight`` times the sum of the
+    auxiliary losses the model's MoE layers keep from this forward
+    (``parallel.moe.moe_aux_loss``; configs set ``config.moe_aux_weight``,
+    which the Trainer passes). Dense models have none, so the term is 0.
     """
 
     def loss_fn(model, batch, generator, train):
         out = model(batch["image"], generator=generator if train else None)
-        return criterion(out, batch["label"]), {}
+        loss = criterion(out, batch["label"])
+        if train:
+            aux = moe_aux_loss(model)
+            if aux is not None:
+                loss = loss + moe_aux_weight * aux
+        return loss, {}
 
     return loss_fn
 
 
-def make_eval_fn() -> Callable:
+def make_eval_fn(output_index=None) -> Callable:
     """Returns the eval function computing top-1/top-5 correct counts;
-    examples with a label < 0 are padding and count for nothing."""
+    examples with a label < 0 are padding and count for nothing. A model
+    with several heads is evaluated on its output ``output_index`` (a
+    distillation model's student: 1)."""
 
     def eval_fn(model, batch, generator, train):
         del generator, train
         logits = model(batch["image"])
+        if output_index is not None:
+            logits = logits[output_index]
         labels = batch["label"]
         # the last five of a stable ascending sort, highest first, as the
         # JAX package takes them: among tied logits the highest index wins.

@@ -62,6 +62,8 @@ CLI = {
 # None: the family has no test CLI (loss-only training, distillation)
 TEST_CLI = {
     "0.classification_training": "test_classification",
+    "1.distillation_training": None,
+    "2.masked_image_modeling_training": None,
     "3.detection_training": "test_detection",
     "4.semantic_segmentation_training": "test_semantic_segmentation",
     "5.instance_segmentation_training": "test_instance_segmentation",

@@ -49,6 +49,7 @@ def main(argv=None):
         make_eval_step(classification.make_eval_fn(), device), model, loader,
         lambda batch: batch_to_device(batch, device))
     logger.info(f"top1: {metrics['acc1']:.3f}% top5: {metrics['acc5']:.3f}%")
+    return metrics
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ def main(argv=None):
                       make_eval_fn=classification.make_eval_fn,
                       evaluate=classification.evaluate,
                       device=device_from_env())
-    trainer.run()
+    return trainer.run()
 
 
 if __name__ == "__main__":

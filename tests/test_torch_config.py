@@ -45,17 +45,30 @@ def test_each_load_builds_new_objects_and_leaves_sys_path_alone():
 
 
 def test_deviceaug_names_the_missing_counterpart():
-    with pytest.raises(MissingCounterpartError,
-                       match="DeviceAugmentPipeline.*device_augment"):
-        load_config(str(EXP / "fake_synthetic/resnet18_deviceaug"))
+    """``data.device_augment`` has its counterpart now: the config builds
+    the port's pipeline (it named ``DeviceAugmentPipeline`` as missing
+    before)."""
+    from simpleaicv_tpu_torch.data import device_augment
+    cfg = load_config(str(EXP / "fake_synthetic/resnet18_deviceaug"))
+    assert isinstance(cfg.device_augment,
+                      device_augment.DeviceAugmentPipeline)
+    assert isinstance(cfg.device_augment.augment,
+                      device_augment.DeviceAutoAugment)
 
 
-def test_an_unported_registry_name_raises_missing_counterpart():
-    """The config builds its backbone through the registry, which has no
-    ``vit_moe_tiny_patch16`` in the port."""
+def test_an_unported_registry_name_raises_missing_counterpart(tmp_path):
+    """A config that builds its backbone through the registry by a name
+    the port lacks (``darknet19``; ``vit_moe_tiny_patch16``, which this
+    test named before, is ported) raises naming it."""
+    assert isinstance(load_config(str(EXP / "fake_synthetic/vit_moe_tiny"))
+                      .model, torch.nn.Module)
+    (tmp_path / "train_config.py").write_text(
+        "from simpleaicv_tpu.core.registry import BACKBONES\n\n\n"
+        "class config:\n"
+        "    model = BACKBONES.create('darknet19', num_classes=10)\n")
     with pytest.raises(MissingCounterpartError,
-                       match="backbone 'vit_moe_tiny_patch16'"):
-        load_config(str(EXP / "fake_synthetic/vit_moe_tiny"))
+                       match="backbone 'darknet19'"):
+        load_config(str(tmp_path))
 
 
 def test_imagenet_resnet50_names_the_missing_dataset():

@@ -925,3 +925,112 @@ def test_nms_and_dinodetr_decoder_on_card_equal_the_cpu(nms_type):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=0)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=1e-4)
     assert (want[0] > -1).any() and (want[0] == -1).any()
+
+
+def _to(tree, device):
+    """A nest of dicts, lists and tuples with its tensors on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+@pytest.mark.parametrize("top_k,batch", [(2, 16), (1, 4)])
+def test_moe_index_dispatch_equals_the_one_hot_form_on_card(top_k, batch):
+    """ViT-MoE-B/16's routing at 224^2 (197 tokens an image, 8 experts,
+    capacity factor 1.25) on the card: the index dispatch's expert buffers
+    equal the one-hot einsum's exactly, the combine to 1e-6 of its scale,
+    and the slots the CPU's on the same probabilities."""
+    from simpleaicv_tpu_torch.parallel import moe
+    g = torch.Generator(device="cuda").manual_seed(batch)
+    t, e, c = batch * 197, 8, 768
+    layer = moe.MoEFeedForward(c, 4 * c, num_experts=e, top_k=top_k).cuda()
+    cap = layer.capacity(t)
+    probs = torch.softmax(3 * torch.randn(t, e, generator=g, device="cuda"),
+                          -1)
+    xt = torch.randn(t, c, generator=g, device="cuda").bfloat16()
+    slots, gates, _ = moe.top_k_route(probs, cap, top_k)
+    dispatch, combine, _ = moe.top_k_dispatch(probs, cap, top_k)
+    cpu_slots, _, _ = moe.top_k_route(probs.cpu(), cap, top_k)
+    for a, b in zip(slots, cpu_slots):
+        assert torch.equal(a.cpu(), b)
+    buffers = moe.dispatch(xt, slots, cap, e)
+    want = torch.einsum("tec,td->ecd", dispatch, xt.float())
+    assert torch.equal(buffers.float(), want)
+    out = torch.randn(e * cap, c, generator=g, device="cuda")
+    y = moe.combine(out, slots, gates)
+    y_ref = torch.einsum("tec,ecd->td", combine, out.reshape(e, cap, c))
+    torch.testing.assert_close(y, y_ref, atol=1e-6 * y_ref.abs().max(),
+                               rtol=0)
+
+
+def test_expert_product_backward_on_card_keeps_the_f32_gradient():
+    """ViT-MoE-B/16's first expert product at batch 16 (8 experts, Cap 985,
+    768 -> 3072) on bf16 operands: the card's backward, the f32 output
+    gradient split into two bf16 parts, against the CPU's products of f32
+    copies (JAX's transpose, unrounded): at most 2% of the bf16 gradients
+    unequal, none by more than 2^-8 of their largest; a gradient rounded to
+    bf16 first parts in about 40%."""
+    from simpleaicv_tpu_torch.parallel import moe
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn(8, 985, 768, generator=g, device="cuda").bfloat16()
+    b = (torch.randn(8, 768, 3072, generator=g, device="cuda")
+         / 28).bfloat16()
+    dy = torch.randn(8, 985, 3072, generator=g, device="cuda")
+    grads = []
+    for device in ("cuda", "cpu"):
+        x, w = (v.to(device).detach().requires_grad_() for v in (a, b))
+        moe._ExpertProduct.apply(x, w).backward(dy.to(device))
+        grads.append((x.grad, w.grad))
+    for got, ref in zip(*grads):
+        got, ref = got.cpu().float(), ref.float()
+        assert (got - ref).abs().max() <= 2 ** -8 * ref.abs().max()
+        assert (got != ref).float().mean() <= 0.02
+
+
+# pixels a rotated image may move (the bound that
+# tests/test_torch_device_augment.py measures and holds on the CPU)
+ROTATED_PX = 32
+
+
+@pytest.mark.parametrize("policy", ["v0", "rand"])
+def test_device_augment_on_card_equals_the_cpu(policy):
+    """AutoAugment v0 or RandAugment(2, 9), erasing and mixup/cutmix on a
+    uint8 batch at 224^2, the card's draws applied on the card and on the
+    CPU: the augmented lattice off by more than one level only in rotated
+    images (at most ROTATED_PX pixels each) and in at most 0.5% of the pixels in
+    all, the final batch and labels to 1e-6 elsewhere."""
+    from simpleaicv_tpu_torch.data import device_augment as dev
+    aug = (dev.DeviceAutoAugment("v0") if policy == "v0"
+           else dev.DeviceRandAugment(2, 9))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b = 32
+    image = torch.randint(0, 256, (b, 224, 224, 3), generator=g,
+                          device="cuda").to(torch.uint8)
+    draws = aug.draw(b, g, "cuda")
+    got = aug.apply(image.float(), draws)
+    want = aug.apply(image.cpu().float(), _to(draws, "cpu"))
+    rotated = torch.zeros(b, dtype=torch.bool)
+    for apply, _, cls, kind in _to(draws["slots"], "cpu"):
+        rotated |= apply & (cls == dev._CLS_GEOM) & (kind == dev._G_ROT)
+    diff = (got.cpu() - want).abs()
+    far = (diff > 1).any(-1).sum((1, 2))
+    assert (far[~rotated] == 0).all(), far
+    assert (far[rotated] <= ROTATED_PX).all(), far
+    assert (diff > 0).any(-1).float().mean() <= 5e-3
+    pipe = dev.DeviceAugmentPipeline(
+        augment=aug, erasing=dev.DeviceRandomErasing(prob=0.25),
+        mixupcutmix=dev.DeviceMixupCutmix(num_classes=1000))
+    batch = {"image": image,
+             "label": torch.randint(0, 1000, (b,), generator=g,
+                                    device="cuda")}
+    pdraws = pipe.draw(batch, g)
+    out = pipe.apply(batch, pdraws)
+    ref = pipe.apply(_to(batch, "cpu"), _to(pdraws, "cpu"))
+    torch.testing.assert_close(out["label"].cpu(), ref["label"], atol=1e-6,
+                               rtol=0)
+    assert ((out["image"].cpu() - ref["image"]).abs() > 1e-6).float(
+        ).mean() <= 5e-3

@@ -227,9 +227,19 @@ def test_trainer_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_trainer_refuses_device_augment(tmp_path):
-    cfg = _port_config(device_augment=object())
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        _port_trainer(cfg, tmp_path)
+    """The Trainer no longer refuses a config's ``device_augment``: it is
+    the engine step's ``augment_fn``, called with the card's (here the
+    CPU's) batch and the step's generator before the forward."""
+    calls = []
+
+    def augment(batch, generator):
+        calls.append((batch["image"].dtype, type(generator)))
+        return batch
+
+    trainer = _port_trainer(_port_config(device_augment=augment), tmp_path)
+    batch = next(iter(trainer._device_prefetch(trainer.train_loader)))
+    trainer.train_batch(batch)
+    assert calls == [(torch.float32, torch.Generator)]
 
 
 def _shrunk_recipe(work_dir, epochs):
