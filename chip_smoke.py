@@ -128,9 +128,28 @@ Phases, each of which raises (exit code 1) on failure:
      and resnet18_deviceaug through the port's train CLIs in this process,
      and tests vit_moe_tiny and resnet18_deviceaug through
      ``tools.test_classification``.
-Phases 23-27 print images/s, ms a step, peak memory, the idle share and the
+ 28. sam_distill_train: SAMDistillModel(sam_b, sam_b) at 1024^2, batch 8,
+     SAMDistillLoss on point and box prompts, the teacher frozen (the
+     sa_1b/sam_b recipe's AdamW), through the distillation CLI's loss
+     function: K4/K5/K6 8/4/4 a step, the teacher unmoved;
+ 29. sam_encoder_distill_train: the same pair through
+     SAMDistillEncoderModel and SAMDistillMSELoss: 8/4/4 a step;
+ 30. sam_matting_train: sam_b_matting1 at 1024^2, batch 8, with
+     SAMMattingOneLevelLoss (mask_threshold 0.5) through the matting CLI's
+     loss function: 4/4/4 a step; one checked step of sam_b_matting2 with
+     SAMMattingMultiLevelAssignLoss;
+ 31. pfan_matting_train: resnet50_pfan_matting at 832^2, batch 8, the
+     seven-loss stack, both BatchNorm kinds replayed alone for their
+     shares;
+ 32. matting_cli: fake_synthetic/tiny_sam_distill, tiny_sam_encoder_distill,
+     tiny_sam_matting and resnet18_pfan_matting through their CLIs, then
+     SAM-B matting 1024^2 through the SAM-matting train and test CLIs in
+     this process (16/8/8 launches of K4/K5/K6).
+Phases 23-32 print images/s, ms a step, peak memory, the idle share and the
 top rows of one profiled step where they train on a resident batch. The
-paths of phases 13-22 and 24-27 launch no hand kernel, which each checks.
+paths of phases 13-22, 24-27 and 31 and the four fake_synthetic configs of
+phase 32 (16 tokens in their global layer) launch no hand kernel, which
+each checks.
 The script prints its total time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -166,7 +185,10 @@ from simpleaicv_tpu_torch.data.detection import (DetectionCollater,
                                                  DETRDetectionCollater,
                                                  Normalize)
 from simpleaicv_tpu_torch.data.interactive_segmentation import (
-    FakeSAMSegmentationDataset, SAMBatchCollater)
+    FakeSAMSegmentationDataset, SAMBatchCollater, SAMMattingCollater)
+from simpleaicv_tpu_torch.data.matting import (FakeHumanMattingDataset,
+                                               HumanMattingCollater,
+                                               MattingNormalize)
 from simpleaicv_tpu_torch.data.segmentation import (
     FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
 from simpleaicv_tpu_torch.data.transforms import Compose
@@ -174,6 +196,8 @@ from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
 from simpleaicv_tpu_torch.losses import dinodetr as dino_loss
 from simpleaicv_tpu_torch.models.common import BatchNorm, init_params
 from simpleaicv_tpu_torch.models.detection import dinodetr
+from simpleaicv_tpu_torch.models.interactive_segmentation.light_sam import (
+    SAMDistillEncoderModel, SAMDistillModel)
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
 from simpleaicv_tpu_torch.ops import msda
@@ -190,6 +214,7 @@ from simpleaicv_tpu_torch.parallel import moe
 from simpleaicv_tpu_torch.tasks import binary_segmentation as bseg_task
 from simpleaicv_tpu_torch.tasks import distillation as kd_task
 from simpleaicv_tpu_torch.tasks import mae as mae_task
+from simpleaicv_tpu_torch.tasks import matting as matting_task
 from simpleaicv_tpu_torch.tasks import detection as det_task
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
@@ -216,6 +241,18 @@ from simpleaicv_tpu_torch.tools import train_face_parsing as \
     face_parsing_train_cli
 from simpleaicv_tpu_torch.tools import train_interactive_segmentation as \
     sam_train_cli
+from simpleaicv_tpu_torch.tools import \
+    train_interactive_segmentation_distill as sam_encoder_distill_cli
+from simpleaicv_tpu_torch.tools import \
+    train_interactive_segmentation_distill_sam as sam_distill_cli
+from simpleaicv_tpu_torch.tools import test_human_matting as \
+    human_matting_test_cli
+from simpleaicv_tpu_torch.tools import train_human_matting as \
+    human_matting_cli
+from simpleaicv_tpu_torch.tools import test_interactive_matting as \
+    sam_matting_test_cli
+from simpleaicv_tpu_torch.tools import train_interactive_matting as \
+    sam_matting_cli
 from simpleaicv_tpu_torch.tools import test_salient_object_detection as \
     sod_test_cli
 from simpleaicv_tpu_torch.tools import test_semantic_segmentation as \
@@ -3905,14 +3942,16 @@ class config:
 """
 
 
-def _experiment_cli(card, path, rel, train_cli, test_cli):
+def _experiment_cli(card, path, rel, train_cli, test_cli, evaluates=True):
     """A repository experiment (``experiments/<rel>``) through its train CLI
     and, where its family has one (``test_cli`` not None), its test CLI, in
     this process, in a scratch copy whose test config restores the best
     checkpoint. Prints the seconds, peak memory and the metrics; fails when
     a CLI raises or writes no best checkpoint, when a family with a test
-    CLI logs no evaluation or tests another metric than the best, or when a
-    hand kernel was launched. Returns the launches."""
+    CLI logs no evaluation (unless ``evaluates`` is false: a train config
+    without a test set, whose test config falls back on its train set) or
+    tests another metric than the best, or when a hand kernel was launched.
+    Returns the launches."""
     import os
     import shutil
     import tempfile
@@ -3954,12 +3993,14 @@ def _experiment_cli(card, path, rel, train_cli, test_cli):
     print(f"{path}: {rel}: train CLI {train_s:.1f} s ({len(epochs)} epochs, "
           f"{len(evals)} with their evaluation), test CLI {test_s:.1f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card}]; best key metric {best:.6f} (mAP, top-1 x 100; minus "
-          f"the loss without an evaluation); test CLI key metric {tested}; "
+          f"[{card}]; best key metric {best:.6f} (mAP, top-1 x 100, minus "
+          f"the SAD; minus the loss without an evaluation); test CLI key "
+          f"metric {tested}; "
           f"{epochs[-1].split(' - ')[-1] if epochs else 'no epoch'}",
           flush=True)
     if not epochs or not np.isfinite(best) or metrics is not None and (
-            not evals or abs(tested - best) > 1e-6):
+            evaluates and (not evals or abs(tested - best) > 1e-6)
+            or not np.isfinite(tested)):
         raise RuntimeError(f"{rel}: no epoch or evaluation logged, or the "
                            f"test CLI's {tested} is not the best {best}")
     return launches
@@ -4408,6 +4449,335 @@ def _slice_15(card):
     return paths
 
 
+# ------------------------------ slice 16 ------------------------------
+
+SAM_IMAGE = 1024
+
+# per optimizer step of SAM-B (4 global layers, no gradient checkpointing):
+# a distillation's frozen teacher and its student each launch the forward
+# kernel once per global layer, the student's backward each backward kernel
+# once; a matting model launches the forward and backward once each
+DISTILL_STEP_LAUNCHES = {"flash_attention_relpos_fwd": 8,
+                         "flash_attention_relpos_dq": 4,
+                         "flash_attention_relpos_dkv": 4}
+MATTING_STEP_LAUNCHES = {k: 4 for k in SAM_KERNELS}
+SAM_RECIPE_OPT = ("AdamW", {"lr": 1e-4, "global_weight_decay": False,
+                            "weight_decay": 1e-4,
+                            "no_weight_decay_layer_name_list": [],
+                            "frozen_layer_name_list": ["teacher"]})
+SAM_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1})
+MATTING_RECIPE_OPT = ("AdamW", {"lr": 1e-4, "global_weight_decay": False,
+                                "weight_decay": 1e-3,
+                                "no_weight_decay_layer_name_list": []})
+MATTING_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1, "min_lr": 1e-6})
+MATTING_LOSSES = ("GlobalTrimapCELoss", "GloabelTrimapIouLoss",
+                  "LocalAlphaLoss", "LocalLaplacianLoss", "FusionAlphaLoss",
+                  "FusionLaplacianLoss", "CompositionLoss")
+
+
+def _sam_distill_batch(n=SAM_BATCH):
+    """``n`` synthetic 1024^2 samples through the SAM collater, on the
+    card; the distillation CLIs pass its point and box prompts."""
+    ds = FakeSAMSegmentationDataset(n, image_hw=SAM_IMAGE)
+    batch = SAMBatchCollater(resize=SAM_IMAGE, rng=random.Random(0),
+                             np_rng=np.random.RandomState(0))(
+        [ds[i] for i in range(n)])
+    return {k: torch.from_numpy(batch[k]).cuda()
+            for k in ("image", "prompt_point", "prompt_box")}
+
+
+def _matting_batch(collate, image_hw, n=SAM_BATCH):
+    """``n`` synthetic portraits at ``image_hw``^2 (normalised) through
+    ``collate``, on the card."""
+    ds = FakeHumanMattingDataset(n, image_hw, transform=MattingNormalize())
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in collate([ds[i] for i in range(n)]).items()}
+
+
+def _launched_per_step(path, steps, per_step):
+    """Fails unless the rel-pos kernels launched ``per_step`` times each per
+    step over ``steps`` steps since the counts were set to 0, and no narrow
+    variant; returns the counts."""
+    launches = {k: fa.KERNEL_LAUNCHES[k] for k in SAM_KERNELS}
+    want = {k: n * steps for k, n in per_step.items()}
+    print(f"{path}: kernel launches {launches} over {steps} steps "
+          f"({per_step} per step expected)", flush=True)
+    if launches != want:
+        raise RuntimeError(f"{path}: launched {launches}, expected {want}")
+    _wide_kernels_only(f"the {path} path")
+    return dict(fa.KERNEL_LAUNCHES)
+
+
+def _slice16_train(card, path, label, model, loss_fn, batch, opt, sched,
+                   per_step, warm_up=2, timed=6, epochs=100):
+    """``warm_up`` + ``timed`` steps of ``loss_fn`` through
+    ``make_train_step`` on a resident batch; prints ms a step, images/s,
+    peak memory and the losses, checks the launches a step (``per_step``;
+    None: no hand kernel), profiles one step for the idle share. Returns
+    (the launches of the timed run, images per second, the state, the
+    step, the profiled step's busy ms)."""
+    state = _recipe_state(model, opt, sched, epochs, RECIPE_STEPS_PER_EPOCH)
+    step = make_train_step(loss_fn, EngineConfig())
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = (_no_hand_kernel(path) if per_step is None else
+                _launched_per_step(path, warm_up + timed, per_step))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = batch["image"].shape[0]
+    ips = n / step_ms * 1e3
+    print(f"{path}: {label}, batch {n} [{card}]: {ips:.2f} images/s, "
+          f"{step_ms:.2f} ms per step over {timed} steps, peak memory "
+          f"{peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    busy_ms = _profiled_step(card, label, step, state, batch, step_ms,
+                             top=12)
+    return launches, ips, state, step, busy_ms
+
+
+def _teacher_unmoved(path, model, before):
+    moved = [k for k, v in model.teacher.state_dict().items()
+             if not torch.equal(v, before[k].to(v.device))]
+    print(f"{path}: frozen teacher tensors moved: {len(moved)} of "
+          f"{len(before)}", flush=True)
+    if moved:
+        raise RuntimeError(f"{path}: the frozen teacher moved: {moved[:4]}")
+
+
+def phase_sam_distill_train(card):
+    """Whole-SAM distillation, SAM-B -> SAM-B at 1024^2, batch 8 (the
+    sa_1b/sam_b recipe's batch and AdamW, the teacher frozen by
+    ``frozen_layer_name_list``), SAMDistillLoss on the point and box
+    prompts, through the CLI's loss function. 8/4/4 launches of K4/K5/K6 a
+    step. Returns (the launches, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(
+        SAMDistillModel(MODELS.create("sam_b"), MODELS.create("sam_b")),
+        torch.Generator().manual_seed(0))
+    batch = _sam_distill_batch()
+    print(f"SAMDistillModel(sam_b, sam_b) 1024^2 and a resident batch of "
+          f"{SAM_BATCH} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    teacher = {k: v.clone() for k, v in model.teacher.state_dict().items()}
+    launches, ips, state, _, _ = _slice16_train(
+        card, "sam_distill_train",
+        f"SAM-B -> SAM-B distillation {SAM_IMAGE}^2 bf16",
+        model, sam_distill_cli.make_loss_fn(LOSSES.create("SAMDistillLoss")),
+        batch, SAM_RECIPE_OPT, SAM_RECIPE_SCHED, DISTILL_STEP_LAUNCHES)
+    _teacher_unmoved("sam_distill_train", model, teacher)
+    del state, model, batch, teacher
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_sam_encoder_distill_train(card):
+    """Encoder distillation, SAM-B -> SAM-B at 1024^2, batch 8 (the
+    sa_1b_multi_node recipe's fields with SAM-B on both sides: its
+    ConvFormer-M36 student waits for its backbone), SAMDistillMSELoss of the
+    embeddings, the teacher frozen, through the CLI's loss function. 8/4/4
+    launches a step. Returns (the launches, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(SAMDistillEncoderModel(MODELS.create("sam_b"),
+                                               MODELS.create("sam_b")),
+                        torch.Generator().manual_seed(0))
+    batch = _sam_distill_batch()
+    print(f"SAMDistillEncoderModel(sam_b, sam_b) 1024^2 "
+          f"({sum(p.numel() for p in model.parameters())} parameters: the "
+          f"two image encoders) and a resident batch of {SAM_BATCH} built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    teacher = {k: v.clone() for k, v in model.teacher.state_dict().items()}
+    launches, ips, state, _, _ = _slice16_train(
+        card, "sam_encoder_distill_train",
+        f"SAM-B -> SAM-B encoder distillation {SAM_IMAGE}^2 bf16", model,
+        sam_encoder_distill_cli.make_loss_fn(
+            LOSSES.create("SAMDistillMSELoss")), batch, SAM_RECIPE_OPT,
+        SAM_RECIPE_SCHED, DISTILL_STEP_LAUNCHES)
+    _teacher_unmoved("sam_encoder_distill_train", model, teacher)
+    del state, model, batch, teacher
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_sam_matting_train(card):
+    """sam_b_matting1 at 1024^2, batch 8 (cut from 16), with
+    human_matting/convformer_m36_sam_matting1's SAMMattingOneLevelLoss (unit
+    weights, mask_threshold 0.5), AdamW and CosineLR, through the matting
+    CLI's loss function on the collater's point and box prompts: 4 launches
+    of each rel-pos kernel a step. Then one checked step of sam_b_matting2
+    with SAMMattingMultiLevelAssignLoss. Returns (the launches, images per
+    second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create("sam_b_matting1"),
+                        torch.Generator().manual_seed(0))
+    batch = _matting_batch(SAMMattingCollater(
+        resize=SAM_IMAGE, rng=random.Random(0),
+        np_rng=np.random.RandomState(0)), SAM_IMAGE)
+    print(f"sam_b_matting1 1024^2 and a resident batch of {SAM_BATCH} "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, ips, state, _, _ = _slice16_train(
+        card, "sam_matting_train", f"SAM-B matting1 {SAM_IMAGE}^2 bf16",
+        model,
+        sam_matting_cli.make_loss_fn(LOSSES.create(
+            "SAMMattingOneLevelLoss", mask_threshold=0.5)), batch,
+        MATTING_RECIPE_OPT, MATTING_RECIPE_SCHED, MATTING_STEP_LAUNCHES)
+    del state, model
+    torch.cuda.empty_cache()
+    model = init_params(MODELS.create("sam_b_matting2"),
+                        torch.Generator().manual_seed(0))
+    state = _recipe_state(model, MATTING_RECIPE_OPT, MATTING_RECIPE_SCHED,
+                          100, RECIPE_STEPS_PER_EPOCH)
+    step = make_train_step(sam_matting_cli.make_loss_fn(LOSSES.create(
+        "SAMMattingMultiLevelAssignLoss", mask_threshold=0.5)),
+        EngineConfig())
+    before = dict(fa.KERNEL_LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, seed=0)
+    loss = metrics["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: fa.KERNEL_LAUNCHES[k] - before[k] for k in SAM_KERNELS}
+    print(f"sam_matting_train: one sam_b_matting2 step with "
+          f"SAMMattingMultiLevelAssignLoss, batch {SAM_BATCH} [{card}]: loss "
+          f"{loss:.4f}, skipped {float(metrics['skipped'])}, {ms:.1f} ms "
+          f"(the first, with its allocations), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{delta}", flush=True)
+    if not np.isfinite(loss) or float(metrics["skipped"]) != 0.0 \
+            or delta != MATTING_STEP_LAUNCHES:
+        raise RuntimeError("the sam_b_matting2 step failed its checks")
+    _wide_kernels_only("the sam_b_matting2 step")
+    for k, v in delta.items():
+        launches[k] += v
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_pfan_matting_train(card):
+    """resnet50_pfan_matting at 832^2, batch 8 (cut from 96), the
+    human_matting/resnet50_pfan_matting recipe's seven-loss stack, AdamW and
+    CosineLR on a resident batch; both BatchNorm kinds' calls of a step
+    replayed alone for their share of the busy time. No hand kernel.
+    Returns (the launches: none, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create("resnet50_pfan_matting"),
+                        torch.Generator().manual_seed(0))
+    batch = _matting_batch(HumanMattingCollater(PFAN_IMAGE), PFAN_IMAGE)
+    criteria = {n: (1.0, LOSSES.create(n)) for n in MATTING_LOSSES}
+    print(f"resnet50_pfan_matting {PFAN_IMAGE}^2 and a resident batch of "
+          f"{SAM_BATCH} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches, ips, state, step, busy_ms = _slice16_train(
+        card, "pfan_matting_train", f"PFAN R50 matting {PFAN_IMAGE}^2 bf16",
+        model, matting_task.make_loss_fn(criteria), batch,
+        MATTING_RECIPE_OPT, MATTING_RECIPE_SCHED, None, timed=5)
+    calls = _norm_calls(model, lambda: step(state, batch, seed=0))
+    shares = _norm_replay_ms(calls)
+    counts = {}
+    for (kind, _, _), n in calls.items():
+        counts[kind] = counts.get(kind, 0) + n
+    for kind, ms in shares.items():
+        print(f"  replayed alone: {counts[kind]} {kind} BatchNorm calls "
+              f"(forward + backward) {ms:.3f} ms, "
+              f"{100 * ms / busy_ms:.1f}% of a step's {busy_ms:.2f} ms busy "
+              f"[{card}]", flush=True)
+    _no_hand_kernel("pfan_matting_train")
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+SAM_MATTING_CLI_TRAIN_CONFIG = '''"""SAM-B matting as
+experiments/13.interactive_segmentation_training/human_matting/
+convformer_m36_sam_matting1/train_config.py states it, with the SAM-B
+encoder (sam_b_matting1 at 1024^2, SAMMattingOneLevelLoss with unit weights
+and mask_threshold 0.5, AdamW 1e-4 / 1e-3, CosineLR with a 1-epoch warm-up
+and min_lr 1e-6), cut to: synthetic data, FakeHumanMattingDataset of 16
+train and 8 test 1024^2 portraits (no matting sets here); batch 8 (not 16);
+1 epoch (not 100); 8 loader workers (not 16); no flip."""
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.interactive_segmentation import SAMMattingCollater
+from {pkg}.data.matting import FakeHumanMattingDataset, MattingNormalize
+
+
+class config:
+    network = "sam_b_matting1"
+    input_image_size = 1024
+
+    model = MODELS.create(network, image_size=input_image_size)
+    train_criterion = LOSSES.create("SAMMattingOneLevelLoss",
+                                    mask_threshold=0.5)
+
+    train_dataset = FakeHumanMattingDataset(
+        num_samples=16, image_hw=input_image_size,
+        transform=MattingNormalize())
+    test_dataset = FakeHumanMattingDataset(
+        num_samples=8, image_hw=input_image_size, seed=1,
+        transform=MattingNormalize())
+    train_collater = SAMMattingCollater(resize=input_image_size)
+    test_collater = SAMMattingCollater(resize=input_image_size,
+                                       use_noise_bbox=False)
+
+    seed = 0
+    batch_size = 8
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-3,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1, "min_lr": 1e-6}})
+    epochs = 1
+    print_interval = 1
+    use_ema_model = False
+'''
+
+SLICE_16_EXPERIMENTS = (
+    ("13.interactive_segmentation_training/fake_synthetic/tiny_sam_distill",
+     sam_distill_cli, None, True),
+    ("13.interactive_segmentation_training/fake_synthetic/"
+     "tiny_sam_encoder_distill", sam_encoder_distill_cli, None, True),
+    ("13.interactive_segmentation_training/fake_synthetic/tiny_sam_matting",
+     sam_matting_cli, sam_matting_test_cli, False),
+    ("7.human_matting_training/fake_synthetic/resnet18_pfan_matting",
+     human_matting_cli, human_matting_test_cli, True))
+
+
+def phase_matting_cli(card, resident_ips):
+    """The four fake_synthetic configs of slice 16 through the port's CLIs
+    in this process (the tiny SAMs' 64^2 images give their global layer 16
+    tokens, under the flash path's 128: no hand kernel, checked), then
+    SAM-B matting 1024^2 through the SAM-matting train and test CLIs: 2
+    steps, the epoch's evaluation and the test CLI's (one batch each), so
+    4/2/2 x 4 launches of K4/K5/K6. Returns the launches of the SAM-B run."""
+    for rel, train_cli, test_cli, evaluates in SLICE_16_EXPERIMENTS:
+        _experiment_cli(card, "matting_cli", rel, train_cli, test_cli,
+                        evaluates=evaluates)
+    launches = _cli_in_process(card, "matting_cli", sam_matting_cli,
+                               sam_matting_test_cli,
+                               SAM_MATTING_CLI_TRAIN_CONFIG, resident_ips,
+                               SAM_KERNELS)
+    want = {"flash_attention_relpos_fwd": 16,
+            "flash_attention_relpos_dq": 8, "flash_attention_relpos_dkv": 8}
+    if {k: launches[k] for k in SAM_KERNELS} != want:
+        raise RuntimeError(f"matting_cli: launched "
+                           f"{ {k: launches[k] for k in SAM_KERNELS} }, "
+                           f"expected {want}")
+    return launches
+
+
+def _slice_16(card):
+    """The phases of slice 16: {path: launches}."""
+    paths = {}
+    paths["sam_distill_train"], _ = phase_sam_distill_train(card)
+    paths["sam_encoder_distill_train"], _ = \
+        phase_sam_encoder_distill_train(card)
+    paths["sam_matting_train"], matting_ips = phase_sam_matting_train(card)
+    paths["pfan_matting_train"], _ = phase_pfan_matting_train(card)
+    paths["matting_cli"] = phase_matting_cli(card, matting_ips)
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -4435,6 +4805,7 @@ def main():
     dense_cli = phase_dense_cli(card, sapiens_ips)
     fcos_learns = phase_fcos_learns(card)
     slice_15 = _slice_15(card)
+    slice_16 = _slice_16(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -4445,7 +4816,9 @@ def main():
     # counts are their own paths'. The DeepLabV3+, PFAN, dense-detection and
     # Sapiens paths launch no hand kernel, which their phases check; nor do
     # the MAE, distillation, device-augmentation and slice-15 CLI paths.
-    # ViT-MoE's step launches K1-K3 12 times each (``moe_train``).
+    # ViT-MoE's step launches K1-K3 12 times each (``moe_train``). The SAM
+    # distillation and matting paths launch K4-K6 (slice 16; the CLIs'
+    # counts are the SAM-B matting run's), PFAN matting none.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
@@ -4454,7 +4827,7 @@ def main():
              "seg_learns": seg_learns, "fcos_train": fcos,
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
-             "fcos_learns": fcos_learns, **slice_15}
+             "fcos_learns": fcos_learns, **slice_15, **slice_16}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

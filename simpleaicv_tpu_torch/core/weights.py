@@ -3,8 +3,8 @@
 ``load_jax_params(model, params, batch_stats=None)`` takes
 ``variables["params"]`` of a JAX SAM, ViT, ViT-MoE, ResNet, DINO-DETR,
 DETR, DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace, Sapiens, MAE
-pretraining or distillation (``KDModel``) model (nested dicts of numpy
-arrays) and, for models with BatchNorm,
+pretraining, distillation (``KDModel``), LightSAM, SAM distillation or SAM
+matting model (nested dicts of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
 ``export_jax_params(model)`` goes the other way: the model's parameters (or
@@ -18,9 +18,11 @@ models' names; ``_RULES`` maps them onto the JAX package's parameter paths
 (``blocks.N.moe_mlp.{router, wi, bi, wo, bo}``) and the MAE model's
 (``encoder_blocks.N``, ``decoder_blocks.N``, ``mask_token``,
 ``encoder_to_decoder``, ...) keep the JAX names and layouts, and a
-``KDModel``'s ``teacher.`` and ``student.`` keys map to the ``teacher`` and
-``student`` sub-trees by their backbones' rules. The keys of ResNet, DINO-DETR,
-DETR, DeepLabV3+, PFAN, the dense detectors and Sapiens' head are the JAX
+``KDModel``'s or a SAM distillation model's ``teacher.`` and ``student.``
+keys map to the ``teacher`` and ``student`` sub-trees by their networks'
+rules, and a SAM matting model's ``sam.`` keys to its ``sam`` sub-tree.
+The keys of ResNet, DINO-DETR, DETR, DeepLabV3+, PFAN, the dense detectors,
+LightSAM's backbone and neck and Sapiens' head are the JAX
 paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
 ``encoder.0.self_attn.value_proj``, ``reg_head.1``,
 ``head.aspp2.aspp1.dw.conv``, ``clsregcnt_head.cls_gn.0``,
@@ -132,8 +134,9 @@ _RULES = [
     # ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``), PFAN
     # (``decoder``, the matting branches, the prediction convolutions),
     # RetinaNet and FCOS (``fpn``, the heads, FCOS's ``scales``), RetinaFace
-    # (``sshs``, ``cls_convs``, ``box_convs``) and Sapiens' parsing head
-    # (``convt1``, ``conv1``): the JAX path itself
+    # (``sshs``, ``cls_convs``, ``box_convs``), Sapiens' parsing head
+    # (``convt1``, ``conv1``), LightSAM's ``fpn`` and SAM matting's heads
+    # (``fusion_pred``, ``fusion_pred_N``): the JAX path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
@@ -141,7 +144,7 @@ _RULES = [
      r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out|"
      r"head|global_decoder|local_decoder|pred_conv|global_pred_conv|"
      r"local_pred_conv|fpn|clsregcnt_head|scales|sshs|cls_convs|box_convs|"
-     r"convt\d+|conv\d+)"
+     r"convt\d+|conv\d+|fusion_pred(?:_\d+)?)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 
@@ -159,8 +162,9 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def _jax_path(name: str, root: str) -> str:
     full = f"{root}.{name}" if root else name
-    # a distillation model's two backbones: each its own tree
-    kd = re.match(r"^(teacher|student)\.(.+)$", full)
+    # a distillation model's two networks and a matting model's SAM: each
+    # its own tree
+    kd = re.match(r"^(teacher|student|sam)\.(.+)$", full)
     if kd and not root:
         return f"{kd.group(1)}/{_jax_path(kd.group(2), '')}"
     for pattern, repl in _RULES:

@@ -1,13 +1,12 @@
 """SAM data pipeline (counterpart of
 ``simpleaicv_tpu/data/interactive_segmentation.py``), without OpenCV:
 ``SamResize``, ``noise_bbox``, ``SAMBatchCollater`` and
-``FakeSAMSegmentationDataset``.
+``FakeSAMSegmentationDataset`` and ``SAMMattingCollater``.
 
 Against the JAX package, which draws from the global ``random`` and
-``numpy.random`` state, the collater and ``noise_bbox`` draw from a
+``numpy.random`` state, the collaters and ``noise_bbox`` draw from a
 ``random.Random`` and a ``numpy.random.RandomState`` that the caller passes
 in, in the same order, so two runs seeded alike give the same batch.
-``SAMMattingCollater`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch.nn.functional as F
 from .transforms import resize_bilinear
 
 __all__ = ["SamResize", "noise_bbox", "SAMBatchCollater",
-           "FakeSAMSegmentationDataset"]
+           "FakeSAMSegmentationDataset", "SAMMattingCollater"]
 
 
 def resize_nearest(mask, out_h: int, out_w: int):
@@ -66,6 +65,26 @@ def noise_bbox(box, h, w, np_rng, std_ratio=0.1, max_offset=20):
     x2 = np.clip(x2 + noise[2], x1 + 1, w)
     y2 = np.clip(y2 + noise[3], y1 + 1, h)
     return np.array([x1, y1, x2, y2], np.float32)
+
+
+def _draw_prompts(collater, fg, points, box):
+    """Fills ``points`` [max_points, 3] with 1 to 9 positive clicks drawn
+    inside the boolean mask ``fg`` and ``box`` [4] with its box, jittered by
+    ``noise_bbox`` unless the collater's ``use_noise_bbox`` is False, from
+    the collater's generators; leaves both alone when ``fg`` is empty."""
+    ys, xs = np.nonzero(fg)
+    if len(ys) == 0:
+        return
+    k = min(collater.rng.randint(*collater.point_range), collater.max_points,
+            len(ys))
+    sel = collater.np_rng.choice(len(ys), k, replace=False)
+    points[:k, 0] = xs[sel]
+    points[:k, 1] = ys[sel]
+    points[:k, 2] = 1.0
+    b = np.array([xs.min(), ys.min(), xs.max(), ys.max()], np.float32)
+    r = collater.resize
+    box[:] = (noise_bbox(b, r, r, collater.np_rng) if collater.use_noise_bbox
+              else b)
 
 
 class SAMBatchCollater:
@@ -114,18 +133,7 @@ class SAMBatchCollater:
             images[i, :h, :w] = img / 255.0
             masks[i, :h, :w] = m
 
-            ys, xs = np.nonzero(masks[i])
-            if len(ys) > 0:
-                k = self.rng.randint(*self.point_range)
-                k = min(k, self.max_points, len(ys))
-                sel = self.np_rng.choice(len(ys), k, replace=False)
-                points[i, :k, 0] = xs[sel]
-                points[i, :k, 1] = ys[sel]
-                points[i, :k, 2] = 1.0
-                box = np.array([xs.min(), ys.min(), xs.max(), ys.max()],
-                               np.float32)
-                boxes[i] = (noise_bbox(box, r, r, self.np_rng)
-                            if self.use_noise_bbox else box)
+            _draw_prompts(self, masks[i] != 0, points[i], boxes[i])
 
         return {"image": images, "mask": masks, "prompt_point": points,
                 "prompt_box": boxes,
@@ -166,3 +174,49 @@ class FakeSAMSegmentationDataset:
         if self.transform is not None:
             sample = self.transform(sample)
         return sample
+
+
+class SAMMattingCollater:
+    """SAM-matting batches from matting samples (``{"image", "alpha",
+    "trimap"}``, no larger than the canvas):
+      image        [B, resize, resize, 3], divided by 255 only when its
+                   largest value is above 1.5, zero-padded
+      alpha        [B, resize, resize]
+      trimap       [B, resize, resize] with values {0, 128, 255}
+      prompt_point [B, max_points, 3] (x, y, label; -1 padding), 1 to 9
+                   positive clicks drawn where alpha > 0.5
+      prompt_box   [B, 4] the box of alpha > 0.5, jittered by
+                   ``noise_bbox`` unless ``use_noise_bbox`` is False
+    ``rng`` draws the number of clicks and ``np_rng`` the clicks and the box
+    noise, as in ``SAMBatchCollater``.
+    """
+
+    def __init__(self, resize=1024, positive_point_num_range=(1, 9),
+                 max_points: int = 9, use_noise_bbox=True,
+                 rng: Optional[random.Random] = None,
+                 np_rng: Optional[np.random.RandomState] = None):
+        self.resize = resize
+        self.point_range = positive_point_num_range
+        self.max_points = max_points
+        self.use_noise_bbox = use_noise_bbox
+        self.rng = rng if rng is not None else random.Random(0)
+        self.np_rng = (np_rng if np_rng is not None
+                       else np.random.RandomState(0))
+
+    def __call__(self, samples):
+        n, r = len(samples), self.resize
+        images = np.zeros((n, r, r, 3), np.float32)
+        alphas = np.zeros((n, r, r), np.float32)
+        trimaps = np.zeros((n, r, r), np.float32)
+        points = np.full((n, self.max_points, 3), -1.0, np.float32)
+        boxes = np.zeros((n, 4), np.float32)
+
+        for i, s in enumerate(samples):
+            img = s["image"]
+            h, w = img.shape[:2]
+            images[i, :h, :w] = img if img.max() <= 1.5 else img / 255.0
+            alphas[i, :h, :w] = s["alpha"]
+            trimaps[i, :h, :w] = s["trimap"]
+            _draw_prompts(self, alphas[i] > 0.5, points[i], boxes[i])
+        return {"image": images, "alpha": alphas, "trimap": trimaps,
+                "prompt_point": points, "prompt_box": boxes}

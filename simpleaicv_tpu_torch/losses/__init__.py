@@ -15,3 +15,9 @@ from .binary_segmentation import (BCEDiceLoss, BCEIouloss,  # noqa: F401
                                   BinaryBCELoss, OHEMBCELoss)
 from .distillation import DMLLoss, KDLoss, L2Loss  # noqa: F401
 from .mae import MAEL1Loss, MAEMSELoss  # noqa: F401
+from .matting import (CompositionLoss, FusionAlphaLoss,  # noqa: F401
+                      FusionLaplacianLoss, GloabelTrimapIouLoss,
+                      GlobalTrimapCELoss, LocalAlphaLoss, LocalLaplacianLoss)
+from .sam_matting import (SAMMattingMultiLevelAssignLoss,  # noqa: F401
+                          SAMMattingMultiLevelIoUMaxLoss,
+                          SAMMattingMultiLevelLoss, SAMMattingOneLevelLoss)

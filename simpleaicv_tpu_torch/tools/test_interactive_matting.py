@@ -1,0 +1,55 @@
+"""SAM-matting evaluation (counterpart of
+``tools/test_interactive_matting.py``):
+
+    python -m simpleaicv_tpu_torch.tools.test_interactive_matting --work-dir <dir>
+
+reads ``<dir>/test_config.py``, restores ``trained_model_path`` (a port
+checkpoint, for example ``checkpoints/best``) onto the seeded model and
+logs the mean SAD, MAE and MSE of the fused alpha, prompted by the
+collater's points alone (a multi-level model's level with the highest
+predicted IoU, where the JAX CLI takes its fused output as it is). It runs
+on the card, or on the CPU under ``SIMPLEAICV_PLATFORM=cpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.engine import make_eval_step
+from ..core.logging_utils import get_logger
+from ..core.platform import device_from_env
+from ..core.trainer import batch_to_device
+from ..data.loader import DataLoader
+from ..models.common import init_params, resolve_device
+from .common import load_test_config, parse_work_dir, restore_trained_params
+from .train_interactive_matting import evaluate, make_eval_fn
+
+
+def main(argv=None):
+    """Returns the metrics and 'key_metric' (minus the mean SAD)."""
+    args = parse_work_dir("SAM-matting evaluation", argv)
+    config = load_test_config(args)
+    logger = get_logger("test")
+    device = resolve_device(device_from_env())
+
+    model = init_params(config.model, torch.Generator().manual_seed(
+        getattr(config, "seed", 0)))
+    ckpt_path = getattr(config, "trained_model_path", "")
+    if ckpt_path:
+        n = restore_trained_params(ckpt_path, model)
+        logger.info(f"loaded {n} tensors from {ckpt_path}")
+    model.to(device)
+
+    loader = DataLoader(config.test_dataset, config.batch_size,
+                        config.test_collater, shuffle=False, drop_last=False,
+                        num_workers=getattr(config, "num_workers", 4))
+    stats = evaluate(make_eval_step(make_eval_fn(), device), model, loader,
+                     lambda b: {k: v for k, v in batch_to_device(
+                         b, device).items() if k != "prompt_box"})
+    for k, v in stats.items():
+        logger.info(f"{k}: {v}")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

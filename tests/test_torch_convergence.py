@@ -1,6 +1,6 @@
 """The port's per-family learning checks (counterparts of
-``tests/test_convergence_families.py``: DeepLabV3+ and FCOS), through the
-port's ``Trainer``. They import no JAX, so the card's machine can collect
+``tests/test_convergence_families.py``: DeepLabV3+, SAM and FCOS), through
+the port's ``Trainer`` (SAM's ``SAMTrainer``). They import no JAX, so the card's machine can collect
 them; each runs on the card when there is one, else on the CPU."""
 
 import pytest
@@ -12,11 +12,15 @@ from simpleaicv_tpu_torch.data.datasets import LearnableDetectionDataset
 from simpleaicv_tpu_torch.data.detection import (DetectionCollater,
                                                  DetectionResize, Normalize,
                                                  RandomHorizontalFlip)
+from simpleaicv_tpu_torch.data.interactive_segmentation import (
+    FakeSAMSegmentationDataset, SAMBatchCollater, SamResize)
 from simpleaicv_tpu_torch.data.segmentation import (
     FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
 from simpleaicv_tpu_torch.data.transforms import Compose
 from simpleaicv_tpu_torch.tasks import detection as det_task
 from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
+from simpleaicv_tpu_torch.tools.train_interactive_segmentation import \
+    SAMTrainer
 
 
 def deeplab_learning_config():
@@ -72,6 +76,58 @@ def test_deeplab_semantic_segmentation_learns(tmp_path):
     device = "cuda" if torch.cuda.is_available() else "cpu"
     best = train_deeplab(tmp_path, device)
     assert best >= 60.0, f"DeepLab failed to learn: best mIoU {best:.2f}"
+
+
+def sam_learning_config():
+    """The recipe of ``test_sam_interactive_segmentation_learns``: the tiny
+    SAM (64 wide, 2 blocks, one global layer) at 64^2 on 32 synthetic
+    bright-ellipse images, SAMMultiLevelLoss, one prompt kind a batch with
+    one refinement click on a point batch, AdamW 3e-4, CosineLR, batch 8,
+    40 epochs; the point-prompt IoU over 8 test images."""
+    size = 64
+
+    class config:
+        network = "sam_b"
+        input_image_size = size
+        model = MODELS.create(
+            network, image_size=size, image_encoder_embedding_planes=64,
+            image_encoder_block_nums=2, image_encoder_head_nums=2,
+            image_encoder_window_size=2,
+            image_encoder_global_attn_indexes=(1,),
+            prompt_encoder_embedding_planes=64)
+        train_criterion = LOSSES.create("SAMMultiLevelLoss")
+        train_dataset = FakeSAMSegmentationDataset(
+            32, size, transform=SamResize(size))
+        test_dataset = {"setA": FakeSAMSegmentationDataset(
+            8, size, transform=SamResize(size))}
+        train_collater = SAMBatchCollater(resize=size)
+        test_collater = SAMBatchCollater(resize=size, use_noise_bbox=False)
+        prompt_probs = {"point": 0.34, "box": 0.33, "mask": 0.33}
+        decoder_point_iters = 2
+        seed = 0
+        batch_size = 8
+        num_workers = 2
+        accumulation_steps = 1
+        optimizer = ("AdamW", {"lr": 3e-4, "global_weight_decay": False,
+                               "weight_decay": 1e-3,
+                               "no_weight_decay_layer_name_list": []})
+        scheduler = ("CosineLR", {"warm_up_epochs": 0})
+        epochs = 40
+        print_interval = 100
+        use_ema_model = False
+
+    return config
+
+
+@pytest.mark.slow
+def test_sam_interactive_segmentation_learns(tmp_path):
+    """Tiny SAM through the port's ``SAMTrainer`` (a prompt kind per batch,
+    the error-region refinement): the point-prompt IoU rises far above
+    chance on bright-ellipse objects."""
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    best = SAMTrainer(sam_learning_config(), str(tmp_path),
+                      device=device).run()
+    assert best >= 0.5, f"SAM failed to learn: best IoU {best:.4f}"
 
 
 def fcos_learning_config():

@@ -265,11 +265,15 @@ def _shrunk_recipe(work_dir, epochs):
 
 
 def _cli(tool, work_dir, **env):
+    """Runs a CLI in a subprocess with one PyTorch intra-op thread, which
+    ``one_torch_thread`` gives this process: under the suite's parallel
+    workers a full pool per subprocess spins against the others."""
     proc = subprocess.run(
         [sys.executable, "-m", f"simpleaicv_tpu_torch.tools.{tool}",
          "--work-dir", str(work_dir)], cwd=REPO, capture_output=True,
         text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(REPO), **env})
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
+             **env})
     return proc.returncode, proc.stderr
 
 
