@@ -145,11 +145,33 @@ Phases, each of which raises (exit code 1) on failure:
      tiny_sam_matting and resnet18_pfan_matting through their CLIs, then
      SAM-B matting 1024^2 through the SAM-matting train and test CLIs in
      this process (16/8/8 launches of K4/K5/K6).
-Phases 23-32 print images/s, ms a step, peak memory, the idle share and the
-top rows of one profiled step where they train on a resident batch. The
-paths of phases 13-22, 24-27 and 31 and the four fake_synthetic configs of
-phase 32 (16 tokens in their global layer) launch no hand kernel, which
-each checks.
+ 33. solov2_train: resnet50_solov2 at coco/res50_solov2's fields (1024^2,
+     80 classes, SOLOV2Loss, AdamW, MultiStepLR) on a resident batch from
+     the port's collater, batch 16 or the largest cut that fits (each cut
+     printed), profiles one step and replays the loss alone;
+ 34. yolact_train: the same for resnet50_yolact at coco/res50_yolact's
+     fields (81 classes, 65,472 anchors, YOLACTLoss), batch 64 or the
+     largest cut that fits;
+ 35. inst_parity: one f32 SOLOv2 R50 step at 256^2 on the card (TF32 off)
+     against the CPU, and both decoders on the card against the CPU on the
+     same predictions;
+ 36. inst_cli: fake_synthetic/resnet18_solov2 and resnet18_yolact through
+     the instance-segmentation CLIs in this process;
+ 37. ddpm_train: the celebahq/ddpm_64 UNet at 64^2, batch 64, f32, then the
+     1000-step DDPM and a 50-step DDIM sampler on 16 images, and the
+     InceptionV3 features and FID/IS arithmetic on seeded weights (time
+     only);
+ 38. diffusion_cli: fake_synthetic/tiny_ddpm through the diffusion CLIs,
+     the PNGs they write read back;
+ 39. ddpm_learns: the tiny DDPM on 64 two-mode 16x16 images for 90 epochs,
+     failing unless 64 samples reproduce both modes (the JAX test's
+     bounds on the two shares); the mean distance to the nearer mode
+     printed beside the JAX test's 0.33 for that draw and ten.
+Phases 23-34 and 37 print images/s, ms a step, peak memory, the idle share
+and the top rows of one profiled step where they train on a resident
+batch. The paths of phases 13-22, 24-27, 31 and 33-39 and the four
+fake_synthetic configs of phase 32 (16 tokens in their global layer)
+launch no hand kernel, which each checks.
 The script prints its total time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -179,7 +201,12 @@ from simpleaicv_tpu_torch.core.trainer import (
     optimizer_config_from_reference, scheduler_config_from_reference)
 from simpleaicv_tpu_torch.data.binary_segmentation import (BinarySegCollater,
                                                            BinarySegResize)
-from simpleaicv_tpu_torch.data.datasets import FakeDetectionDataset
+from simpleaicv_tpu_torch.data.datasets import (FakeClassificationDataset,
+                                                FakeDetectionDataset)
+from simpleaicv_tpu_torch.data.instance_segmentation import (
+    FakeInstanceSegmentationDataset, InstanceNormalize,
+    InstanceSegmentationResize, SOLOV2InstanceSegmentationCollater,
+    YOLACTInstanceSegmentationCollater)
 from simpleaicv_tpu_torch.data.detection import (DetectionCollater,
                                                  DetectionResize,
                                                  DETRDetectionCollater,
@@ -193,6 +220,9 @@ from simpleaicv_tpu_torch.data.segmentation import (
     FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
 from simpleaicv_tpu_torch.data.transforms import Compose
 from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
+from simpleaicv_tpu_torch.diffusion import (DDIMSampler, DDPMSampler,
+                                            DDPMTrainer)
+from simpleaicv_tpu_torch.evaluation import fid_is
 from simpleaicv_tpu_torch.losses import dinodetr as dino_loss
 from simpleaicv_tpu_torch.models.common import BatchNorm, init_params
 from simpleaicv_tpu_torch.models.detection import dinodetr
@@ -212,6 +242,8 @@ from simpleaicv_tpu_torch.perf.timing import cuda_ms as _cuda_ms
 from simpleaicv_tpu_torch.data import device_augment as dev_aug
 from simpleaicv_tpu_torch.parallel import moe
 from simpleaicv_tpu_torch.tasks import binary_segmentation as bseg_task
+from simpleaicv_tpu_torch.tasks import diffusion as diff_task
+from simpleaicv_tpu_torch.tasks import instance_segmentation as inst_task
 from simpleaicv_tpu_torch.tasks import distillation as kd_task
 from simpleaicv_tpu_torch.tasks import mae as mae_task
 from simpleaicv_tpu_torch.tasks import matting as matting_task
@@ -261,6 +293,14 @@ from simpleaicv_tpu_torch.tools import train_salient_object_detection as \
     sod_train_cli
 from simpleaicv_tpu_torch.tools import train_semantic_segmentation as \
     seg_train_cli
+from simpleaicv_tpu_torch.tools import test_diffusion_model as \
+    diffusion_test_cli
+from simpleaicv_tpu_torch.tools import test_instance_segmentation as \
+    inst_test_cli
+from simpleaicv_tpu_torch.tools import train_diffusion_model as \
+    diffusion_train_cli
+from simpleaicv_tpu_torch.tools import train_instance_segmentation as \
+    inst_train_cli
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -3809,7 +3849,7 @@ def _grads_on(device, model, loss_fn, batch):
 
 
 def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
-            grad_cos):
+            grad_cos, path="dense_parity"):
     """The card's f32 step (TF32 off) against the CPU's from the same
     weights and batch: fails unless the loss agrees within ``loss_rel``,
     all gradients within ``grad_rel`` in L2 and each parameter's at a
@@ -3827,7 +3867,7 @@ def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
     cos = min(torch.nn.functional.cosine_similarity(
         a.flatten(), b.flatten(), dim=0).item()
         for a, b in zip(grads_c, grads_h) if b.norm() > 0)
-    print(f"dense_parity: {label}, f32 train step, card (TF32 off) vs CPU "
+    print(f"{path}: {label}, f32 train step, card (TF32 off) vs CPU "
           f"({time.perf_counter() - t0:.1f} s) [{card}]: loss {loss_c:.6f} "
           f"vs {loss_h:.6f}, gradient relative L2 difference {rel:.3e} "
           f"(bound {grad_rel}), least per-parameter cosine {cos:.6f} "
@@ -4778,6 +4818,474 @@ def _slice_16(card):
     return paths
 
 
+# ---------------------------------------------------------------- slice 17
+
+# coco/res50_solov2 and coco/res50_yolact: resnet50 at 1024^2, 80 classes
+# (YOLACT's head 81 with the background), AdamW 1e-4 / 1e-3, MultiStepLR
+# (SOLOv2: a half-epoch warm-up, [24, 33] of 39 epochs; YOLACT: 1 epoch,
+# [24, 36] of 39); COCO's 117,266 training images at the recipe's batch
+# make the epoch's steps. The batches tried in turn: the recipe's, then
+# halves, until one fits
+INST_IMAGE, INST_CLASSES = 1024, 80
+INST_RECIPE_OPT = SEG_RECIPE_OPT
+SOLO_RECIPE_SCHED = ("MultiStepLR", {"warm_up_epochs": 0.5, "gamma": 0.1,
+                                     "milestones": [24, 33]})
+YOLACT_RECIPE_SCHED = ("MultiStepLR", {"warm_up_epochs": 1, "gamma": 0.1,
+                                       "milestones": [24, 36]})
+INST_EPOCHS = 39
+SOLO_BATCHES = (16, 8, 4, 2)
+YOLACT_BATCHES = (64, 32, 16, 8)
+# celebahq/ddpm_64: the UNet at planes 128, (1, 2, 2, 2), attention at
+# index 1, DDPMTrainer(t=1000), MSE, AdamW 2e-4 without decay, CosineLR
+# with a 1-epoch warm-up over 500 epochs, batch 64 (the recipe's), f32;
+# CelebA-HQ's 30,000 images make 468 steps an epoch
+DDPM_BATCH, DDPM_IMAGE = 64, 64
+DDPM_UNET = dict(inplanes=3, planes=128, planes_multi=(1, 2, 2, 2),
+                 use_attention_planes_multi_idx=(1,))
+DDPM_RECIPE_OPT = ("AdamW", {"lr": 2e-4, "global_weight_decay": False,
+                             "weight_decay": 0.0,
+                             "no_weight_decay_layer_name_list": []})
+DDPM_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1})
+DDPM_EPOCHS, DDPM_STEPS_PER_EPOCH = 500, 30000 // 64
+SAMPLE_IMAGES = 16
+
+
+def _no_launch_at_all(path):
+    """Fails if any hand kernel or narrow variant was launched since the
+    counts were last set to 0 (the slice-17 paths run none)."""
+    _wide_kernels_only(f"the {path} path")
+    return _no_hand_kernel(path)
+
+
+def _inst_batch(collater, n, image=INST_IMAGE, classes=INST_CLASSES):
+    """A resident batch of ``n`` synthetic images (1 to 3 rectangles with
+    masks) through the recipe's resize, normalisation and ``collater``,
+    on the card."""
+    ds = FakeInstanceSegmentationDataset(n, image, classes, transform=Compose(
+        [InstanceSegmentationResize(image), InstanceNormalize()]))
+    batch = collater(image)([ds[i] for i in range(n)])
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _inst_loss_replay_ms(criterion, preds, annots, masks):
+    """Device ms of the criterion alone (assignment, forward and backward)
+    on the step's predictions."""
+    leaves, shapes = [], []
+    for p in preds:
+        group = list(p) if isinstance(p, (list, tuple)) else [p]
+        shapes.append(len(group) if isinstance(p, (list, tuple)) else None)
+        leaves.extend(t.detach() for t in group)
+
+    def loss(*tensors):
+        out, i = [], 0
+        for n in shapes:
+            out.append(tensors[i] if n is None else list(tensors[i:i + n]))
+            i += 1 if n is None else n
+        return sum(criterion(out, annots, masks).values())
+
+    return _fwd_bwd_ms(loss, *leaves)
+
+
+def _largest_batch_that_fits(path, batches, make_batch, build, warm_up,
+                             timed):
+    """Tries the recipe's batch and then each cut of ``batches`` in turn:
+    builds the model and state (``build``) and takes ``warm_up`` +
+    ``timed`` steps; a batch whose step runs out of device memory is cut,
+    and printed so. Returns (batch size, the built model, criterion, state,
+    step, batch, ms a step, losses); fails if none fits."""
+    import gc
+    for n in batches:
+        built = []
+        try:
+            built.append(make_batch(n))
+            built.extend(build())
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms, losses = _timed_steps(built[4], built[3], built[0],
+                                           warm_up, timed)
+            batch, model, criterion, state, step = built
+            return n, model, criterion, state, step, batch, step_ms, losses
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # out of the handler, so that its traceback no longer holds the
+        # failed step's tensors
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{path}: batch {n} does not fit on the card (out of memory); "
+              f"cut", flush=True)
+    raise RuntimeError(f"{path}: no batch of {batches} fits")
+
+
+def _inst_train(card, path, network, classes, loss_name, loss_kw, collater,
+                batches, sched, warm_up=2, timed=5):
+    """An instance segmenter at 1024^2 through ``make_train_step`` on a
+    resident batch, the recipe's batch or the largest cut that fits:
+    images/s, ms a step, peak memory, a profiled step and the loss's share
+    replayed alone. Returns (the launches: none, images per second)."""
+    t0 = time.perf_counter()
+
+    def build():
+        model = init_params(MODELS.create(network, num_classes=classes),
+                            torch.Generator().manual_seed(0))
+        state = _recipe_state(model, INST_RECIPE_OPT, sched, INST_EPOCHS,
+                              117266 // batches[0])
+        criterion = LOSSES.create(loss_name, **loss_kw)
+        return model, criterion, state, make_train_step(
+            inst_task.make_loss_fn(criterion), EngineConfig())
+
+    n, model, criterion, state, step, batch, step_ms, losses = \
+        _largest_batch_that_fits(path, batches,
+                                 lambda n: _inst_batch(collater, n), build,
+                                 warm_up, timed)
+    launches = _no_launch_at_all(path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = n / step_ms * 1e3
+    cut = "the recipe's" if n == batches[0] else f"cut from {batches[0]}"
+    print(f"{path}: {network} {INST_IMAGE}^2 bf16 training, batch {n} "
+          f"({cut}) [{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per step "
+          f"over {timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)} (set-up and the batch "
+          f"search {time.perf_counter() - t0:.1f} s)", flush=True)
+    busy_ms = _profiled_step(card, network, step, state, batch, step_ms,
+                             top=12)
+    with torch.no_grad():
+        preds = model(batch["image"], train=True)
+    ms = _inst_loss_replay_ms(criterion, preds, batch["annots"],
+                              batch["gt_masks"])
+    print(f"  replayed {loss_name} alone ({batch['annots'].shape[1]} "
+          f"annotation slots, forward + backward): {ms:.3f} ms, "
+          f"{100 * ms / busy_ms:.1f}% of the step's busy time [{card}]",
+          flush=True)
+    _no_launch_at_all(path)
+    del state, model, step, preds, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_solov2_train(card):
+    """SOLOv2 R50 at coco/res50_solov2's fields (1024^2, 80 classes,
+    SOLOV2Loss, AdamW, MultiStepLR), batch 16 or the largest cut that
+    fits."""
+    return _inst_train(card, "solov2_train", "resnet50_solov2", INST_CLASSES,
+                       "SOLOV2Loss", {}, SOLOV2InstanceSegmentationCollater,
+                       SOLO_BATCHES, SOLO_RECIPE_SCHED)
+
+
+def phase_yolact_train(card):
+    """YOLACT R50 at coco/res50_yolact's fields (1024^2, 81 classes with the
+    background, 65,472 anchors, YOLACTLoss, AdamW, MultiStepLR), batch 64
+    or the largest cut that fits."""
+    return _inst_train(card, "yolact_train", "resnet50_yolact",
+                       INST_CLASSES + 1, "YOLACTLoss",
+                       {"resize": INST_IMAGE},
+                       YOLACTInstanceSegmentationCollater, YOLACT_BATCHES,
+                       YOLACT_RECIPE_SCHED)
+
+
+def _decoded_agree(label, got, want):
+    """Prints and checks a decoder's output on the card against the CPU's
+    on the same predictions: the labels equal, the scores within 1e-5
+    relative, at most 1e-5 of the kept masks' pixels apart (a pixel whose
+    value lies within f32 rounding of the 0.5 threshold may fall either
+    side: the two devices sum the products in other orders)."""
+    (gm, gl, gs), (wm, wl, ws) = got, want
+    kept = ws > 0
+    differ = int((gm != wm).sum())
+    pixels = int(kept.sum()) * wm.shape[-1] * wm.shape[-2]
+    same = (np.array_equal(gl, wl)
+            and np.allclose(gs, ws, rtol=1e-5, atol=0)
+            and differ <= 1e-5 * max(pixels, 1))
+    print(f"inst_parity: {label} on the card vs the CPU on the same "
+          f"predictions: {int(kept.sum())} instances, labels equal "
+          f"{np.array_equal(gl, wl)}, largest score difference "
+          f"{np.abs(gs - ws).max():.3e}, {differ} of {pixels} kept mask "
+          f"pixels apart", flush=True)
+    if not same or not kept.any():
+        raise RuntimeError(f"the {label} on the card disagrees with the CPU")
+
+
+def phase_inst_parity(card):
+    """One f32 SOLOv2 R50 train step at 256^2, batch 2, on the card (TF32
+    off) against the CPU, and both decoders on the card against the CPU on
+    the same seeded predictions at R50's 256^2 shapes. Returns the
+    launches (none)."""
+    _reset_launches()
+    batch = _inst_batch(SOLOV2InstanceSegmentationCollater, 2, 256)
+    batch = {k: v.cpu() for k, v in batch.items()}
+    # train-mode BatchNorm at batch 2 spreads each rounding switch over its
+    # channel, as in dense_parity's FCOS step: L2 and cosine bounds
+    _parity(card, "resnet50_solov2 256^2, batch 2",
+            lambda: init_params(MODELS.create(
+                "resnet50_solov2", num_classes=INST_CLASSES,
+                dtype=torch.float32), torch.Generator().manual_seed(3)),
+            inst_task.make_loss_fn(LOSSES.create("SOLOV2Loss")), batch,
+            loss_rel=1e-3, grad_rel=5e-2, grad_cos=0.99, path="inst_parity")
+    g = torch.Generator().manual_seed(5)
+    grids = (40, 36, 24, 16, 12)
+    # integer mask features and kernels in {-1, 0, 1} plus half of a
+    # constant channel: every mask logit is an integer plus 0.5, exact in
+    # any order of summation, so no mask pixel lies at the threshold and
+    # both devices keep the same masks before the x4 resize
+    feat = torch.randint(-3, 4, (2, 64, 64, 256), generator=g).float()
+    feat[..., 0] = 1.0
+    kernels = []
+    for s in grids:
+        k = (torch.rand(2, s, s, 256, generator=g) < 0.05).float() * (
+            torch.randint(0, 2, (2, s, s, 256), generator=g) * 2 - 1)
+        k[..., 0] = 0.5
+        kernels.append(k)
+    solo = (feat, kernels,
+            [torch.randn(2, s, s, INST_CLASSES, generator=g) * 2 - 3
+             for s in grids])
+    decoder = DECODERS.create("SOLOV2Decoder")
+    want = decoder(solo)
+    got = decoder((solo[0].cuda(), [t.cuda() for t in solo[1]],
+                   [t.cuda() for t in solo[2]]))
+    _decoded_agree("SOLOV2Decoder", got, want)
+    levels = [256 // s for s in (8, 16, 32, 64, 128)]
+    yolact = ([torch.randn(2, h, h, 3, INST_CLASSES + 1, generator=g) * 2
+               for h in levels],
+              [torch.randn(2, h, h, 3, 4, generator=g) * 0.5 for h in levels],
+              [torch.tanh(torch.randn(2, h, h, 3, 32, generator=g))
+               for h in levels],
+              torch.relu(torch.randn(2, 64, 64, 32, generator=g)))
+    decoder = DECODERS.create("YOLACTDecoder", resize=256)
+    want = decoder(yolact)
+    got = decoder(([t.cuda() for t in yolact[0]],
+                   [t.cuda() for t in yolact[1]],
+                   [t.cuda() for t in yolact[2]], yolact[3].cuda()))
+    _decoded_agree("YOLACTDecoder", got, want)
+    return _no_launch_at_all("inst_parity")
+
+
+def phase_inst_cli(card):
+    """fake_synthetic/resnet18_solov2 and resnet18_yolact through the
+    instance-segmentation train and test CLIs, in this process."""
+    launches = {}
+    for rel in ("5.instance_segmentation_training/fake_synthetic/"
+                "resnet18_solov2",
+                "5.instance_segmentation_training/fake_synthetic/"
+                "resnet18_yolact"):
+        launches.update(_experiment_cli(card, "inst_cli", rel,
+                                        inst_train_cli, inst_test_cli))
+    _wide_kernels_only("the inst_cli path")
+    return launches
+
+
+def phase_ddpm_train(card, warm_up=2, timed=6):
+    """The celebahq/ddpm_64 UNet at 64^2, batch 64, f32 through
+    ``make_train_step`` on a resident batch (synthetic images in [-1, 1]);
+    then the full 1000-step DDPM sampler on 16 images, a 50-step DDIM
+    sampler, and the InceptionV3 features of the 16 samples at 299^2 with
+    the FID and IS arithmetic on seeded weights (their value means nothing
+    without the pretrained weights; the time is the reading). Returns (the
+    launches: none, images per second)."""
+    t0 = time.perf_counter()
+    model = init_params(MODELS.create("DiffusionUNet", **DDPM_UNET),
+                        torch.Generator().manual_seed(0))
+    trainer = DDPMTrainer(t=1000)
+    state = _recipe_state(model, DDPM_RECIPE_OPT, DDPM_RECIPE_SCHED,
+                          DDPM_EPOCHS, DDPM_STEPS_PER_EPOCH)
+    step = make_train_step(diff_task.make_loss_fn(diff_task.MSELoss(),
+                                                  trainer), EngineConfig())
+    ds = FakeClassificationDataset(DDPM_BATCH, DDPM_IMAGE, 10)
+    images = np.stack([ds[i]["image"] for i in range(DDPM_BATCH)])
+    batch = {"image": torch.from_numpy(images / 127.5 - 1.0).float().cuda()}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"DiffusionUNet 128 (1, 2, 2, 2) {DDPM_IMAGE}^2 f32 ({n_params} "
+          f"parameters), its AdamW state and a resident batch of "
+          f"{DDPM_BATCH} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _timed_steps(step, state, batch, warm_up, timed)
+    launches = _no_launch_at_all("ddpm_train")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = DDPM_BATCH / step_ms * 1e3
+    print(f"ddpm_train: DiffusionUNet {DDPM_IMAGE}^2 f32 training (TF32 "
+          f"off), batch {DDPM_BATCH} (the recipe's) [{card}]: {ips:.2f} "
+          f"images/s, {step_ms:.2f} ms per step over {timed} steps, peak "
+          f"memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    _profiled_step(card, "DiffusionUNet", step, state, batch, step_ms,
+                   top=12)
+    shape = (SAMPLE_IMAGES, DDPM_IMAGE, DDPM_IMAGE, 3)
+    samples, seconds = None, {}
+    for name, sampler in (("DDPM, 1000 steps", DDPMSampler(t=1000)),
+                          ("DDIM, 50 steps", DDIMSampler(ddpm_t=1000,
+                                                         ddim_t=50))):
+        generate = diff_task.make_generate_fn(model, sampler, shape,
+                                              device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        s = seconds[name] = time.perf_counter() - t0
+        print(f"ddpm_train: {name} on {SAMPLE_IMAGES} images [{card}]: "
+              f"{s:.2f} s, {1e3 * s / SAMPLE_IMAGES:.1f} ms an image, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"samples finite {bool(torch.isfinite(out).all())}, in "
+              f"[{out.min().item():.3f}, {out.max().item():.3f}]",
+              flush=True)
+        if not torch.isfinite(out).all() or tuple(out.shape) != shape:
+            raise RuntimeError(f"ddpm_train: the {name} sampler gave "
+                               f"{tuple(out.shape)}, finite "
+                               f"{bool(torch.isfinite(out).all())}")
+        samples = out if samples is None else samples
+    model.eval()
+    x = torch.randn(shape, device="cuda")
+    t = torch.full((SAMPLE_IMAGES,), 500, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        busy_ms, events = _profile_device(lambda: model(x, t, None, False))
+    print(f"ddpm_train: one sampler step's UNet forward at batch "
+          f"{SAMPLE_IMAGES}, profiled: device busy {busy_ms:.2f} ms, beside "
+          f"{1e3 * seconds['DDPM, 1000 steps'] / 1000:.4f} ms a step of "
+          f"the 1000-step run "
+          f"[{card}]", flush=True)
+    _print_rows(events, busy_ms, 8)
+    fake = ((samples.clamp(-1, 1) + 1) / 2).cpu().numpy()
+    real = ((batch["image"][:SAMPLE_IMAGES] + 1) / 2).cpu().numpy()
+    t0 = time.perf_counter()
+    feature_fn = fid_is.make_inception_feature_fn(device="cuda")
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fake_feats, fake_probs = feature_fn(fake)
+    real_feats, _ = feature_fn(real)
+    feats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid = fid_is.compute_fid(real_feats, fake_feats)
+    is_mean, is_std = fid_is.compute_inception_score(fake_probs)
+    arith_s = time.perf_counter() - t0
+    print(f"ddpm_train: InceptionV3 (FID variant, seeded weights: the "
+          f"values measure nothing) built in {build_s:.2f} s; features of "
+          f"2 x {SAMPLE_IMAGES} images at 299^2 {1e3 * feats_s:.1f} ms; "
+          f"the FID (2048^2 square root) and IS on the host "
+          f"{arith_s:.2f} s [{card}]; FID {fid:.6e}, IS {is_mean:.6f}",
+          flush=True)
+    if not (np.isfinite(fid) and np.isfinite(is_mean)
+            and fake_feats.shape == (SAMPLE_IMAGES, 2048)):
+        raise RuntimeError("ddpm_train: the FID path gave no finite value")
+    _no_launch_at_all("ddpm_train")
+    del state, model, step, batch, samples
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_diffusion_cli(card):
+    """fake_synthetic/tiny_ddpm through the diffusion train and test CLIs
+    in this process; reads back the sample grid and the 16 generated PNGs
+    and checks their shapes."""
+    import os
+    import shutil
+    import tempfile
+    from simpleaicv_tpu_torch.core.png import read_png
+    rel = "20.diffusion_model_training/fake_synthetic/tiny_ddpm"
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "experiments", rel)
+    with tempfile.TemporaryDirectory() as work_dir:
+        for name in os.listdir(src):
+            if name.endswith(".py"):
+                shutil.copy(os.path.join(src, name), work_dir)
+        test_path = os.path.join(work_dir, "test_config.py")
+        with open(test_path) as f:
+            text = f.read()
+        with open(test_path, "w") as f:
+            f.write(text.replace('trained_model_path = ""',
+                                 "trained_model_path = os.path.join(os.path."
+                                 "dirname(os.path.abspath(__file__)), "
+                                 "\"checkpoints\", \"best\")"))
+        argv = ["--work-dir", work_dir]
+        _reset_launches()
+        t0 = time.perf_counter()
+        best = diffusion_train_cli.main(argv)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = diffusion_test_cli.main(argv)
+        test_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _no_launch_at_all("diffusion_cli")
+        grid = read_png(os.path.join(work_dir, "samples", "grid_0001.png"))
+        generated = [read_png(os.path.join(work_dir, "generated",
+                                           f"{i}.png"))
+                     for i in range(stats["generated"])]
+    print(f"diffusion_cli: {rel}: train CLI {train_s:.1f} s (best "
+          f"{best:.6f}, minus the loss), test CLI {test_s:.1f} s [{card}]; "
+          f"sample grid {grid.shape}, {len(generated)} generated PNGs of "
+          f"{sorted({g.shape for g in generated})}", flush=True)
+    if (grid.shape != (32, 32, 3) or len(generated) != 16
+            or any(g.shape != (16, 16, 3) for g in generated)
+            or not np.isfinite(best)):
+        raise RuntimeError("diffusion_cli: the PNGs have other shapes than "
+                           "the config's")
+    return launches
+
+
+def phase_ddpm_learns(card, draws=10):
+    """``tests/test_torch_convergence.py``'s DDPM recipe on the card (the
+    tiny UNet, 64 two-mode 16^2 images, cosine schedule at T=100, 90
+    epochs), then the JAX test's statistic on 64 DDPM samples (the
+    generator seeded with 123) and on ``draws`` such draws (seeds 123,
+    124, ...): fails unless both modes hold 0.15 of the first draw's
+    samples, the JAX test's bound. The first draw's mean distance to the
+    nearer mode is printed beside the JAX test's 0.33, with the mean over
+    the draws, and is not a gate: the recipe's expected distance sits at
+    that bound in both packages (over 640 samples: 0.3285 for a
+    JAX-trained model, 0.3263 to 0.3317 for four port-trained ones on the
+    CPU), so one 64-sample draw (spread 0.03) meets it about half the
+    time in either, and the card's draws are fixed by their seeds."""
+    import importlib.util
+    import os
+    import tempfile
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_convergence.py")
+    spec = importlib.util.spec_from_file_location("test_torch_convergence",
+                                                  path)
+    convergence = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convergence)
+    _reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        generate = convergence.train_ddpm(work_dir, "cuda")
+    train_s = time.perf_counter() - t0
+    stats = [convergence.two_mode_stats(generate(
+        torch.Generator("cuda").manual_seed(123 + k))) for k in range(draws)]
+    launches = _no_launch_at_all("ddpm_learns")
+    hi, lo, near = stats[0]
+    nears = [float(st[2].mean()) for st in stats]
+    print(f"ddpm_learns: tiny DDPM 16^2, 90 epochs in {train_s:.1f} s "
+          f"[{card}]: 64 samples (seed 123): share above 0.3 {hi:.4f}, "
+          f"below -0.3 {lo:.4f} (0.15 each required), mean distance to the "
+          f"nearer mode {nears[0]:.4f} (the JAX test's bound 0.33; not a "
+          f"gate, see the phase's note); over {draws} draws of 64: shares "
+          f"{np.mean([st[0] for st in stats]):.4f} and "
+          f"{np.mean([st[1] for st in stats]):.4f}, distance "
+          f"{np.mean(nears):.4f} (draws from {min(nears):.4f} to "
+          f"{max(nears):.4f})", flush=True)
+    if not (hi >= 0.15 and lo >= 0.15):
+        raise RuntimeError(f"the DDPM did not learn both modes: {hi}, {lo}")
+    return launches
+
+
+def _slice_17(card):
+    """The phases of slice 17: {path: launches}; none launches a hand
+    kernel."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths["solov2_train"], _ = phase_solov2_train(card)
+    paths["yolact_train"], _ = phase_yolact_train(card)
+    paths["inst_parity"] = phase_inst_parity(card)
+    paths["inst_cli"] = phase_inst_cli(card)
+    paths["ddpm_train"], _ = phase_ddpm_train(card)
+    paths["diffusion_cli"] = phase_diffusion_cli(card)
+    paths["ddpm_learns"] = phase_ddpm_learns(card)
+    print(f"slice 17: seven phases in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -4806,6 +5314,7 @@ def main():
     fcos_learns = phase_fcos_learns(card)
     slice_15 = _slice_15(card)
     slice_16 = _slice_16(card)
+    slice_17 = _slice_17(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -4818,7 +5327,8 @@ def main():
     # the MAE, distillation, device-augmentation and slice-15 CLI paths.
     # ViT-MoE's step launches K1-K3 12 times each (``moe_train``). The SAM
     # distillation and matting paths launch K4-K6 (slice 16; the CLIs'
-    # counts are the SAM-B matting run's), PFAN matting none.
+    # counts are the SAM-B matting run's), PFAN matting none; nor do the
+    # instance-segmentation and diffusion paths (slice 17).
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
@@ -4827,7 +5337,8 @@ def main():
              "seg_learns": seg_learns, "fcos_train": fcos,
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
-             "fcos_learns": fcos_learns, **slice_15, **slice_16}
+             "fcos_learns": fcos_learns, **slice_15, **slice_16,
+             **slice_17}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -86,10 +86,15 @@ class CheckpointManager:
 
     def finalize_best(self, network: str, metric: float):
         """Links ``{network}-metric{metric:.3f}`` to ``best``, as the
-        reference renames its best weights to ``{network}-acc{best:.3f}``."""
+        reference renames its best weights to ``{network}-acc{best:.3f}``.
+        A link an earlier run of the directory left (a resumed run whose
+        best moved) is removed first, so that one name stands for
+        ``best``, as the reference's one renamed file does."""
+        for name in os.listdir(self.directory):
+            path = os.path.join(self.directory, name)
+            if name.startswith(f"{network}-metric") and os.path.islink(path):
+                os.unlink(path)
         named = os.path.join(self.directory, f"{network}-metric{metric:.3f}")
-        if os.path.islink(named):
-            os.unlink(named)
         if os.path.exists(self.best_path) and not os.path.exists(named):
             os.symlink(self.best_path, named)
 

@@ -3,8 +3,9 @@
 ``load_jax_params(model, params, batch_stats=None)`` takes
 ``variables["params"]`` of a JAX SAM, ViT, ViT-MoE, ResNet, DINO-DETR,
 DETR, DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace, Sapiens, MAE
-pretraining, distillation (``KDModel``), LightSAM, SAM distillation or SAM
-matting model (nested dicts of numpy arrays) and, for models with BatchNorm,
+pretraining, distillation (``KDModel``), LightSAM, SAM distillation, SAM
+matting, SOLOv2, YOLACT, diffusion UNet or InceptionV3 model (nested dicts
+of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
 ``export_jax_params(model)`` goes the other way: the model's parameters (or
@@ -22,7 +23,8 @@ models' names; ``_RULES`` maps them onto the JAX package's parameter paths
 keys map to the ``teacher`` and ``student`` sub-trees by their networks'
 rules, and a SAM matting model's ``sam.`` keys to its ``sam`` sub-tree.
 The keys of ResNet, DINO-DETR, DETR, DeepLabV3+, PFAN, the dense detectors,
-LightSAM's backbone and neck and Sapiens' head are the JAX
+LightSAM's backbone and neck, Sapiens' head, SOLOv2,
+YOLACT, the diffusion UNet and InceptionV3 are the JAX
 paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
 ``encoder.0.self_attn.value_proj``, ``reg_head.1``,
 ``head.aspp2.aspp1.dw.conv``, ``clsregcnt_head.cls_gn.0``,
@@ -135,8 +137,12 @@ _RULES = [
     # (``decoder``, the matting branches, the prediction convolutions),
     # RetinaNet and FCOS (``fpn``, the heads, FCOS's ``scales``), RetinaFace
     # (``sshs``, ``cls_convs``, ``box_convs``), Sapiens' parsing head
-    # (``convt1``, ``conv1``), LightSAM's ``fpn`` and SAM matting's heads
-    # (``fusion_pred``, ``fusion_pred_N``): the JAX path itself
+    # (``convt1``, ``conv1``), LightSAM's ``fpn``, SAM matting's heads
+    # (``fusion_pred``, ``fusion_pred_N``), SOLOv2 and YOLACT (``fpn``, the
+    # heads, ``proto_net``), the diffusion UNet (``time_mlp_1``,
+    # ``down_0``, ``down_2_conv``, ``middle_0``, ``up_3_conv``, ...) and
+    # InceptionV3 (torchvision's ``Conv2d_1a_3x3``, ``Mixed_5b``, ``fc``):
+    # the JAX path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
@@ -144,7 +150,10 @@ _RULES = [
      r"class_embed|proj_conv|query_embed|cls_head|reg_head|reg_head_out|"
      r"head|global_decoder|local_decoder|pred_conv|global_pred_conv|"
      r"local_pred_conv|fpn|clsregcnt_head|scales|sshs|cls_convs|box_convs|"
-     r"convt\d+|conv\d+|fusion_pred(?:_\d+)?)"
+     r"convt\d+|conv\d+|fusion_pred(?:_\d+)?|mask_feature_head|bbox_head|"
+     r"proto_net|semantic_seg_conv|time_mlp_\d|class_mlp_\d|"
+     r"(?:down|up)_\d+(?:_conv)?|middle_\d+|last_norm|last_conv|"
+     r"Conv2d_\w+|Mixed_\w+)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
 ]
 

@@ -3,4 +3,4 @@
 from .coco import FakeDetectionDataset  # noqa: F401
 from .synthetic import (FakeClassificationDataset,  # noqa: F401
                         LearnableClassificationDataset,
-                        LearnableDetectionDataset)
+                        LearnableDetectionDataset, TwoModeImageDataset)

@@ -1,6 +1,6 @@
-"""Synthetic classification and detection datasets (counterpart of part
-of ``simpleaicv_tpu/data/datasets/synthetic.py``), numpy only. Sample
-``idx`` holds the same arrays as the JAX package's."""
+"""Synthetic classification, detection and diffusion datasets (counterpart
+of part of ``simpleaicv_tpu/data/datasets/synthetic.py``), numpy only.
+Sample ``idx`` holds the same arrays as the JAX package's."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Callable, Optional
 import numpy as np
 
 __all__ = ["FakeClassificationDataset", "LearnableClassificationDataset",
-           "LearnableDetectionDataset"]
+           "LearnableDetectionDataset", "TwoModeImageDataset"]
 
 
 class FakeClassificationDataset:
@@ -116,3 +116,28 @@ class LearnableDetectionDataset:
         if self.transform is not None:
             sample = self.transform(sample)
         return sample
+
+
+class TwoModeImageDataset:
+    """A two-mode toy distribution for diffusion: sample ``idx`` is a
+    constant image at pixel level ``(+-mode + 1) * 127.5`` (the sign
+    alternating with ``idx``) plus Gaussian noise of 4 levels from
+    ``np.random.RandomState(idx)``, clipped to [0, 255]. A DDPM that learns
+    the distribution samples both modes."""
+
+    def __init__(self, num_samples: int = 64, image_hw: int = 16,
+                 mode: float = 0.6):
+        self.num_samples = num_samples
+        self.image_hw = image_hw
+        self.mode = mode
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(idx)
+        sign = 1.0 if idx % 2 == 0 else -1.0
+        base = (sign * self.mode + 1.0) * 127.5
+        img = base + 4.0 * rng.randn(self.image_hw, self.image_hw, 3)
+        return {"image": np.clip(img, 0, 255).astype(np.float32),
+                "label": 0}

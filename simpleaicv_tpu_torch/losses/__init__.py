@@ -5,6 +5,8 @@ from .classification import (CELoss, FocalCELoss, LabelSmoothCELoss,
 from .detection import FCOSLoss, RetinaLoss  # noqa: F401
 from .detr import DETRLoss  # noqa: F401
 from .dinodetr import DINODETRLoss  # noqa: F401
+from .instance_segmentation import SOLOV2Loss  # noqa: F401
+from .yolact import YOLACTLoss  # noqa: F401
 from .interactive_segmentation import (  # noqa: F401
     SAMDistillLoss, SAMDistillMSELoss, SAMMultiLevelAssignLoss,
     SAMMultiLevelIoUMaxLoss, SAMMultiLevelLoss)

@@ -2,8 +2,10 @@
 
 from . import backbones  # noqa: F401
 from . import detection  # noqa: F401
+from . import diffusion_unet  # noqa: F401
 from . import distillmodel  # noqa: F401
 from . import face_detection  # noqa: F401
+from . import instance_segmentation  # noqa: F401
 from . import interactive_segmentation  # noqa: F401
 from . import pfan  # noqa: F401
 from . import sapiens_parsing  # noqa: F401

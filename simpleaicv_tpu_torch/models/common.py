@@ -87,18 +87,20 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     """flax ``nn.Conv(dtype=...)`` on NHWC tensors; weight OIHW (O, I /
     groups, kH, kW). ``dilation`` is flax's ``kernel_dilation``, ``groups``
-    its ``feature_group_count``. Initialisers: lecun normal (flax's
-    default) or a normal of deviation ``normal_std``; the bias is
-    ``bias_fill``."""
+    its ``feature_group_count``; ``kernel_size`` and ``padding`` are a
+    number or an (h, w) pair. Initialisers: lecun normal (flax's default)
+    or a normal of deviation ``normal_std``; the bias is ``bias_fill``."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True,
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride: int = 1, padding=0, bias: bool = True,
                  dtype: torch.dtype = torch.float32, dilation: int = 1,
                  groups: int = 1, normal_std: float | None = None,
                  bias_fill: float = 0.0):
         super().__init__()
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, kernel_size, kernel_size))
+            out_channels, in_channels // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
         self.dilation, self.groups = dilation, groups
@@ -382,9 +384,10 @@ def truncated_normal_(tensor, stddev, generator):
 
 
 def _lecun_normal(weight, fan_in, generator):
-    with torch.no_grad():
-        weight.copy_(torch.randn(weight.shape, generator=generator)
-                     * (1.0 / math.sqrt(fan_in)))
+    """flax's ``lecun_normal``: a truncated normal of deviation
+    1 / sqrt(fan_in) (``variance_scaling(1, "fan_in",
+    "truncated_normal")``), not a plain normal."""
+    truncated_normal_(weight, 1.0 / math.sqrt(fan_in), generator)
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:

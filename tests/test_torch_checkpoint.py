@@ -111,6 +111,28 @@ def test_restore_refuses_a_state_without_ema(tmp_path):
         mgr.restore_latest(other)
 
 
+def test_a_resumed_run_whose_best_moved_leaves_one_named_link(tmp_path):
+    """A second run of the directory (a resume) that improves the best
+    replaces the first run's named link: one ``{network}-metric*`` name,
+    the new metric's, pointing at ``best``; another network's link and a
+    file of that name that is no link stay."""
+    state, _ = _state()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_best(state.model.state_dict(), 0.106)
+    mgr.finalize_best("tiny", 0.106)
+    mgr.finalize_best("other", 0.5)
+    (tmp_path / "tiny-metric-notes.txt").write_text("kept")
+    mgr.save_best(state.model.state_dict(), 0.125)
+    mgr.finalize_best("tiny", 0.125)
+    links = sorted(p.name for p in tmp_path.glob("tiny-metric*")
+                   if p.is_symlink())
+    assert links == ["tiny-metric0.125"]
+    assert (tmp_path / "other-metric0.500").is_symlink()
+    assert (tmp_path / "tiny-metric-notes.txt").read_text() == "kept"
+    assert os.path.realpath(tmp_path / "tiny-metric0.125") == \
+        os.path.realpath(tmp_path / "best")
+
+
 def test_best_round_trip_and_named_link(tmp_path):
     state, _ = _state()
     tensors = state.model.state_dict()
