@@ -167,10 +167,28 @@ Phases, each of which raises (exit code 1) on failure:
      failing unless 64 samples reproduce both modes (the JAX test's
      bounds on the two shares); the mean distance to the nearer mode
      printed beside the JAX test's 0.33 for that draw and ten.
-Phases 23-34 and 37 print images/s, ms a step, peak memory, the idle share
-and the top rows of one profiled step where they train on a resident
-batch. The paths of phases 13-22, 24-27, 31 and 33-39 and the four
-fake_synthetic configs of phase 32 (16 tokens in their global layer)
+ 40. dbnet_train: resnet50_dbnet at 1024^2 (combined/convformerm36_dbnet's
+     fields with the R50 trunk: DBNetLoss, AdamW, PolyLR) on resident
+     batches from the port's synthetic dataset, map generator and collater,
+     batch 16 or the largest cut that fits; the map generator's ms a
+     sample, the loss replayed alone and its OHEM sort alone;
+ 41. ctc_train: CTCModel (OCR R50 trunk, TransformerEncoder, 12,112
+     classes) at 32 x 512 (combined/convformerm36_ctc's fields), batch 512
+     or the largest cut that fits; 4 labels longer than the 64 steps allow,
+     whose CTC loss must be 0; the loss replayed alone;
+ 42. dbnet_learns: resnet18_dbnet on 32 synthetic 128x128 images for 20
+     epochs, failing unless its best polygon F1 reaches 40 (the JAX test's
+     bound), the F1 of every epoch printed;
+ 43. ocr_parity: one f32 step of resnet18_dbnet at 256^2 and of the
+     resnet18 BiLSTM CTC model at 32 x 256 on the card (TF32 off) against
+     the CPU, and DBNetDecoder on the card's maps of phase 42's model
+     against the CPU's;
+ 44. ocr_cli: fake_synthetic/resnet18_dbnet and resnet18_ctc through the
+     OCR train and test CLIs in this process.
+Phases 23-34, 37, 40 and 41 print images/s, ms a step, peak memory, the
+idle share and the top rows of one profiled step where they train on a
+resident batch. The paths of phases 13-22, 24-27, 31 and 33-44 and the
+four fake_synthetic configs of phase 32 (16 tokens in their global layer)
 launch no hand kernel, which each checks.
 The script prints its total time.
 The line before the last is a JSON object with one entry per kernel; the
@@ -216,6 +234,11 @@ from simpleaicv_tpu_torch.data.interactive_segmentation import (
 from simpleaicv_tpu_torch.data.matting import (FakeHumanMattingDataset,
                                                HumanMattingCollater,
                                                MattingNormalize)
+from simpleaicv_tpu_torch.data.text_detection import (
+    DBNetDecoder, FakeTextDetectionDataset, TextDetectionCollater)
+from simpleaicv_tpu_torch.data.text_recognition import (
+    CTCTextLabelConverter, FakeTextRecognitionDataset,
+    KeepRatioResizeTextRecognitionCollater)
 from simpleaicv_tpu_torch.data.segmentation import (
     FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
 from simpleaicv_tpu_torch.data.transforms import Compose
@@ -225,6 +248,7 @@ from simpleaicv_tpu_torch.diffusion import (DDIMSampler, DDPMSampler,
 from simpleaicv_tpu_torch.evaluation import fid_is
 from simpleaicv_tpu_torch.losses import dinodetr as dino_loss
 from simpleaicv_tpu_torch.models.common import BatchNorm, init_params
+from simpleaicv_tpu_torch.models.text_recognition import CTCModel
 from simpleaicv_tpu_torch.models.detection import dinodetr
 from simpleaicv_tpu_torch.models.interactive_segmentation.light_sam import (
     SAMDistillEncoderModel, SAMDistillModel)
@@ -250,6 +274,8 @@ from simpleaicv_tpu_torch.tasks import matting as matting_task
 from simpleaicv_tpu_torch.tasks import detection as det_task
 from simpleaicv_tpu_torch.tasks import interactive_segmentation as sam_task
 from simpleaicv_tpu_torch.tasks import semantic_segmentation as seg_task
+from simpleaicv_tpu_torch.tasks import text_detection as text_det_task
+from simpleaicv_tpu_torch.tasks import text_recognition as text_rec_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
 from simpleaicv_tpu_torch.tools import test_classification as cls_test_cli
@@ -299,6 +325,14 @@ from simpleaicv_tpu_torch.tools import test_instance_segmentation as \
     inst_test_cli
 from simpleaicv_tpu_torch.tools import train_diffusion_model as \
     diffusion_train_cli
+from simpleaicv_tpu_torch.tools import test_text_detection as \
+    text_det_test_cli
+from simpleaicv_tpu_torch.tools import test_text_recognition as \
+    text_rec_test_cli
+from simpleaicv_tpu_torch.tools import train_text_detection as \
+    text_det_train_cli
+from simpleaicv_tpu_torch.tools import train_text_recognition as \
+    text_rec_train_cli
 from simpleaicv_tpu_torch.tools import train_instance_segmentation as \
     inst_train_cli
 
@@ -3845,7 +3879,8 @@ def _grads_on(device, model, loss_fn, batch):
     loss, _ = loss_fn(model, {k: v.to(device) for k, v in batch.items()},
                       None, True)
     loss.backward()
-    return loss.item(), [p.grad.double().cpu() for p in model.parameters()]
+    return loss.item(), [p.grad.double().cpu() for p in model.parameters()
+                         if p.requires_grad]
 
 
 def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
@@ -5286,6 +5321,350 @@ def _slice_17(card):
     return paths
 
 
+# ---- slice 18: OCR text detection and recognition --------------------------
+
+# combined/convformerm36_dbnet's fields with the R50 trunk in place of
+# ConvFormer-M36 (item 4b): 1024^2, DBNetLoss, AdamW 1e-4 / 1e-3, PolyLR
+# power 0.9 after a 1-epoch warm-up over 100 epochs, batch 16 (cut to what
+# fits); the five real sets are not here, so the steps of an epoch are a
+# nominal 1000
+DBNET_IMAGE = 1024
+DBNET_BATCHES = (16, 8, 4)
+DBNET_RECIPE_OPT = ("AdamW", {"lr": 1e-4, "global_weight_decay": False,
+                              "weight_decay": 1e-3,
+                              "no_weight_decay_layer_name_list": []})
+DBNET_RECIPE_SCHED = ("PolyLR", {"warm_up_epochs": 1, "power": 0.9})
+DBNET_EPOCHS, OCR_STEPS_PER_EPOCH = 100, 1000
+# combined/convformerm36_ctc's fields with the OCR R50 trunk: 32 x 512
+# canvases, str_max_length 80 (T = 64), the reference's 12,111 characters
+# and the blank, TransformerEncoder, predictor 512, CTCLoss, AdamW 1e-4 /
+# 1e-4, CosineLR after a 1-epoch warm-up over 50 epochs, batch 512
+CTC_BATCHES = (512, 256, 128)
+CTC_MAX_W, CTC_STR_MAX = 512, 80
+CTC_RECIPE_OPT = ("AdamW", {"lr": 1e-4, "global_weight_decay": False,
+                            "weight_decay": 1e-4,
+                            "no_weight_decay_layer_name_list": []})
+CTC_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1, "min_lr": 1e-6})
+CTC_EPOCHS = 50
+# samples of the CTC batch given 80-character labels, more than T = 64
+# steps can align: the loss's mask must give them 0
+CTC_LONG_LABELS = 4
+
+
+def _ocr_train(card, path, network, batches, make_batch, build, loss_name,
+               replay, host_ms, warm_up=2, timed=5):
+    """An OCR model through ``make_train_step`` on a resident batch, the
+    recipe's batch or the largest cut that fits: images/s, ms a step, peak
+    memory, a profiled step and its top rows, the loss replayed alone
+    (``replay(criterion, preds, batch)`` prints its parts and returns its
+    ms) and the host data's ms a sample. Returns (the launches: none,
+    images per second)."""
+    t0 = time.perf_counter()
+    n, model, criterion, state, step, batch, step_ms, losses = \
+        _largest_batch_that_fits(path, batches, make_batch, build, warm_up,
+                                 timed)
+    launches = _no_launch_at_all(path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = n / step_ms * 1e3
+    cut = "the recipe's" if n == batches[0] else f"cut from {batches[0]}"
+    print(f"{path}: {network} bf16 training, batch {n} ({cut}) [{card}]: "
+          f"{ips:.2f} images/s, {step_ms:.2f} ms per step over {timed} "
+          f"steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)} (set-up and the batch "
+          f"search {time.perf_counter() - t0:.1f} s)", flush=True)
+    busy_ms = _profiled_step(card, network, step, state, batch, step_ms,
+                             top=12)
+    with torch.no_grad():
+        preds = model(batch["image"], train=True)
+    ms = replay(criterion, preds, batch)
+    print(f"  replayed {loss_name} alone (forward + backward): {ms:.3f} ms, "
+          f"{100 * ms / busy_ms:.1f}% of the step's busy time; the host "
+          f"data {host_ms:.1f} ms a sample, {host_ms * n:.0f} ms a batch "
+          f"beside the {step_ms:.2f} ms step [{card}]", flush=True)
+    _no_launch_at_all(path)
+    del state, model, step, preds, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_dbnet_train(card):
+    """resnet50_dbnet at 1024^2 (combined/convformerm36_dbnet's fields,
+    the R50 trunk) on resident batches from the port's
+    ``FakeTextDetectionDataset``, ``DBNetMapGenerator`` and
+    ``TextDetectionCollater``, made on the host once (the generator's ms a
+    1024^2 sample printed); the loss replayed alone with its OHEM sort."""
+    t0 = time.perf_counter()
+    ds = FakeTextDetectionDataset(DBNET_BATCHES[0], image_hw=DBNET_IMAGE)
+    samples = [ds[i] for i in range(DBNET_BATCHES[0])]
+    gen_s = time.perf_counter() - t0
+    host_ms = 1e3 * gen_s / len(samples)
+    host = TextDetectionCollater(DBNET_IMAGE)(samples)
+    print(f"dbnet_train: {len(samples)} synthetic {DBNET_IMAGE}^2 samples "
+          f"with their DB maps on the host in {gen_s:.2f} s "
+          f"({host_ms:.1f} ms a sample, the map generator included) "
+          f"[{card}]", flush=True)
+
+    def make_batch(n):
+        return {k: torch.from_numpy(host[k][:n]).cuda()
+                for k in ("image",) + text_det_task.MAP_KEYS}
+
+    def build():
+        model = init_params(MODELS.create("resnet50_dbnet"),
+                            torch.Generator().manual_seed(0))
+        state = _recipe_state(model, DBNET_RECIPE_OPT, DBNET_RECIPE_SCHED,
+                              DBNET_EPOCHS, OCR_STEPS_PER_EPOCH)
+        criterion = LOSSES.create("DBNetLoss")
+        return model, criterion, state, make_train_step(
+            text_det_task.make_loss_fn(criterion), EngineConfig())
+
+    def replay(criterion, preds, batch):
+        maps = {k: batch[k] for k in text_det_task.MAP_KEYS}
+        ms = _fwd_bwd_ms(lambda p: sum(criterion(p, maps).values()),
+                         preds.float())
+        flat = torch.rand(preds[..., 0].numel(), device="cuda")
+        sort_ms = _cuda_ms(lambda: torch.sort(flat, descending=True), 10)
+        print(f"  DBNetLoss's OHEM sort alone: {flat.numel()} f32, "
+              f"{sort_ms:.3f} ms a sort [{card}]", flush=True)
+        return ms
+
+    return _ocr_train(card, "dbnet_train", "resnet50_dbnet 1024^2",
+                      DBNET_BATCHES, make_batch, build, "DBNetLoss", replay,
+                      host_ms)
+
+
+def phase_ctc_train(card):
+    """CTCModel (the OCR R50 trunk, TransformerEncoder, predictor 512,
+    12,112 classes) at 32 x 512 (combined/convformerm36_ctc's fields, the
+    R50 trunk) on resident batches from the port's
+    ``FakeTextRecognitionDataset`` and
+    ``KeepRatioResizeTextRecognitionCollater``; 4 samples carry
+    80-character labels that T = 64 steps cannot align, and the replayed
+    loss checks that they add 0."""
+    converter = CTCTextLabelConverter("reference",
+                                      str_max_length=CTC_STR_MAX)
+    t0 = time.perf_counter()
+    ds = FakeTextRecognitionDataset(CTC_BATCHES[0])
+    host = KeepRatioResizeTextRecognitionCollater(
+        converter, 32, CTC_MAX_W)([ds[i] for i in range(CTC_BATCHES[0])])
+    host_ms = 1e3 * (time.perf_counter() - t0) / CTC_BATCHES[0]
+    rng = np.random.RandomState(0)
+    long = rng.randint(1, 11, (CTC_LONG_LABELS, CTC_STR_MAX))
+    host["targets"][:CTC_LONG_LABELS] = long
+    host["target_lengths"][:CTC_LONG_LABELS] = CTC_STR_MAX
+    print(f"ctc_train: {CTC_BATCHES[0]} synthetic 32 x {CTC_MAX_W} samples "
+          f"on the host ({host_ms:.2f} ms a sample), {converter.num_classes} "
+          f"classes, {CTC_LONG_LABELS} labels of {CTC_STR_MAX} characters "
+          f"[{card}]", flush=True)
+
+    def make_batch(n):
+        return {k: torch.from_numpy(host[k][:n]).cuda()
+                for k in ("image", "targets", "target_lengths")}
+
+    def build():
+        model = init_params(CTCModel(
+            backbone_type="resnet50", encoder_type="TransformerEncoder",
+            predictor_hidden_planes=512, num_classes=converter.num_classes),
+            torch.Generator().manual_seed(0))
+        state = _recipe_state(model, CTC_RECIPE_OPT, CTC_RECIPE_SCHED,
+                              CTC_EPOCHS, OCR_STEPS_PER_EPOCH)
+        criterion = LOSSES.create("CTCLoss")
+        return model, criterion, state, make_train_step(
+            text_rec_task.make_loss_fn(criterion), EngineConfig())
+
+    def replay(criterion, preds, batch):
+        t, l = batch["targets"], batch["target_lengths"]
+        ms = _fwd_bwd_ms(lambda p: criterion(p, t, l), preds)
+        k = CTC_LONG_LABELS
+        long_loss = criterion(preds[:k], t[:k], l[:k]).item()
+        rest = criterion(preds[k:], t[k:], l[k:]).item()
+        print(f"  CTCLoss on the {k} unalignable labels: {long_loss} (0 "
+              f"required), on the others {rest:.4f}; logits "
+              f"{tuple(preds.shape)} [{card}]", flush=True)
+        if long_loss != 0.0 or not np.isfinite(rest) or rest <= 0:
+            raise RuntimeError("ctc_train: the CTC mask did not give the "
+                               "unalignable labels 0")
+        return ms
+
+    return _ocr_train(card, "ctc_train",
+                      "CTCModel R50 + TransformerEncoder 32 x 512",
+                      CTC_BATCHES, make_batch, build, "CTCLoss", replay,
+                      host_ms)
+
+
+def _convergence_module():
+    """``tests/test_torch_convergence.py``, by its path (the card's machine
+    may have a package named ``tests``)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_convergence.py")
+    spec = importlib.util.spec_from_file_location("test_torch_convergence",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_dbnet_learns(card):
+    """``tests/test_torch_convergence.py``'s DBNet recipe on the card
+    (resnet18_dbnet, 32 synthetic 128^2 images, 20 epochs, AdamW 1e-3):
+    fails unless the best polygon F1 reaches the JAX test's 40. Returns
+    (the launches: none, the trained model)."""
+    import tempfile
+    convergence = _convergence_module()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        best, f1s, model = convergence.train_dbnet(work_dir, "cuda")
+    launches = _no_launch_at_all("dbnet_learns")
+    print(f"dbnet_learns: resnet18_dbnet 128^2, {len(f1s)} epochs in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]: polygon F1 by epoch "
+          f"{' '.join(f'{f:.2f}' for f in f1s)}; best {best:.2f} (40 "
+          f"required)", flush=True)
+    if not best >= 40.0:
+        raise RuntimeError(f"DBNet did not learn: best F1 {best:.2f}")
+    return launches, model
+
+
+def _boxes_outside_flips_agree(card_maps, cpu_maps):
+    """``DBNetDecoder``'s boxes of two [B, H, W, 2] maps, each region that
+    holds a pixel binarised differently left out of both: (equal, boxes
+    compared, pixels binarised differently, regions left out, largest map
+    difference)."""
+    from scipy import ndimage
+    card_maps, cpu_maps = card_maps.copy(), cpu_maps.copy()
+    decoder = DBNetDecoder()
+    thr = decoder.prob_threshold
+    diff = float(np.abs(card_maps - cpu_maps).max())
+    flipped = (card_maps[..., 0] > thr) != (cpu_maps[..., 0] > thr)
+    regions = 0
+    for i in np.nonzero(flipped.any(axis=(1, 2)))[0]:
+        labels, _ = ndimage.label((card_maps[i, ..., 0] > thr)
+                                  | (cpu_maps[i, ..., 0] > thr),
+                                  structure=np.ones((3, 3)))
+        touched = np.unique(labels[flipped[i]])
+        regions += touched.size
+        out = np.isin(labels, touched)
+        card_maps[i, out, 0] = cpu_maps[i, out, 0] = 0.0
+    got, want = decoder(card_maps), decoder(cpu_maps)
+    same = all(len(gb) == len(wb)
+               and all(g.shape == w.shape and np.abs(g - w).max() <= 1e-3
+                       for g, w in zip(gb, wb))
+               and np.allclose(gs, ws, rtol=1e-5, atol=0)
+               for (gb, gs), (wb, ws) in zip(got, want))
+    return (same, sum(len(b) for b, _ in want), int(flipped.sum()),
+            regions, diff)
+
+
+def _decoded_boxes_agree(card, model):
+    """``DBNetDecoder`` on the card's probability maps against the CPU's,
+    the same trained model (computing in f32, TF32 off) on 8 test images:
+    the same boxes within 1e-3 pixels and scores within 1e-5. A pixel
+    whose probability lies within the devices' rounding of the 0.3
+    threshold binarises differently on the two, and may rightly change the
+    contours of its region. So each 8-connected region of either binary
+    map that holds such a pixel is set below the threshold in both maps
+    first; every other region, and so every box that no flipped pixel
+    touches, is compared, and the phase fails unless one box is left."""
+    import copy
+    ds = FakeTextDetectionDataset(8, image_hw=128)
+    batch = TextDetectionCollater(128)([ds[100 + i] for i in range(8)])
+    image = torch.from_numpy(batch["image"])
+    # the model trained in bf16 compute; both copies compute in f32 here
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    card_model = model.float().cuda().eval()
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    with torch.no_grad():
+        card_maps = card_model(image.cuda()).cpu().numpy()
+        with torch.backends.mkldnn.flags(enabled=False):
+            cpu_maps = cpu_model(image).numpy()
+    same, n, flips, regions, diff = _boxes_outside_flips_agree(
+        card_maps, cpu_maps)
+    print(f"ocr_parity: DBNetDecoder on the card's maps vs the CPU's "
+          f"(trained resnet18_dbnet, 8 images of 128^2) [{card}]: largest "
+          f"map difference {diff:.3e}, "
+          f"{flips} pixels binarised differently in {regions} "
+          f"regions (left out), {n} boxes compared, boxes and scores "
+          f"equal: {same}", flush=True)
+    if not (same and n > 0):
+        raise RuntimeError("DBNetDecoder gives other boxes on the card's "
+                           "maps than on the CPU's, or none to compare")
+
+
+def phase_ocr_parity(card, trained_dbnet):
+    """One f32 train step at batch 2 on the card (TF32 off) against the CPU
+    for resnet18_dbnet at 256^2 and CTCModel(resnet18, BiLSTMEncoder) at
+    32 x 256 (cuDNN's LSTM against the CPU's), and ``DBNetDecoder`` on the
+    card's maps of the trained dbnet_learns model against the CPU's.
+    Returns the launches (none)."""
+    _reset_launches()
+    ds = FakeTextDetectionDataset(2, image_hw=256)
+    det = TextDetectionCollater(256)([ds[0], ds[1]])
+    det = {k: torch.from_numpy(det[k])
+           for k in ("image",) + text_det_task.MAP_KEYS}
+    # train-mode BatchNorm at batch 2 amplifies rounding: L2 and cosine
+    # bounds, as FCOS's (an H100 read 2.6e-3 and 0.99999)
+    _parity(card, "resnet18_dbnet 256^2, batch 2",
+            lambda: init_params(MODELS.create("resnet18_dbnet",
+                                              dtype=torch.float32),
+                                torch.Generator().manual_seed(3)),
+            text_det_task.make_loss_fn(LOSSES.create("DBNetLoss")), det,
+            loss_rel=1e-3, grad_rel=5e-2, grad_cos=0.99, path="ocr_parity")
+    converter = CTCTextLabelConverter(list("0123456789"), str_max_length=10)
+    rec_ds = FakeTextRecognitionDataset(2)
+    rec = KeepRatioResizeTextRecognitionCollater(converter, 32, 256)(
+        [rec_ds[0], rec_ds[1]])
+    rec = {k: torch.from_numpy(rec[k])
+           for k in ("image", "targets", "target_lengths")}
+    # cuDNN's LSTM against the CPU's: an H100 read a loss 2e-7 apart and
+    # gradients 1.1e-5 apart in L2, each parameter's at a cosine of 1.0
+    _parity(card, "CTCModel resnet18 + BiLSTMEncoder 32 x 256, batch 2",
+            lambda: init_params(CTCModel(
+                backbone_type="resnet18", encoder_type="BiLSTMEncoder",
+                predictor_hidden_planes=64,
+                num_classes=converter.num_classes, dtype=torch.float32),
+                torch.Generator().manual_seed(4)),
+            text_rec_task.make_loss_fn(LOSSES.create("CTCLoss")), rec,
+            loss_rel=1e-5, grad_rel=1e-4, grad_cos=0.9999, path="ocr_parity")
+    _decoded_boxes_agree(card, trained_dbnet)
+    return _no_launch_at_all("ocr_parity")
+
+
+def phase_ocr_cli(card):
+    """fake_synthetic/resnet18_dbnet and resnet18_ctc through the OCR train
+    and test CLIs in this process (key metrics: the polygon F1 and the
+    string accuracy, x 100)."""
+    launches = {}
+    for rel, train_cli, test_cli, metric in (
+            ("8.ocr_text_detection_training/fake_synthetic/resnet18_dbnet",
+             text_det_train_cli, text_det_test_cli, "polygon F1"),
+            ("9.ocr_text_recognition_training/fake_synthetic/resnet18_ctc",
+             text_rec_train_cli, text_rec_test_cli, "string accuracy")):
+        print(f"ocr_cli: {rel}: its key metric is the {metric} x 100",
+              flush=True)
+        launches.update(_experiment_cli(card, "ocr_cli", rel, train_cli,
+                                        test_cli))
+    _wide_kernels_only("the ocr_cli path")
+    return launches
+
+
+def _slice_18(card):
+    """The phases of slice 18: {path: launches}; none launches a hand
+    kernel."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths["dbnet_train"], _ = phase_dbnet_train(card)
+    paths["ctc_train"], _ = phase_ctc_train(card)
+    paths["dbnet_learns"], trained = phase_dbnet_learns(card)
+    paths["ocr_parity"] = phase_ocr_parity(card, trained)
+    paths["ocr_cli"] = phase_ocr_cli(card)
+    print(f"slice 18: five phases in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -5315,6 +5694,7 @@ def main():
     slice_15 = _slice_15(card)
     slice_16 = _slice_16(card)
     slice_17 = _slice_17(card)
+    slice_18 = _slice_18(card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -5328,7 +5708,8 @@ def main():
     # ViT-MoE's step launches K1-K3 12 times each (``moe_train``). The SAM
     # distillation and matting paths launch K4-K6 (slice 16; the CLIs'
     # counts are the SAM-B matting run's), PFAN matting none; nor do the
-    # instance-segmentation and diffusion paths (slice 17).
+    # instance-segmentation and diffusion paths (slice 17) and the OCR
+    # paths (slice 18).
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
@@ -5338,7 +5719,7 @@ def main():
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
              "fcos_learns": fcos_learns, **slice_15, **slice_16,
-             **slice_17}
+             **slice_17, **slice_18}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

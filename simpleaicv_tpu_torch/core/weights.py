@@ -4,8 +4,8 @@
 ``variables["params"]`` of a JAX SAM, ViT, ViT-MoE, ResNet, DINO-DETR,
 DETR, DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace, Sapiens, MAE
 pretraining, distillation (``KDModel``), LightSAM, SAM distillation, SAM
-matting, SOLOv2, YOLACT, diffusion UNet or InceptionV3 model (nested dicts
-of numpy arrays) and, for models with BatchNorm,
+matting, SOLOv2, YOLACT, diffusion UNet, InceptionV3, DBNet or CTC model
+(nested dicts of numpy arrays) and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
 ``export_jax_params(model)`` goes the other way: the model's parameters (or
@@ -39,6 +39,8 @@ paths with ``_N`` written ``.N`` (``layer1.0.conv1.conv``,
   * BatchNorm ``batch_stats`` ``mean``/``var`` -> buffers ``running_mean``/
     ``running_var``;
   * Embed ``embedding``     -> ``weight``;
+  * flax ``OptimizedLSTMCell`` pairs ``<name>_fwd``/``<name>_bwd`` -> one
+    bidirectional ``nn.LSTM`` ``<name>`` (``_lstm_leaves``);
   * plain parameters (pos_embed, rel_pos_h/w, embeddings, tokens) as they
     are.
 Both directions raise on a leaf left over: a JAX leaf not consumed, a port
@@ -140,9 +142,11 @@ _RULES = [
     # (``convt1``, ``conv1``), LightSAM's ``fpn``, SAM matting's heads
     # (``fusion_pred``, ``fusion_pred_N``), SOLOv2 and YOLACT (``fpn``, the
     # heads, ``proto_net``), the diffusion UNet (``time_mlp_1``,
-    # ``down_0``, ``down_2_conv``, ``middle_0``, ``up_3_conv``, ...) and
-    # InceptionV3 (torchvision's ``Conv2d_1a_3x3``, ``Mixed_5b``, ``fc``):
-    # the JAX path itself
+    # ``down_0``, ``down_2_conv``, ``middle_0``, ``up_3_conv``, ...),
+    # InceptionV3 (torchvision's ``Conv2d_1a_3x3``, ``Mixed_5b``, ``fc``),
+    # DBNet (``fpn``, ``head``) and the CTC model (``encoder``,
+    # ``predictor``; a bare LSTM encoder's ``rnn1``, ``linear1``): the JAX
+    # path itself
     (r"^(?:backbone\.)?(?:stem|layer\d\.\d+)(?:\..+)?$|"
      r"^(?:backbone|input_proj|input_proj_gn|level_embed|encoder|enc_output|"
      r"enc_output_norm|enc_out_class_embed|enc_out_bbox_embed|tgt_embed|"
@@ -151,7 +155,8 @@ _RULES = [
      r"head|global_decoder|local_decoder|pred_conv|global_pred_conv|"
      r"local_pred_conv|fpn|clsregcnt_head|scales|sshs|cls_convs|box_convs|"
      r"convt\d+|conv\d+|fusion_pred(?:_\d+)?|mask_feature_head|bbox_head|"
-     r"proto_net|semantic_seg_conv|time_mlp_\d|class_mlp_\d|"
+     r"proto_net|semantic_seg_conv|time_mlp_\d|class_mlp_\d|predictor|"
+     r"rnn\d|linear\d|"
      r"(?:down|up)_\d+(?:_conv)?|middle_\d+|last_norm|last_conv|"
      r"Conv2d_\w+|Mixed_\w+)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
@@ -213,11 +218,52 @@ _LAYER_LEAVES = {
 _LAYER_LEAVES[BatchNorm] = _LAYER_LEAVES[FusedBatchNorm]
 
 
+def _lstm_leaves(name: str, module: nn.LSTM, root: str):
+    """The groups of a one-layer ``nn.LSTM`` (bidirectional or not) against
+    flax's ``OptimizedLSTMCell`` trees ``<path>_fwd`` and ``<path>_bwd``:
+    flax keeps the input kernels ``ii/if/ig/io`` [in, H] without bias and
+    the hidden kernels ``hi/hf/hg/ho`` [H, H] with bias, gates in torch's
+    order (i, f, g, o). ``weight_ih_l0`` and ``weight_hh_l0`` [4H, .] are
+    their transposed concatenations, ``bias_hh_l0`` flax's bias and
+    ``bias_ih_l0`` zero; the export sums the two biases."""
+    if module.num_layers != 1:
+        raise ValueError(f"'{name}': only one-layer LSTMs map onto flax cells")
+    path = _jax_path(name, root)
+    prefix = f"{name}." if name else ""
+    cells = (("", "fwd"), ("_reverse", "bwd"))[:2 if module.bidirectional
+                                                 else 1]
+    for sfx, cell in cells:
+        base = f"{path}_{cell}"
+        for kind in ("i", "h"):
+            yield ((f"{prefix}weight_{kind}h_l0{sfx}",),
+                   tuple(f"{base}/{kind}{g}/kernel" for g in _GATES),
+                   lambda arrs: [np.concatenate(arrs, axis=1).T],
+                   lambda arrs: list(np.split(arrs[0].T, 4, axis=1)))
+        yield ((f"{prefix}bias_ih_l0{sfx}", f"{prefix}bias_hh_l0{sfx}"),
+               tuple(f"{base}/h{g}/bias" for g in _GATES),
+               lambda arrs: [np.zeros(4 * arrs[0].shape[0], np.float32),
+                             np.concatenate(arrs)],
+               lambda arrs: list(np.split(arrs[0] + arrs[1], 4)))
+
+
+_GATES = "ifgo"
+
+
+def _one(fn):
+    """A one-leaf layout change as a group's: a list of one array."""
+    return lambda arrs: [arrs[0] if fn is None else fn(arrs[0])]
+
+
 def _leaves(model: nn.Module, root: str):
-    """(state_dict key, JAX leaf path, JAX -> port layout, port -> JAX
-    layout) for every parameter and buffer of ``model``."""
+    """(state_dict keys, JAX leaf paths, JAX -> port layout, port -> JAX
+    layout) for every parameter and buffer of ``model``, in groups: one
+    key and one path, or an LSTM's gates (``_lstm_leaves``). The layouts
+    take and give lists of arrays."""
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
+        if isinstance(module, nn.LSTM):
+            yield from _lstm_leaves(name, module, root)
+            continue
         leaves = _LAYER_LEAVES.get(type(module))
         if leaves is not None:
             path = _jax_path(name, root)
@@ -225,20 +271,22 @@ def _leaves(model: nn.Module, root: str):
                 if getattr(module, leaf, None) is not None:
                     collection, _, jax_leaf = jax_leaf.rpartition(":")
                     full = f"{collection}:" if collection else ""
-                    yield (prefix + leaf, f"{full}{path}/{jax_leaf}", to_port,
-                           to_jax)
+                    yield ((prefix + leaf,), (f"{full}{path}/{jax_leaf}",),
+                           _one(to_port), _one(to_jax))
             continue
         own = list(module.named_parameters(recurse=False)) + list(
             module.named_buffers(recurse=False))
         for leaf, _ in own:
-            yield prefix + leaf, _jax_path(prefix + leaf, root), None, None
+            yield ((prefix + leaf,), (_jax_path(prefix + leaf, root),),
+                   _one(None), _one(None))
 
 
 def jax_paths(model: nn.Module, root: str = "") -> Dict[str, str]:
     """state_dict key -> path of the same leaf in the JAX parameter tree
     (``batch_stats:`` and the path in the ``batch_stats`` tree for a
     BatchNorm's running statistics)."""
-    return {key: path for key, path, _, _ in _leaves(model, root)}
+    return {key: "+".join(paths) for keys, paths, _, _ in _leaves(model, root)
+            for key in keys}
 
 
 def load_jax_params(model: nn.Module, params, root: str = "",
@@ -256,18 +304,22 @@ def load_jax_params(model: nn.Module, params, root: str = "",
                      for k, v in _flatten(batch_stats).items()})
     state = model.state_dict()
     consumed, filled = set(), set()
-    for key, path, to_port, _ in _leaves(model, root):
-        if path not in flat:
-            raise KeyError(f"JAX parameter '{path}' (for '{key}') missing")
-        arr = flat[path] if to_port is None else to_port(flat[path])
-        target = state[key]
-        if tuple(arr.shape) != tuple(target.shape):
-            raise ValueError(f"'{key}': JAX '{path}' has shape {arr.shape}, "
-                             f"port expects {tuple(target.shape)}")
-        with torch.no_grad():
-            target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-        consumed.add(path)
-        filled.add(key)
+    for keys, paths, to_port, _ in _leaves(model, root):
+        for path, key in zip(paths, keys * len(paths)):
+            if path not in flat:
+                raise KeyError(f"JAX parameter '{path}' (for '{key}') "
+                               f"missing")
+        arrs = to_port([flat[path] for path in paths])
+        for key, arr in zip(keys, arrs):
+            target = state[key]
+            if tuple(arr.shape) != tuple(target.shape):
+                raise ValueError(f"'{key}': JAX '{paths}' has shape "
+                                 f"{arr.shape}, port expects "
+                                 f"{tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            filled.add(key)
+        consumed.update(paths)
 
     unused = sorted(set(flat) - consumed)
     if unused:
@@ -283,10 +335,10 @@ def export_jax_batch_stats(model: nn.Module):
     ``model``'s BatchNorm running statistics."""
     tree = {}
     state = model.state_dict()
-    for key, path, _, _ in _leaves(model, ""):
-        if path.startswith(BATCH_STATS):
-            _put(tree, path[len(BATCH_STATS):],
-                 state[key].detach().float().cpu().numpy())
+    for keys, paths, _, _ in _leaves(model, ""):
+        if paths[0].startswith(BATCH_STATS):
+            _put(tree, paths[0][len(BATCH_STATS):],
+                 state[keys[0]].detach().float().cpu().numpy())
     return tree
 
 
@@ -316,17 +368,20 @@ def export_jax_params(model: nn.Module, tensors=None, root: str = ""):
     else:
         buffers = {name for name, _ in model.named_buffers()}
     tree, used = {}, set()
-    for key, path, _, to_jax in _leaves(model, root):
-        if path.startswith(BATCH_STATS):
-            used.add(key)
+    for keys, paths, _, to_jax in _leaves(model, root):
+        if paths[0].startswith(BATCH_STATS):
+            used.update(keys)
             continue
-        if key not in tensors:
-            if key in buffers:
+        missing = [key for key in keys if key not in tensors]
+        if missing:
+            if all(key in buffers for key in missing):
                 continue
-            raise KeyError(f"no tensor for port parameter '{key}'")
-        arr = tensors[key].detach().float().cpu().numpy()
-        _put(tree, path, arr if to_jax is None else to_jax(arr))
-        used.add(key)
+            raise KeyError(f"no tensor for port parameter '{missing[0]}'")
+        arrs = to_jax([tensors[key].detach().float().cpu().numpy()
+                       for key in keys])
+        for path, arr in zip(paths, arrs):
+            _put(tree, path, arr)
+        used.update(keys)
     extra = sorted(set(tensors) - used)
     if extra:
         raise ValueError(f"tensors with no port parameter: {extra}")

@@ -18,8 +18,8 @@ The JAX package's OpenCV calls become numpy and torch:
   ``tests/test_torch_matting.py``);
 * ``cv2.GaussianBlur((7, 7), 2.0)``: the separable normalised Gaussian over
   ``BORDER_REFLECT_101`` (numpy's ``reflect``) padding;
-* ``cv2.erode``/``cv2.dilate`` with the 5x5 ``MORPH_ELLIPSE`` element: a
-  minimum/maximum over the element, the border ignored, exact.
+* ``cv2.erode``/``cv2.dilate`` of the 0/1 masks with the 5x5
+  ``MORPH_ELLIPSE`` element: ``data.raster``'s, exact.
 
 The flip draws from ``np_rng`` (a ``numpy.random.RandomState``), or from the
 global ``numpy.random`` state as the JAX package does when none is given.
@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 
 from .interactive_segmentation import resize_nearest
+from .raster import dilate, ellipse_element, erode
 from .transforms import _np, resize_bilinear
 
 __all__ = ["MattingResize", "MattingRandomHorizontalFlip", "MattingNormalize",
@@ -228,38 +229,6 @@ def gaussian_blur(img, ksize=7, sigma=2.0):
     out = sum(k[i] * out[i:i + hh] for i in range(ksize))
     return sum(k[i] * out[:, i:i + ww] for i in range(ksize)).astype(
         np.float32)
-
-
-def ellipse_element(size=5):
-    """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (size, size))``."""
-    r = c = size // 2
-    el = np.zeros((size, size), np.uint8)
-    for i in range(size):
-        dy = i - r
-        dx = int(np.rint(c * np.sqrt((r * r - dy * dy) / (r * r))))
-        el[i, max(c - dx, 0):min(c + dx + 1, size)] = 1
-    return el
-
-
-def _morph(img, element, reduce, border):
-    r = element.shape[0] // 2
-    h, w = img.shape
-    padded = np.pad(img, r, constant_values=border)
-    taps = [padded[i:i + h, j:j + w]
-            for i, j in zip(*np.nonzero(element))]
-    return reduce(np.stack(taps), axis=0)
-
-
-def erode(img, element):
-    """``cv2.erode``: the minimum over the element; the border never
-    erodes."""
-    return _morph(img, element, np.min, np.iinfo(img.dtype).max)
-
-
-def dilate(img, element):
-    """``cv2.dilate``: the maximum over the element; the border never
-    dilates."""
-    return _morph(img, element, np.max, 0)
 
 
 class FakeHumanMattingDataset:

@@ -20,6 +20,8 @@ from .mae import MAEL1Loss, MAEMSELoss  # noqa: F401
 from .matting import (CompositionLoss, FusionAlphaLoss,  # noqa: F401
                       FusionLaplacianLoss, GloabelTrimapIouLoss,
                       GlobalTrimapCELoss, LocalAlphaLoss, LocalLaplacianLoss)
+from .text_detection import DBNetLoss  # noqa: F401
+from .text_recognition import ACELoss, CTCLoss  # noqa: F401
 from .sam_matting import (SAMMattingMultiLevelAssignLoss,  # noqa: F401
                           SAMMattingMultiLevelIoUMaxLoss,
                           SAMMattingMultiLevelLoss, SAMMattingOneLevelLoss)

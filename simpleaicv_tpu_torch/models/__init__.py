@@ -10,4 +10,6 @@ from . import interactive_segmentation  # noqa: F401
 from . import pfan  # noqa: F401
 from . import sapiens_parsing  # noqa: F401
 from . import segmentation  # noqa: F401
+from . import text_detection  # noqa: F401
+from . import text_recognition  # noqa: F401
 from . import vit_mae  # noqa: F401

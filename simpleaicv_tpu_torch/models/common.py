@@ -312,15 +312,18 @@ class ConvBnAct(nn.Module):
     ``simpleaicv_tpu/models/common.py:97-146``): the convolution in
     ``dtype`` from f32 parameters, without a bias when there is a BatchNorm;
     the BatchNorm's statistics in f32 (``ops.fused_bn``); the output in
-    ``dtype``. Padding ``(k - 1) // 2``."""
+    ``dtype``. ``kernel_size`` and ``stride`` are a number or an (h, w)
+    pair (the OCR trunk's stages); padding ``(k - 1) // 2`` on each
+    axis."""
 
-    def __init__(self, in_planes: int, planes: int, kernel_size: int = 3,
-                 stride: int = 1, has_bn: bool = True, has_act: bool = True,
+    def __init__(self, in_planes: int, planes: int, kernel_size=3,
+                 stride=1, has_bn: bool = True, has_act: bool = True,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.conv = Conv2d(in_planes, planes, kernel_size, stride,
-                           (kernel_size - 1) // 2, bias=not has_bn,
-                           dtype=dtype)
+        padding = ((kernel_size - 1) // 2 if isinstance(kernel_size, int)
+                   else tuple((k - 1) // 2 for k in kernel_size))
+        self.conv = Conv2d(in_planes, planes, kernel_size, stride, padding,
+                           bias=not has_bn, dtype=dtype)
         self.bn = FusedBatchNorm(planes) if has_bn else None
         self.has_act, self.dtype = has_act, dtype
 
