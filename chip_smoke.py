@@ -200,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -2887,7 +2888,6 @@ def _run_cli(tool, work_dir, deadline):
 
 
 def _logged_rates(log, epoch):
-    import re
     return [float(m.group(1)) for m in re.finditer(
         rf"epoch {epoch} iter \d+/\d+ .* imgs/s ([0-9.]+)", log)]
 
@@ -2897,7 +2897,6 @@ def phase_cli(card, resident_ips):
     epochs, resume to a third, evaluate the best checkpoint."""
     import glob
     import os
-    import re
     import tempfile
     torch.cuda.empty_cache()
     deadline = time.perf_counter() + CLI_PHASE_LIMIT_S
@@ -3884,11 +3883,15 @@ def _grads_on(device, model, loss_fn, batch):
 
 
 def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
-            grad_cos, path="dense_parity"):
+            grad_cos, path="dense_parity", zero_expected=None):
     """The card's f32 step (TF32 off) against the CPU's from the same
     weights and batch: fails unless the loss agrees within ``loss_rel``,
     all gradients within ``grad_rel`` in L2 and each parameter's at a
-    cosine of at least ``grad_cos``. Returns the CPU model."""
+    cosine of at least ``grad_cos``, but for the parameters whose names
+    match the regular expression ``zero_expected`` (a true gradient of 0:
+    a bias whose per-channel shift only train-mode BatchNorms see; both
+    sides' values are rounding noise), which count in the L2 bound only.
+    Returns the CPU model."""
     t0 = time.perf_counter()
     cpu_model = make_model()
     card_model = make_model()
@@ -3899,9 +3902,12 @@ def _parity(card, label, make_model, loss_fn, batch, loss_rel, grad_rel,
     flat_c = torch.cat([g.flatten() for g in grads_c])
     flat_h = torch.cat([g.flatten() for g in grads_h])
     rel = ((flat_c - flat_h).norm() / flat_h.norm()).item()
+    names = [n for n, p in cpu_model.named_parameters() if p.requires_grad]
     cos = min(torch.nn.functional.cosine_similarity(
         a.flatten(), b.flatten(), dim=0).item()
-        for a, b in zip(grads_c, grads_h) if b.norm() > 0)
+        for n, a, b in zip(names, grads_c, grads_h)
+        if b.norm() > 0 and not (zero_expected
+                                 and re.fullmatch(zero_expected, n)))
     print(f"{path}: {label}, f32 train step, card (TF32 off) vs CPU "
           f"({time.perf_counter() - t0:.1f} s) [{card}]: loss {loss_c:.6f} "
           f"vs {loss_h:.6f}, gradient relative L2 difference {rel:.3e} "
@@ -5665,6 +5671,388 @@ def _slice_18(card):
     return paths
 
 
+# ---- slice 19: the ConvFormer, VAN, DarkNet and CIFAR-ResNet backbones,
+# their family variants and the packed loader --------------------------------
+
+# ImageNet recipes of experiments/0.classification_training/imagenet/
+# {convformer_m36,van_b2}: AdamW 1e-3 / 5e-2 and CosineLR (5 warm-up epochs
+# of 300); darknet53 and cifar100/resnet18cifar: SGD 0.1 / 0.9 and
+# their schedules. The steps take CELoss on integer labels (the recipes'
+# mixup and cutmix run in the host collater).
+CLS19_ADAMW = ("AdamW", {"lr": 1e-3, "global_weight_decay": False,
+                         "weight_decay": 5e-2,
+                         "no_weight_decay_layer_name_list": []})
+CLS19_COSINE = ("CosineLR", {"warm_up_epochs": 5, "min_lr": 1e-6})
+CLS19_SGD = ("SGD", {"lr": 0.1, "momentum": 0.9, "global_weight_decay": False,
+                     "weight_decay": 1e-4,
+                     "no_weight_decay_layer_name_list": []})
+CLS19_STEPS = ("MultiStepLR", {"warm_up_epochs": 1,
+                               "milestones": [60, 120, 160], "gamma": 0.2})
+# each new family variant's config size (experiments/**/train_config.py;
+# the FCOS, SOLOv2 and YOLACT variants have no config of their own: their
+# family's R50 recipe)
+VARIANT_SIZES = {"light_sam": 1024, "sam_matting": 1024,
+                 "pfan_segmentation": 832, "pfan_matting": 832,
+                 "pfan_face_parsing": 512, "pfan_human_parsing": 512,
+                 "fcos": 800, "dbnet": 1024, "solov2": 1024, "yolact": 1024,
+                 "deeplabv3plus": 512}
+_VAN_CONVFORMER = ("vanb0", "vanb1", "vanb2", "vanb3", "convformers18",
+                   "convformers36", "convformerm36", "convformerb36")
+PACKED_SAMPLES = 2048
+
+
+def _cls19_train(card, path, network, image, batches, opt, sched,
+                 warm_up=2, timed=5, num_classes=1000):
+    """A classification backbone through ``make_train_step`` on a resident
+    batch of ``image``^2 bf16 inputs, the first of ``batches`` that fits:
+    images/s, ms a step, peak memory and a profiled step's idle share.
+    Returns (the launches: none, images per second)."""
+    t0 = time.perf_counter()
+
+    def make_batch(n):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        return {"image": torch.randn(n, image, image, 3, device="cuda",
+                                     generator=g),
+                "label": torch.randint(0, num_classes, (n,), device="cuda",
+                                       generator=g)}
+
+    def build():
+        model = init_params(BACKBONES.create(network,
+                                             num_classes=num_classes),
+                            torch.Generator().manual_seed(0))
+        state = _recipe_state(model, opt, sched, 300, 1281167 // batches[0])
+        criterion = LOSSES.create("CELoss")
+        return model, criterion, state, make_train_step(
+            make_loss_fn(criterion), EngineConfig())
+
+    n, model, _, state, step, batch, step_ms, losses = \
+        _largest_batch_that_fits(path, batches, make_batch, build, warm_up,
+                                 timed)
+    launches = _no_launch_at_all(path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = n / step_ms * 1e3
+    which = (f"the largest of {batches} that fits" if len(batches) > 1
+             else "the recipe's")
+    print(f"{path}: {network} {image}^2 bf16 training, batch {n} ({which}) "
+          f"[{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per step over "
+          f"{timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)} (set-up and the batch "
+          f"search {time.perf_counter() - t0:.1f} s)", flush=True)
+    _profiled_step(card, network, step, state, batch, step_ms, top=8)
+    _no_launch_at_all(path)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return launches, ips
+
+
+def phase_backbone_parity(card):
+    """One f32 train step of each new backbone at batch 2 on the card (TF32
+    off) against the CPU from the same weights: ConvFormer-M36, VAN-B2 and
+    DarkNet-53 at 64^2, ResNet18-CIFAR at 32^2. Returns the launches
+    (none)."""
+    _reset_launches()
+    loss_fn = make_loss_fn(LOSSES.create("CELoss"))
+    # train-mode BatchNorm at batch 2 amplifies rounding through depth, as
+    # in the ResNet-50, FCOS and DBNet steps: gradients held in L2 and by
+    # cosine
+    # biases whose per-channel shift reaches the loss only through
+    # train-mode BatchNorms (ConvFormer's stem and its stage-2 and 3
+    # downsamplings, VAN's patch embeddings, residual-branch outputs and
+    # inner stage norms) have a true gradient of 0: CPU f32 against f64
+    # parts them at cosines of -0.07 to 0.08; held in L2 only
+    zero = {"convformer_m36": r"downsample_layers\.(0\.(conv|post_norm)|"
+                              r"[12]\.conv)\.bias",
+            "van_b2": r"(patch_embed\d\.(proj|norm)|block\d\.\d+\.("
+                      r"attn\.proj_2|mlp\.fc2)|norm[123])\.bias"}
+    # each network's bounds from its own reading (H100 80GB HBM3, 700 W):
+    # gradients 1.096e-3, 1.449e-6, 9.399e-3 and 4.41e-6 apart in L2,
+    # least cosines 0.999977, 0.999782, 0.999486 and 1.0, losses within
+    # 1e-6 relative
+    bounds = {"convformer_m36": (5e-3, 0.9995), "van_b2": (1e-4, 0.999),
+              "darknet53": (3e-2, 0.995), "resnet18cifar": (1e-4, 0.9999)}
+    for network, image, seed in (("convformer_m36", 64, 5), ("van_b2", 64, 6),
+                                 ("darknet53", 64, 7),
+                                 ("resnet18cifar", 32, 8)):
+        grad_rel, grad_cos = bounds[network]
+        g = torch.Generator().manual_seed(seed)
+        batch = {"image": torch.randn(2, image, image, 3, generator=g),
+                 "label": torch.randint(0, 10, (2,), generator=g)}
+        _parity(card, f"{network} {image}^2, batch 2",
+                lambda network=network, seed=seed: init_params(
+                    BACKBONES.create(network, num_classes=10,
+                                     dtype=torch.float32),
+                    torch.Generator().manual_seed(seed)),
+                loss_fn, batch, loss_rel=1e-5, grad_rel=grad_rel,
+                grad_cos=grad_cos, path="backbone_parity",
+                zero_expected=zero.get(network))
+    return _no_launch_at_all("backbone_parity")
+
+
+def _variant_names():
+    """{family variant: its config size} for every family variant built on
+    a VAN or ConvFormer backbone but ConvFormer-M36's DeepLabV3+."""
+    names = {}
+    for b in _VAN_CONVFORMER:
+        names[f"{b}_light_sam"] = VARIANT_SIZES["light_sam"]
+        for i in (1, 2):
+            names[f"{b}_light_sam_matting{i}"] = VARIANT_SIZES["sam_matting"]
+        for task in ("segmentation", "matting", "face_parsing",
+                     "human_parsing"):
+            names[f"{b}_pfan_{task}"] = VARIANT_SIZES[f"pfan_{task}"]
+    for name in ("convformer_m36_light_sam", "van_b3_light_sam"):
+        names[name] = VARIANT_SIZES["light_sam"]
+    for i in (1, 2):
+        names[f"convformer_m36_sam_matting{i}"] = VARIANT_SIZES["sam_matting"]
+    for name, family in (("convformer_m36_fcos", "fcos"),
+                         ("van_b2_fcos", "fcos"),
+                         ("vanb2_dbnet", "dbnet"),
+                         ("convformerm36_dbnet", "dbnet"),
+                         ("vanb2_solov2", "solov2"),
+                         ("convformerm36_solov2", "solov2"),
+                         ("vanb2_yolact", "yolact"),
+                         ("convformerm36_yolact", "yolact"),
+                         ("vanb2_deeplabv3plus", "deeplabv3plus")):
+        names[name] = VARIANT_SIZES[family]
+    return names
+
+
+def _fill_on_card(model, seed, device="cuda"):
+    """Seeded random weights drawn on the card (a quick stand-in for
+    ``init_params`` on a model built there), as the init sets them but for
+    the kernels' distribution: kernels normal at 1 / sqrt(fan in), VAN's
+    layer scales 1e-5, norms' scales 1, the other vectors 0, the buffers
+    but BatchNorm's running statistics standard normal. VAN's layer scales
+    stay at the init's value: at 0.1 such weights overflow VAN-B3's stream
+    in eval mode in both packages, in f32 and bf16
+    (``tests/test_torch_van_layer_scale.py``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=g)
+            elif "layer_scale" in name:
+                p.fill_(1e-5)
+            else:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+        for name, b in model.named_buffers():
+            if "running_" not in name:  # SAM's random positional matrix
+                b.normal_(0.0, 1.0, generator=g)
+    return model
+
+
+def _all_finite(out):
+    if isinstance(out, torch.Tensor):
+        return bool(torch.isfinite(out.float()).all())
+    if isinstance(out, dict):
+        out = list(out.values())
+    return all(_all_finite(o) for o in out)
+
+
+def phase_variant_train(card, warm_up=2, timed=5):
+    """convformerm36_deeplabv3plus at its recipe's 512^2 (ADE20K, 150
+    classes) on a resident batch, the largest of 16 and 8 that fits; then
+    one bf16 forward of every other new family variant at batch 1 and its
+    config's size, built on the card, checked finite. Returns (the
+    launches: none, images per second)."""
+    t0 = time.perf_counter()
+
+    def build():
+        model = init_params(MODELS.create("convformerm36_deeplabv3plus",
+                                          num_classes=SEG_CLASSES),
+                            torch.Generator().manual_seed(0))
+        state = _recipe_state(model, SEG_RECIPE_OPT, SEG_RECIPE_SCHED,
+                              SEG_EPOCHS, SEG_STEPS_PER_EPOCH)
+        criterion = LOSSES.create("SegCELoss", ignore_index=SEG_IGNORE)
+        return model, criterion, state, make_train_step(
+            seg_task.make_loss_fn(criterion), EngineConfig())
+
+    n, model, _, state, step, batch, step_ms, losses = \
+        _largest_batch_that_fits("variant_train", [16, 8], _seg_batch,
+                                 build, warm_up, timed)
+    launches = _no_launch_at_all("variant_train")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ips = n / step_ms * 1e3
+    print(f"variant_train: convformerm36_deeplabv3plus {SEG_IMAGE}^2 bf16 "
+          f"training, batch {n} (the largest of [16, 8] that fits) "
+          f"[{card}]: {ips:.2f} images/s, {step_ms:.2f} ms per step over "
+          f"{timed} steps, peak memory {peak_gib:.2f} GiB; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)} (set-up and the batch "
+          f"search {time.perf_counter() - t0:.1f} s)", flush=True)
+    _profiled_step(card, "convformerm36_deeplabv3plus", step, state, batch,
+                   step_ms, top=8)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    names = _variant_names()
+    prompts = {"prompt_point": torch.tensor([[[100.0, 120.0, 1.0]]],
+                                            device="cuda"),
+               "prompt_box": torch.tensor([[60.0, 80.0, 400.0, 500.0]],
+                                          device="cuda"),
+               "prompt_mask": None}
+    for i, (name, size) in enumerate(names.items()):
+        with torch.device("cuda"):
+            kw = {"image_size": size} if "sam" in name else {}
+            model = _fill_on_card(MODELS.create(name, **kw), i).eval()
+        x = torch.rand(1, size, size, 3, device="cuda")
+        with torch.no_grad():
+            out = model(x, prompts) if "sam" in name else model(x)
+        if not _all_finite(out):
+            raise RuntimeError(f"variant_train: {name} gave non-finite "
+                               f"outputs at {size}^2")
+        del model, out
+    ctc = _fill_on_card(CTCModel(backbone_type="convformer_m36",
+                                 encoder_type="TransformerEncoder",
+                                 num_classes=12112).cuda(), 99).eval()
+    with torch.no_grad():
+        out = ctc(torch.rand(1, 32, 512, 3, device="cuda"))
+    if not _all_finite(out):
+        raise RuntimeError("variant_train: the ConvFormer CTC model gave "
+                           "non-finite outputs")
+    del ctc, out
+    torch.cuda.empty_cache()
+    print(f"variant_train: {len(names) + 1} other family variants (every "
+          f"VAN and ConvFormer LightSAM, SAM matting, PFAN, FCOS, DBNet, "
+          f"SOLOv2, YOLACT and DeepLabV3+ variant, and the ConvFormer-M36 "
+          f"CTC model at 32 x 512) built on the card and run at batch 1 and "
+          f"their configs' sizes, every output finite, in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    _no_launch_at_all("variant_train")
+    return launches, ips
+
+
+PACKED_CLI_CONFIG = '''"""ResNet-50 on ImageNet as
+experiments/0.classification_training/imagenet/resnet50/train_config.py
+states it (resnet50, 1000 classes, 224^2, CELoss, SGD 0.1 / 0.9 / 1e-4,
+CosineLR with 5 warm-up epochs), cut to: batch 128; 2 epochs of a pack of
+{n} synthetic 224^2 images (no ImageNet here) read {how}; 128 test images
+in a pack of their own."""
+
+from simpleaicv_tpu.core.registry import BACKBONES, LOSSES
+from simpleaicv_tpu.data.collater import ClassificationCollater
+from simpleaicv_tpu.data.packed import PackedDataset
+from simpleaicv_tpu.data.transforms import Compose
+
+
+class config:
+    network = "resnet50"
+    num_classes = 1000
+    input_image_size = 224
+    model = BACKBONES.create(network, num_classes=num_classes)
+    train_criterion = LOSSES.create("CELoss")
+    test_criterion = LOSSES.create("CELoss")
+    train_dataset = PackedDataset({path!r}{transform})
+    test_dataset = PackedDataset({test_path!r})
+    train_collater = ClassificationCollater()
+    test_collater = ClassificationCollater()
+    seed = 0
+    batch_size = 128
+    num_workers = 8
+    optimizer = ("SGD", {{"lr": 0.1, "momentum": 0.9,
+                         "global_weight_decay": False, "weight_decay": 1e-4,
+                         "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 5}})
+    epochs = 2
+    print_interval = 4
+    use_ema_model = False
+'''
+
+
+def phase_packed_cli(card, resident_ips):
+    """A 224^2 pack of ``PACKED_SAMPLES`` synthetic images written by
+    ``pack_dataset``, then the ResNet-50 train CLI for two epochs of it in
+    this process, four times in turns (D, P, P, D): through the
+    ``DataLoader`` (D: a ``PackedDataset`` with a per-sample transform,
+    read a sample at a time) and through the ``PackedLoader`` (P: no
+    transform, one native gather a batch). Each run's logged rate over its
+    second epoch, whose start the first epoch has warmed, beside
+    ``resnet50_train``'s resident rate; the medians of each loader's two.
+    Returns the launches (none)."""
+    import os
+    import tempfile
+    from simpleaicv_tpu_torch.core.config import load_config
+    from simpleaicv_tpu_torch.core.trainer import train_loader
+    from simpleaicv_tpu_torch.data import packed
+    how = {"DataLoader": ("sample by sample through the DataLoader",
+                          ", transform=Compose([])"),
+           "PackedLoader": ("by the PackedLoader's gather", "")}
+    rates = {"DataLoader": [], "PackedLoader": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "train_224.pack")
+        packed.pack_dataset(FakeClassificationDataset(
+            PACKED_SAMPLES, 224, num_classes=1000), path)
+        test_path = os.path.join(tmp, "test_224.pack")
+        packed.pack_dataset(FakeClassificationDataset(128, 224, 1000),
+                            test_path)
+        print(f"packed_cli: {PACKED_SAMPLES} synthetic 224^2 samples packed "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        for turn, loader in enumerate(("DataLoader", "PackedLoader",
+                                       "PackedLoader", "DataLoader")):
+            work = os.path.join(tmp, f"{turn}_{loader}")
+            os.makedirs(work)
+            with open(os.path.join(work, "train_config.py"), "w") as f:
+                f.write(PACKED_CLI_CONFIG.format(
+                    n=PACKED_SAMPLES, how=how[loader][0], path=path,
+                    transform=how[loader][1], test_path=test_path))
+            routed = type(train_loader(load_config(work), 128, 8, 0))
+            if routed.__name__ != loader:
+                raise RuntimeError(f"packed_cli: the Trainer sends the "
+                                   f"{loader} config to {routed.__name__}")
+            _reset_launches()
+            t0 = time.perf_counter()
+            cls_train_cli.main(["--work-dir", work])
+            secs = time.perf_counter() - t0
+            with open(os.path.join(work, "log", "train.log")) as f:
+                log = f.read()
+            found = {e: [float(m.group(1)) for m in re.finditer(
+                rf"epoch {e} iter \d+/\d+ .* imgs/s ([0-9.]+)", log)]
+                for e in (1, 2)}
+            if not found[2]:
+                raise RuntimeError(f"packed_cli: the {loader} run logged "
+                                   f"no rate in epoch 2")
+            rates[loader].append(found[2][-1])
+            print(f"packed_cli: train CLI, {how[loader][0]} [{card}]: "
+                  f"logged images/s (cumulative over each epoch) epoch 1 "
+                  f"{found[1]}, epoch 2 {found[2]}; the CLI {secs:.1f} s "
+                  f"with its evaluations", flush=True)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    print(f"packed_cli: epoch-2 rate {med['DataLoader']:.1f} images/s "
+          f"through the DataLoader ({rates['DataLoader']}), "
+          f"{med['PackedLoader']:.1f} through the PackedLoader "
+          f"({rates['PackedLoader']}), beside resnet50_train's resident "
+          f"{resident_ips:.1f} [{card}]", flush=True)
+    return _no_launch_at_all("packed_cli")
+
+
+def _slice_19(card, resident_ips):
+    """The phases of slice 19: {path: launches}; none launches a hand
+    kernel. The ImageNet-21K CLIs' phase is not run: the card's machine
+    has no libjpeg (ROADMAP.md, "Standing facts")."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths["convformer_train"], _ = _cls19_train(
+        card, "convformer_train", "convformer_m36", 224, [256, 128],
+        CLS19_ADAMW, CLS19_COSINE)
+    paths["van_train"], _ = _cls19_train(
+        card, "van_train", "van_b2", 224, [256, 128], CLS19_ADAMW,
+        CLS19_COSINE)
+    dark, _ = _cls19_train(card, "darknet_cifar_train", "darknet53", 256,
+                           [128], CLS19_SGD, CLS19_COSINE, timed=3)
+    cifar, _ = _cls19_train(card, "darknet_cifar_train", "resnet18cifar", 32,
+                            [128], CLS19_SGD, CLS19_STEPS, timed=5,
+                            num_classes=100)
+    paths["darknet_cifar_train"] = {**dark, **cifar}
+    paths["backbone_parity"] = phase_backbone_parity(card)
+    paths["variant_train"], _ = phase_variant_train(card)
+    paths["packed_cli"] = phase_packed_cli(card, resident_ips)
+    print(f"slice 19: six phases in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]; the ImageNet-21K CLIs' JPEG phase is left out: this "
+          f"machine has no libjpeg to build the decode library against",
+          flush=True)
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -5695,6 +6083,7 @@ def main():
     slice_16 = _slice_16(card)
     slice_17 = _slice_17(card)
     slice_18 = _slice_18(card)
+    slice_19 = _slice_19(card, resident_ips)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -5709,7 +6098,8 @@ def main():
     # distillation and matting paths launch K4-K6 (slice 16; the CLIs'
     # counts are the SAM-B matting run's), PFAN matting none; nor do the
     # instance-segmentation and diffusion paths (slice 17) and the OCR
-    # paths (slice 18).
+    # paths (slice 18), nor the slice-19 backbones, family variants and
+    # packed loader.
     paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
@@ -5719,7 +6109,7 @@ def main():
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
              "fcos_learns": fcos_learns, **slice_15, **slice_16,
-             **slice_17, **slice_18}
+             **slice_17, **slice_18, **slice_19}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

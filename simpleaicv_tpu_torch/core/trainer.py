@@ -17,8 +17,9 @@ Against the JAX ``Trainer``:
   interval only (the engine's step itself reads one finiteness flag);
 * a config's ``device_augment`` (``data.device_augment``'s pipeline) is
   the engine step's ``augment_fn``, run on the card's batch before the
-  forward, drawing from the step's generator; packed datasets are not
-  ported, and a config that names one fails when it is loaded;
+  forward, drawing from the step's generator;
+* a ``PackedDataset`` train set goes to the ``PackedLoader`` where the JAX
+  Trainer sends it there (``train_loader``);
 * a config's ``moe_aux_weight`` goes to ``make_loss_fn`` (the MoE
   recipes'), as the JAX Trainer passes it.
 """
@@ -34,7 +35,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..data.collater import ClassificationCollater
 from ..data.loader import DataLoader
+from ..data.packed import PackedDataset, PackedLoader
 from ..models.common import init_params, resolve_device
 from .checkpoint import (CheckpointManager, load_checkpoint_tensors,
                          load_state_dict_partial)
@@ -47,7 +50,7 @@ from .optim import OptimizerConfig, build_optimizer, current_lr
 from .platform import process_index
 from .schedule import SchedulerConfig
 
-__all__ = ["Trainer", "optimizer_config_from_reference",
+__all__ = ["Trainer", "train_loader", "optimizer_config_from_reference",
            "scheduler_config_from_reference", "batch_to_device"]
 
 
@@ -115,6 +118,42 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def train_loader(config, batch_size: int, workers: int, seed: int):
+    """The train set's loader, chosen as the JAX Trainer chooses it
+    (``simpleaicv_tpu/core/trainer.py:136-168``): a ``PackedDataset`` with
+    no transform goes to the ``PackedLoader``, with its collater when that
+    collater takes gathered batches (``packed_batch``), or, with no
+    collater or a plain ``ClassificationCollater``, with a cast of the
+    uint8 images to the collater's ``image_dtype`` (uint8, no cast, for a
+    config with ``device_augment``; f32 with no collater). Everything else
+    goes to the ``DataLoader``."""
+    ds, tc = config.train_dataset, getattr(config, "train_collater", None)
+    if isinstance(ds, PackedDataset) and ds.transform is None:
+        if getattr(tc, "packed_batch", False):
+            return PackedLoader(ds, batch_size, shuffle=True, drop_last=True,
+                                seed=seed, n_threads=workers, collate=tc)
+        if tc is None or type(tc) is ClassificationCollater:
+            if tc is not None:
+                target = np.dtype(tc.image_dtype)
+            elif getattr(config, "device_augment", None) is not None:
+                target = np.dtype(np.uint8)
+            else:
+                target = np.dtype(np.float32)
+            collate = None
+            if target != np.uint8:
+
+                def collate(b):
+                    out = dict(b)
+                    out["image"] = b["image"].astype(target)
+                    return out
+            return PackedLoader(ds, batch_size, shuffle=True, drop_last=True,
+                                seed=seed, n_threads=workers, collate=collate)
+    return DataLoader(ds, batch_size, tc, shuffle=True, drop_last=True,
+                      num_workers=workers, seed=seed,
+                      worker_mode=getattr(config, "loader_worker_mode",
+                                          "thread"))
+
+
 class Trainer:
 
     def __init__(self, config, work_dir: str, make_loss_fn: Callable,
@@ -144,10 +183,7 @@ class Trainer:
         # ---- data ----
         bs = config.batch_size
         workers = getattr(config, "num_workers", 4)
-        self.train_loader = DataLoader(
-            config.train_dataset, bs, config.train_collater, shuffle=True,
-            drop_last=True, num_workers=workers, seed=self.seed,
-            worker_mode=getattr(config, "loader_worker_mode", "thread"))
+        self.train_loader = train_loader(config, bs, workers, self.seed)
         # `test_dataset` may be one dataset, a list or a dict {name: dataset};
         # `test_loader` is the first of `test_loaders`
         self.test_loader = None

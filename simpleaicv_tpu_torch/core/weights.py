@@ -5,7 +5,8 @@
 DETR, DeepLabV3+, PFAN, RetinaNet, FCOS, RetinaFace, Sapiens, MAE
 pretraining, distillation (``KDModel``), LightSAM, SAM distillation, SAM
 matting, SOLOv2, YOLACT, diffusion UNet, InceptionV3, DBNet or CTC model
-(nested dicts of numpy arrays) and, for models with BatchNorm,
+(nested dicts of numpy arrays), a ConvFormer, VAN, DarkNet or CIFAR
+ResNet, or a family model on one of them, and, for models with BatchNorm,
 ``variables["batch_stats"]``, and fills the port's model, or one of SAM's
 sub-modules when called with that sub-module's sub-tree.
 ``export_jax_params(model)`` goes the other way: the model's parameters (or
@@ -134,6 +135,13 @@ _RULES = [
      r"\1_blocks_\2/attn/\3"),
     (r"^(encoder|decoder)_blocks\.(\d+)\.mlp\.(fc\d)$",
      r"\1_blocks_\2/mlp/\3"),
+    # the ConvFormer, VAN, DarkNet and CIFAR-ResNet backbones alone
+    # (``downsample_layers.0.conv``, ``stages.2.5.norm1``,
+    # ``patch_embed1.proj``, ``block1.0.layer_scale_1``, ``norm4``,
+    # ``layer2.conv0.bn``): the JAX path itself
+    (r"^(?:downsample_layers\.\d+|stages\.\d+\.\d+|patch_embed\d|"
+     r"block\d\.\d+|norm\d|layer\d)(?:\..+)?$",
+     lambda m: path_form(m.group(0))),
     # ResNet backbones (alone or as a detector's or segmenter's
     # ``backbone``), DINO-DETR, DETR, DeepLabV3+ (``head``), PFAN
     # (``decoder``, the matting branches, the prediction convolutions),

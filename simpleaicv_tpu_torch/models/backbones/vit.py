@@ -24,12 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ...core.registry import BACKBONES
 from ...ops.flash_attention import attention_recompute, flash_attention
-from ..common import (Conv2d, DropPath, LayerNorm, Linear, dropout,
-                      truncated_normal_)
+from ..common import (Conv2d, DropPath, LayerNorm, Linear,
+                      checkpoint_replaying, dropout, truncated_normal_)
 
 __all__ = [
     "ViT", "vit_base_patch16", "vit_large_patch16", "vit_huge_patch14",
@@ -119,26 +118,10 @@ class TransformerEncoderLayer(nn.Module):
 
 def _checkpointed(layer, x, generator):
     """``layer(x, generator)`` with its activations recomputed in the
-    backward. The recomputation replays the generator from the state it had
-    before the layer, so it draws the same masks, and then puts the
-    generator back where the backward found it."""
-    if generator is None or not (layer.stochastic and layer.training):
-        return checkpoint(layer, x, generator, use_reentrant=False)
-    before = generator.get_state()
-    calls = []
-
-    def run(x):
-        if not calls:
-            calls.append(1)
-            return layer(x, generator)
-        now = generator.get_state()
-        generator.set_state(before)
-        try:
-            return layer(x, generator)
-        finally:
-            generator.set_state(now)
-
-    return checkpoint(run, x, use_reentrant=False)
+    backward, the generator's draws replayed (``checkpoint_replaying``)
+    where the layer draws any."""
+    stochastic = layer.stochastic and layer.training
+    return checkpoint_replaying(layer, generator if stochastic else None, x)
 
 
 class ViT(nn.Module):

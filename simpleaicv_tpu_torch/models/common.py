@@ -32,8 +32,8 @@ from ..ops.fused_bn import FusedBatchNorm
 
 __all__ = ["Linear", "Conv2d", "ConvTranspose2d", "BatchNorm", "LayerNorm",
            "GroupNorm", "InstanceNorm", "Embed", "ConvBnAct", "max_pool_same",
-           "DropPath", "dropout", "checkpoint", "resolve_device",
-           "init_params"]
+           "DropPath", "drop_path", "dropout", "checkpoint", "norm_to",
+           "checkpoint_replaying", "resolve_device", "init_params"]
 
 
 def resolve_device(device) -> torch.device:
@@ -187,7 +187,7 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool, update_stats: bool = True):
         """``train`` selects the batch statistics; ``update_stats`` (train
         mode only) blends them into the running ones, which a recomputation
-        in the backward must not do a second time."""
+        in the backward must not do a second time (``norm_to``)."""
         xf = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
@@ -203,6 +203,13 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+def norm_to(bn: BatchNorm, x, train: bool, dtype: torch.dtype):
+    """``bn``'s f32 output cast to ``dtype``, as the JAX models cast flax's
+    BatchNorm; a recomputation in the backward (``checkpoint``) leaves the
+    running statistics alone."""
+    return bn(x, train, update_stats=not recomputing()).to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -307,6 +314,31 @@ def checkpoint(fn, *args):
         context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
+def checkpoint_replaying(fn, generator, *args):
+    """``checkpoint(fn, *args, generator)`` for a layer that draws dropout
+    or drop-path masks from ``generator``: the recomputation replays the
+    generator from the state it had before the layer, so it draws the same
+    masks, and then puts the generator back where the backward found
+    it."""
+    if generator is None:
+        return checkpoint(fn, *args, None)
+    before = generator.get_state()
+    calls = []
+
+    def run(*xs):
+        if not calls:
+            calls.append(1)
+            return fn(*xs, generator)
+        now = generator.get_state()
+        generator.set_state(before)
+        try:
+            return fn(*xs, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args)
+
+
 class ConvBnAct(nn.Module):
     """conv -> BatchNorm -> ReLU on NHWC tensors (flax ``ConvBnAct``,
     ``simpleaicv_tpu/models/common.py:97-146``): the convolution in
@@ -314,25 +346,25 @@ class ConvBnAct(nn.Module):
     the BatchNorm's statistics in f32 (``ops.fused_bn``); the output in
     ``dtype``. ``kernel_size`` and ``stride`` are a number or an (h, w)
     pair (the OCR trunk's stages); padding ``(k - 1) // 2`` on each
-    axis."""
+    axis. ``act`` is the activation (ReLU; DarkNet's LeakyReLU 0.1)."""
 
     def __init__(self, in_planes: int, planes: int, kernel_size=3,
                  stride=1, has_bn: bool = True, has_act: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, act=F.relu):
         super().__init__()
         padding = ((kernel_size - 1) // 2 if isinstance(kernel_size, int)
                    else tuple((k - 1) // 2 for k in kernel_size))
         self.conv = Conv2d(in_planes, planes, kernel_size, stride, padding,
                            bias=not has_bn, dtype=dtype)
         self.bn = FusedBatchNorm(planes) if has_bn else None
-        self.has_act, self.dtype = has_act, dtype
+        self.has_act, self.dtype, self.act = has_act, dtype, act
 
     def forward(self, x, train: bool = False):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x, train, update_stats=not recomputing())
             x = x.to(self.dtype)
-        return F.relu(x) if self.has_act else x
+        return self.act(x) if self.has_act else x
 
 
 def max_pool_same(x, window: int, stride: int):
@@ -366,15 +398,23 @@ class DropPath(nn.Module):
         self.scale_by_keep = scale_by_keep
 
     def forward(self, x, generator=None):
-        if self.drop_path_prob == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.drop_path_prob
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = (torch.rand(shape, device=x.device, generator=generator)
-                < keep).to(x.dtype)
-        if self.scale_by_keep:
-            mask = mask / keep
-        return x * mask
+        return drop_path(x, self.drop_path_prob, self.training, generator,
+                         self.scale_by_keep)
+
+
+def drop_path(x, prob: float, training: bool, generator=None,
+              scale_by_keep: bool = True):
+    """``DropPath``'s function, for a caller that passes ``train`` rather
+    than setting the module's mode."""
+    if prob == 0.0 or not training:
+        return x
+    keep = 1.0 - prob
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = (torch.rand(shape, device=x.device, generator=generator)
+            < keep).to(x.dtype)
+    if scale_by_keep:
+        mask = mask / keep
+    return x * mask
 
 
 def truncated_normal_(tensor, stddev, generator):

@@ -5,8 +5,8 @@ ResNet's C3-C5, ``RetinaFPN`` (P6 from P5) and the shared
 [B, H, W, 3] images -> [cls per level [B, h, w, C], reg per level
 [B, h, w, 4], centerness per level [B, h, w, 1]], all f32.
 
-The JAX package's ``convformer_m36_fcos`` and ``van_b2_fcos`` wait for
-their backbones."""
+``convformer_m36_fcos`` and ``van_b2_fcos`` take ConvFormer-M36's and
+VAN-B2's last three stages in the ResNet's place."""
 
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from .fpn import RetinaFPN
 from .head import FCOSClsRegCntHead
 
 __all__ = ["FCOS", "resnet18_fcos", "resnet34_fcos", "resnet50_fcos",
-           "resnet101_fcos", "resnet152_fcos"]
+           "resnet101_fcos", "resnet152_fcos", "convformer_m36_fcos",
+           "van_b2_fcos"]
 
 LEVELS = 5
 
@@ -87,3 +88,13 @@ def resnet101_fcos(**kwargs):
 @MODELS.register()
 def resnet152_fcos(**kwargs):
     return _fcos("resnet152", **kwargs)
+
+
+@MODELS.register()
+def convformer_m36_fcos(**kwargs):
+    return _fcos("convformer_m36", **kwargs)
+
+
+@MODELS.register()
+def van_b2_fcos(**kwargs):
+    return _fcos("van_b2", **kwargs)

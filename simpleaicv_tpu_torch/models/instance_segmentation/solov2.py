@@ -15,8 +15,8 @@ kernels per level [B, S, S, 256] f32, category logits per level
 [B, S, S, num_classes] f32). NHWC; state-dict keys are the JAX paths with
 ``_N`` written ``.N``.
 
-The JAX package's ``vanb2_solov2`` and ``convformerm36_solov2`` wait for
-their backbones.
+``vanb2_solov2`` and ``convformerm36_solov2`` take VAN-B2's and
+ConvFormer-M36's four stages in the ResNet's place.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..detection.head import PRIOR_BIAS
 
 __all__ = ["SOLOV2", "ConvGnAct", "coord_features", "resnet18_solov2",
            "resnet34_solov2", "resnet50_solov2", "resnet101_solov2",
-           "resnet152_solov2"]
+           "resnet152_solov2", "vanb2_solov2", "convformerm36_solov2"]
 
 
 def _conv(in_planes, planes, k=3, bias=True, dtype=torch.bfloat16):
@@ -220,3 +220,13 @@ def resnet101_solov2(**kwargs):
 @MODELS.register()
 def resnet152_solov2(**kwargs):
     return _solov2("resnet152", **kwargs)
+
+
+@MODELS.register()
+def vanb2_solov2(**kwargs):
+    return _solov2("van_b2", **kwargs)
+
+
+@MODELS.register()
+def convformerm36_solov2(**kwargs):
+    return _solov2("convformer_m36", **kwargs)

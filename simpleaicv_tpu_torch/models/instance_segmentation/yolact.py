@@ -13,8 +13,8 @@ per level [B, h, w, 3, 32], prototypes [B, H/4, W/4, 32], semantic logits
 [B, H/8, W/8, num_classes - 1]), all f32. NHWC; state-dict keys are the
 JAX paths with ``_N`` written ``.N``. ``YOLACTAnchors`` is numpy.
 
-The JAX package's ``vanb2_yolact`` and ``convformerm36_yolact`` wait for
-their backbones.
+``vanb2_yolact`` and ``convformerm36_yolact`` take VAN-B2's and
+ConvFormer-M36's stages in the ResNet's place.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from ..common import Conv2d
 from ..detection.fpn import _upsample_to
 
 __all__ = ["YOLACT", "YOLACTAnchors", "resnet18_yolact", "resnet34_yolact",
-           "resnet50_yolact", "resnet101_yolact", "resnet152_yolact"]
+           "resnet50_yolact", "resnet101_yolact", "resnet152_yolact",
+           "vanb2_yolact", "convformerm36_yolact"]
 
 
 class YOLACTAnchors:
@@ -212,3 +213,13 @@ def resnet101_yolact(**kwargs):
 @MODELS.register()
 def resnet152_yolact(**kwargs):
     return _yolact("resnet152", **kwargs)
+
+
+@MODELS.register()
+def vanb2_yolact(**kwargs):
+    return _yolact("van_b2", **kwargs)
+
+
+@MODELS.register()
+def convformerm36_yolact(**kwargs):
+    return _yolact("convformer_m36", **kwargs)

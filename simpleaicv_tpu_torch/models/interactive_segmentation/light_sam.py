@@ -4,9 +4,9 @@
 ``LightSAM`` puts a backbone's C2-C5 features, fused by ``SAMFPN`` into one
 stride-16 embedding, in place of SAM's ViT image encoder; its prompt
 encoder, mask decoder and forwards are SAM's. The reference's ten
-registered variants use VAN and ConvFormer backbones, which are not ported:
-building one raises ``MissingCounterpartError``. Any backbone the port has
-serves (``LightSAM(backbone_type="resnet18")``).
+registered variants use VAN and ConvFormer backbones; any backbone with
+``features_only`` and ``feature_channels`` serves
+(``LightSAM(backbone_type="resnet18")``).
 
 ``SAMDistillModel`` runs a frozen teacher and a trainable student on the
 same images and prompts; ``SAMDistillEncoderModel`` only their image
@@ -166,9 +166,8 @@ class SAMDistillModel(nn.Module):
 
 
 def _register_light_sam_variants():
-    """The reference's LightSAM names and the JAX package's two aliases;
-    VAN and ConvFormer are not ported, so each raises
-    ``MissingCounterpartError`` when built."""
+    """The reference's LightSAM names and the JAX package's two
+    aliases."""
     variants = {
         "vanb0_light_sam": "van_b0", "vanb1_light_sam": "van_b1",
         "vanb2_light_sam": "van_b2", "vanb3_light_sam": "van_b3",

@@ -166,20 +166,17 @@ def sam_l_matting2(**kwargs):
 
 @MODELS.register()
 def convformer_m36_sam_matting1(**kwargs):
-    """ConvFormer is not ported: raises ``MissingCounterpartError``."""
     return _matting(_light("convformer_m36"), False, kwargs)
 
 
 @MODELS.register()
 def convformer_m36_sam_matting2(**kwargs):
-    """ConvFormer is not ported: raises ``MissingCounterpartError``."""
     return _matting(_light("convformer_m36"), True, kwargs)
 
 
 def _register_light_sam_matting_variants():
     """The reference's eight light-SAM-matting backbones, each as matting1
-    and matting2; VAN and ConvFormer are not ported, so each raises
-    ``MissingCounterpartError`` when built."""
+    and matting2."""
     backbones = {
         "vanb0": "van_b0", "vanb1": "van_b1", "vanb2": "van_b2",
         "vanb3": "van_b3", "convformers18": "convformer_s18",

@@ -210,10 +210,19 @@ class PFANMatting(_PFAN):
 
 
 def _register_pfan_variants():
-    """``<resnet>_pfan_{segmentation,matting,face_parsing,human_parsing}``;
-    the JAX package's VAN and ConvFormer variants wait for their
-    backbones."""
-    for bb in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
+    """``<backbone>_pfan_{segmentation,matting,face_parsing,
+    human_parsing}`` for the ResNets, VAN-B0 to B3 (``vanb2``) and the
+    four ConvFormers (``convformerm36``)."""
+    backbones = {
+        "resnet18": "resnet18", "resnet34": "resnet34",
+        "resnet50": "resnet50", "resnet101": "resnet101",
+        "resnet152": "resnet152",
+        "vanb0": "van_b0", "vanb1": "van_b1", "vanb2": "van_b2",
+        "vanb3": "van_b3",
+        "convformers18": "convformer_s18", "convformers36": "convformer_s36",
+        "convformerm36": "convformer_m36", "convformerb36": "convformer_b36",
+    }
+    for ref_name, bb in backbones.items():
         for task, cls in [("segmentation", PFANSegmentation),
                           ("matting", PFANMatting),
                           ("face_parsing", PFANParsing),
@@ -224,7 +233,7 @@ def _register_pfan_variants():
                 kwargs.pop("planes", None)
                 return _cls(backbone_type=backbone_type, **kwargs)
 
-            MODELS.register(f"{bb}_pfan_{task}")(factory)
+            MODELS.register(f"{ref_name}_pfan_{task}")(factory)
 
 
 _register_pfan_variants()

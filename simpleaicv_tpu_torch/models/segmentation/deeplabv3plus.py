@@ -27,7 +27,8 @@ from ..detection.fpn import _upsample_to
 
 __all__ = ["DeepLabV3Plus", "resnet18_deeplabv3plus", "resnet34_deeplabv3plus",
            "resnet50_deeplabv3plus", "resnet101_deeplabv3plus",
-           "resnet152_deeplabv3plus"]
+           "resnet152_deeplabv3plus", "vanb2_deeplabv3plus",
+           "convformerm36_deeplabv3plus"]
 
 
 class ConvBnAct(nn.Module):
@@ -168,3 +169,13 @@ def resnet101_deeplabv3plus(**kwargs):
 @MODELS.register()
 def resnet152_deeplabv3plus(**kwargs):
     return _deeplab("resnet152", **kwargs)
+
+
+@MODELS.register()
+def vanb2_deeplabv3plus(**kwargs):
+    return _deeplab("van_b2", **kwargs)
+
+
+@MODELS.register()
+def convformerm36_deeplabv3plus(**kwargs):
+    return _deeplab("convformer_m36", **kwargs)

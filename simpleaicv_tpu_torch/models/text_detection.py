@@ -13,8 +13,8 @@ second in f32. [B, H, W, 3] images -> [B, H, W, 2] f32 (probability,
 threshold). NHWC; state-dict keys are the JAX paths (``fpn.c5_conv``,
 ``head.binary_conv.convt1``).
 
-The JAX package's ``vanb2_dbnet`` and ``convformerm36_dbnet`` wait for
-their backbones.
+``vanb2_dbnet`` and ``convformerm36_dbnet`` take VAN-B2's and
+ConvFormer-M36's four stages in the ResNet's place.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from .common import BatchNorm, ConvBnAct, ConvTranspose2d, recomputing
 from .detection.fpn import _upsample_to
 
 __all__ = ["DBNet", "DBNetFPN", "DBNetHead", "resnet18_dbnet",
-           "resnet34_dbnet", "resnet50_dbnet"]
+           "resnet34_dbnet", "resnet50_dbnet", "vanb2_dbnet",
+           "convformerm36_dbnet"]
 
 
 class DBNetFPN(nn.Module):
@@ -139,3 +140,13 @@ def resnet34_dbnet(**kwargs):
 @MODELS.register()
 def resnet50_dbnet(**kwargs):
     return _dbnet("resnet50", **kwargs)
+
+
+@MODELS.register()
+def vanb2_dbnet(**kwargs):
+    return _dbnet("van_b2", **kwargs)
+
+
+@MODELS.register()
+def convformerm36_dbnet(**kwargs):
+    return _dbnet("convformer_m36", **kwargs)

@@ -58,22 +58,35 @@ def test_deviceaug_names_the_missing_counterpart():
 
 def test_an_unported_registry_name_raises_missing_counterpart(tmp_path):
     """A config that builds its backbone through the registry by a name
-    the port lacks (``darknet19``; ``vit_moe_tiny_patch16``, which this
-    test named before, is ported) raises naming it."""
+    the port lacks raises naming it. Since the port's registries hold
+    every name the JAX package's do, the name is one neither has
+    (``darknet19`` and ``vit_moe_tiny_patch16``, which this test named
+    before, are ported)."""
     assert isinstance(load_config(str(EXP / "fake_synthetic/vit_moe_tiny"))
                       .model, torch.nn.Module)
     (tmp_path / "train_config.py").write_text(
         "from simpleaicv_tpu.core.registry import BACKBONES\n\n\n"
         "class config:\n"
         "    model = BACKBONES.create('darknet19', num_classes=10)\n")
+    assert isinstance(load_config(str(tmp_path)).model, torch.nn.Module)
+    (tmp_path / "train_config.py").write_text(
+        "from simpleaicv_tpu.core.registry import BACKBONES\n\n\n"
+        "class config:\n"
+        "    model = BACKBONES.create('darknet_huge', num_classes=10)\n")
     with pytest.raises(MissingCounterpartError,
-                       match="backbone 'darknet19'"):
+                       match="backbone 'darknet_huge'"):
         load_config(str(tmp_path))
 
 
 def test_imagenet_resnet50_names_the_missing_dataset():
-    with pytest.raises(MissingCounterpartError, match="ILSVRC2012Dataset"):
-        load_config(str(EXP / "imagenet/resnet50"))
+    """The ImageNet config loads since the ILSVRC2012 reader is ported (it
+    reads nothing when it is built); a COCO config still names the reader
+    it lacks."""
+    cfg = load_config(str(EXP / "imagenet/resnet50"))
+    assert type(cfg.train_dataset).__name__ == "ILSVRC2012Dataset"
+    with pytest.raises(MissingCounterpartError, match="CocoDetection"):
+        load_config(str(EXP.parent / "3.detection_training/coco/"
+                         "res50_fcos_retinaresize800"))
 
 
 def test_a_failure_inside_a_counterpart_is_not_masked(tmp_path):

@@ -141,11 +141,14 @@ def test_weights_both_ways(case):
 
 
 def test_variants_without_backbones_name_what_is_missing():
-    from simpleaicv_tpu_torch.core.config import MissingCounterpartError
-    for name in ("vanb2_solov2", "convformerm36_yolact"):
+    """The VAN and ConvFormer variants, which waited for their backbones,
+    build on them (their trees: ``tests/test_torch_backbone_variants.py``)."""
+    for name, bb in (("vanb2_solov2", "VAN"),
+                     ("convformerm36_yolact", "MetaFormer")):
         assert name in JAX_MODELS
-        with pytest.raises(MissingCounterpartError, match=name):
-            MODELS.create(name, num_classes=CLASSES)
+        with torch.device("meta"):
+            model = MODELS.create(name, num_classes=CLASSES)
+        assert type(model.backbone).__name__ == bb
 
 
 # ---- the losses ------------------------------------------------------------

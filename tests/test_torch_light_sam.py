@@ -40,7 +40,6 @@ from simpleaicv_tpu.models.interactive_segmentation import \
 from simpleaicv_tpu_torch.core import engine as port_engine
 from simpleaicv_tpu_torch.core import optim as port_optim
 from simpleaicv_tpu_torch.core import schedule as port_schedule
-from simpleaicv_tpu_torch.core.config import MissingCounterpartError
 from simpleaicv_tpu_torch.core.registry import LOSSES, MODELS
 from simpleaicv_tpu_torch.core.weights import (export_jax_batch_stats,
                                                export_jax_params,
@@ -161,9 +160,12 @@ def test_light_sam_matches_jax():
 
 
 def test_light_sam_variants_wait_for_their_backbones():
-    for name in ("convformer_m36_light_sam", "vanb3_light_sam"):
-        with pytest.raises(MissingCounterpartError, match="backbone"):
-            MODELS.create(name)
+    """The VAN and ConvFormer variants, which waited for their backbones,
+    build on them (their trees: ``tests/test_torch_backbone_variants.py``)."""
+    for name, bb in (("convformer_m36_light_sam", "MetaFormer"),
+                     ("vanb3_light_sam", "VAN")):
+        with torch.device("meta"):
+            assert type(MODELS.create(name).backbone).__name__ == bb
     assert isinstance(port_light_sam.LightSAM(**LIGHT).fpn,
                       port_light_sam.SAMFPN)
 

@@ -42,7 +42,6 @@ from simpleaicv_tpu.models.interactive_segmentation import \
 from simpleaicv_tpu_torch.core import engine as port_engine
 from simpleaicv_tpu_torch.core import optim as port_optim
 from simpleaicv_tpu_torch.core import schedule as port_schedule
-from simpleaicv_tpu_torch.core.config import MissingCounterpartError
 from simpleaicv_tpu_torch.core.registry import LOSSES, MODELS
 from simpleaicv_tpu_torch.core.weights import (export_jax_params, jax_paths,
                                                load_jax_params)
@@ -279,9 +278,12 @@ def test_registered_models():
             assert model.multi_level is (head != "fusion_pred")
             assert getattr(model, head).dtype == dtype
             assert model.sam.image_encoder.patch_embed.proj.dtype == dtype
-    for name in ("convformer_m36_sam_matting1", "vanb0_light_sam_matting2"):
-        with pytest.raises(MissingCounterpartError, match="backbone"):
-            MODELS.create(name)
+    for name, bb in (("convformer_m36_sam_matting1", "MetaFormer"),
+                     ("vanb0_light_sam_matting2", "VAN")):
+        with torch.device("meta"):
+            model = MODELS.create(name)
+        assert type(model.sam.backbone).__name__ == bb
+        assert model.multi_level is name.endswith("2")
 
 
 # ---- the loss stacks ----

@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from simpleaicv_tpu.core.registry import MODELS as JAX_MODELS
-from simpleaicv_tpu_torch.core.config import MissingCounterpartError
 from simpleaicv_tpu_torch.core.registry import MODELS
 from simpleaicv_tpu_torch.core.weights import (export_jax_batch_stats,
                                                export_jax_params,
@@ -237,14 +236,16 @@ def test_weights_round_trip(case):
 
 
 def test_registry_names():
-    """ResNet variants are registered; the VAN and ConvFormer ones wait for
-    their backbones."""
+    """ResNet variants are registered, and the VAN and ConvFormer ones build
+    on their backbones (their trees:
+    ``tests/test_torch_backbone_variants.py``)."""
     for bb in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152"):
         assert f"{bb}_deeplabv3plus" in MODELS
         for task in ("segmentation", "matting", "face_parsing",
                      "human_parsing"):
             assert f"{bb}_pfan_{task}" in MODELS
-    for name in ("vanb2_deeplabv3plus", "convformerm36_deeplabv3plus",
-                 "vanb2_pfan_segmentation"):
-        with pytest.raises(MissingCounterpartError):
-            MODELS.create(name)
+    for name, bb in (("vanb2_deeplabv3plus", "VAN"),
+                     ("convformerm36_deeplabv3plus", "MetaFormer"),
+                     ("vanb2_pfan_segmentation", "VAN")):
+        with torch.device("meta"):
+            assert type(MODELS.create(name).backbone).__name__ == bb

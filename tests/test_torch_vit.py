@@ -202,8 +202,11 @@ def test_registered_variant_has_the_jax_parameter_count(name):
              for k, sub in tree.items()}
     block = count.pop("blocks_0")
     assert got == sum(count.values()) + block * jm.block_nums
-    # the registry also holds the ResNets and the ViT-MoE backbones
-    # (tests/test_torch_moe.py::test_registered_sizes); its ViTs are these
+    # the registry also holds the ResNets, the ViT-MoE backbones
+    # (tests/test_torch_moe.py::test_registered_sizes) and the ConvFormer,
+    # VAN and DarkNet ones (tests/test_torch_backbone_variants.py); its
+    # ViTs are these
     assert sorted(n for n in BACKBONES.names()
-                  if not n.startswith(("resnet", "vit_moe_"))) == sorted(
+                  if not n.startswith(("resnet", "vit_moe_", "convformer_",
+                                       "van_", "darknet"))) == sorted(
                       VARIANTS)
