@@ -14,6 +14,15 @@ Phases, each of which raises (exit code 1) on failure:
      through ``SAMPredictor`` on the card, counts the kernel launches of
      that run, and compares the masks with the same requests on the plain
      path;
+  3b. http_serving: starts the port's HTTP server (``demo/serve.py``) with
+     all twelve tasks at their predictors' defaults (full widths, bf16) on
+     the card and posts JPEG bodies over real sockets (1280x720 and
+     720x1280 images, a 48x400 strip for recognition; point, box and PNG
+     requests to SAM-B): 2 warm-up and 8 timed requests a task, the host
+     clock's median and maximum latency, one profiled request's device
+     busy time and idle share, K4 4 times a SAM request and no hand kernel
+     on the other endpoints, the responses' keys and shapes; then one
+     small f32 request a task on the card (TF32 off) against the CPU;
   4. training: takes ViT-B/16 224x224 bf16 train steps at batch 128 through
      the engine's ``make_train_step`` (flash attention, the AdamW recipe
      with layer-wise lr decay and a warm-up cosine schedule), counts the
@@ -158,7 +167,7 @@ Phases, each of which raises (exit code 1) on failure:
  36. inst_cli: fake_synthetic/resnet18_solov2 and resnet18_yolact through
      the instance-segmentation CLIs in this process;
  37. ddpm_train: the celebahq/ddpm_64 UNet at 64^2, batch 64, f32, then the
-     1000-step DDPM and a 50-step DDIM sampler on 16 images, and the
+     1000-step DDPM sampler on 4 images and a 50-step DDIM one on 16, the
      InceptionV3 features and FID/IS arithmetic on seeded weights (time
      only);
  38. diffusion_cli: fake_synthetic/tiny_ddpm through the diffusion CLIs,
@@ -190,7 +199,7 @@ idle share and the top rows of one profiled step where they train on a
 resident batch. The paths of phases 13-22, 24-27, 31 and 33-44 and the
 four fake_synthetic configs of phase 32 (16 tokens in their global layer)
 launch no hand kernel, which each checks.
-The script prints its total time.
+The script prints each phase's seconds and its total time.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -198,13 +207,17 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
+import io
 import json
 import random
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -243,6 +256,9 @@ from simpleaicv_tpu_torch.data.text_recognition import (
 from simpleaicv_tpu_torch.data.segmentation import (
     FakeSegmentationDataset, SegNormalize, SemanticSegmentationCollater)
 from simpleaicv_tpu_torch.data.transforms import Compose
+from simpleaicv_tpu_torch.demo import codec as serve_codec
+from simpleaicv_tpu_torch.demo import predictors as serve_predictors
+from simpleaicv_tpu_torch.demo import serve as http_serve
 from simpleaicv_tpu_torch.demo.predictors import SAMPredictor, bounding_rect
 from simpleaicv_tpu_torch.diffusion import (DDIMSampler, DDPMSampler,
                                             DDPMTrainer)
@@ -1156,6 +1172,299 @@ def phase_serving(card, rounds=2):
         if not (corr > 0.999 and same >= 0.99):
             raise RuntimeError(f"{kind} request disagrees with the plain "
                                f"path")
+    return launches
+
+
+SERVE_WARM_UP = 2
+SERVE_TIMED = 8
+# the JAX server's twelve tasks at their predictors' defaults (full widths):
+# each task's predictor, the keywords its builder adds, and the small f32
+# input of the card-against-CPU request
+SERVE_TASKS = {
+    "classification": ("ClassificationPredictor", {}, {"input_size": 64}),
+    "detection": ("DetectionPredictor", {}, {"input_size": 256}),
+    "semantic_segmentation": ("SemanticSegmentationPredictor", {},
+                              {"input_size": 128}),
+    "salient_object_detection": ("BinarySegmentationPredictor", {},
+                                 {"input_size": 128}),
+    "human_matting": ("HumanMattingPredictor", {}, {"input_size": 128}),
+    "face_detection": ("FaceDetectionPredictor", {}, {"input_size": 128}),
+    "face_parsing": ("ParsingPredictor", {}, {"input_size": 128}),
+    "human_parsing": ("ParsingPredictor",
+                      {"network": "resnet50_pfan_human_parsing"},
+                      {"input_size": 128}),
+    "instance_segmentation": ("InstanceSegmentationPredictor", {},
+                              {"input_size": 256}),
+    "text_detection": ("TextDetectionPredictor", {}, {"input_size": 128}),
+    "interactive_segmentation": ("SAMPredictor", {}, {"image_size": 256}),
+    "text_recognition": ("TextRecognitionPredictor", {}, {"input_w": 128}),
+}
+SAM_QUERIES = ("?points=640,360;200,100", "?box=100,150,900,600",
+               "?format=png&points=300,500")
+# card (f32, TF32 off) against CPU, one request a task at a small input;
+# bounds from the readings of this phase on an H100 80GB HBM3 at 700 W:
+# label maps and SAM masks 1.000000 of the pixels, probabilities, alphas
+# and SOLOv2's network outputs 5.96e-9 to 8.6e-7 apart in L2, every box
+# matched
+SERVE_PARITY_BOUNDS = {"agree": 0.999, "l2": 1e-5, "matched": 0.99}
+
+
+def _photo(h, w, seed):
+    """A photo-like uint8 RGB image: ramps and noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramps = np.stack([xx * 0.2, yy * 0.3, (xx + yy) * 0.1], -1) % 256
+    noise = np.random.RandomState(seed).randint(0, 64, (h, w, 3))
+    return (ramps * 0.75 + noise).astype(np.uint8)
+
+
+def _jpeg_body(image):
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _http_post(url, body):
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": "image/jpeg"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def _check_response(task, query, ctype, payload, hw):
+    """Fails unless the response has the JAX server's keys and shapes."""
+    h, w = hw
+    if "format=png" in query:
+        if ctype != "image/png":
+            raise RuntimeError(f"{task}{query}: {ctype}, not a PNG")
+        mask = serve_codec.decode_image(payload)
+        if mask.shape != (h, w, 3) or not np.isin(mask, (0, 255)).all():
+            raise RuntimeError(f"{task}{query}: PNG {mask.shape}")
+        return
+    out = json.loads(payload)
+    keys = {"classification": {"topk"}, "detection": {"detections"},
+            "face_detection": {"faces"}, "text_detection": {"polygons"},
+            "instance_segmentation": {"instances"},
+            "text_recognition": {"text"}}.get(task)
+    if keys is None and task == "interactive_segmentation":
+        keys = {"mask_shape", "mask_pixels",
+                "box" if "box=" in query else "points"}
+    elif keys is None and task in ("salient_object_detection",
+                                   "human_matting"):
+        keys = {"alpha_shape", "alpha_mean"}
+    elif keys is None:
+        keys = {"mask_shape", "class_histogram"}
+    ok = set(out) == keys
+    if ok and "topk" in out:
+        probs = [e["prob"] for e in out["topk"]]
+        ok = len(probs) == 5 and probs == sorted(probs, reverse=True)
+    elif ok and task in ("detection", "face_detection"):
+        ok = all(len(d["box"]) == 4 and np.isfinite(d["score"])
+                 for d in out[next(iter(keys))])
+    elif ok and "class_histogram" in out:
+        ok = (out["mask_shape"] == [h, w]
+              and sum(out["class_histogram"].values()) == h * w)
+    elif ok and "alpha_shape" in out:
+        ok = out["alpha_shape"] == [h, w] and 0 <= out["alpha_mean"] <= 1
+    elif ok and "mask_pixels" in out:
+        ok = out["mask_shape"] == [h, w] and 0 <= out["mask_pixels"] <= h * w
+    elif ok and "text" in out:
+        ok = isinstance(out["text"], str)
+    if not ok:
+        raise RuntimeError(f"{task}{query}: unexpected response "
+                           f"{str(out)[:300]}")
+
+
+def _parity_outputs(task, pred, image):
+    """The predictor's raw answer to ``image`` in a comparable form (every
+    detection and instance the decoder keeps)."""
+    if task in ("detection", "face_detection", "instance_segmentation"):
+        return pred(image, score_threshold=0.0)
+    if task == "classification":
+        probs = np.zeros(1000)
+        for i, p in pred(image, topk=1000):
+            probs[i] = p
+        return probs
+    if task == "interactive_segmentation":
+        return pred(image, [(image.shape[1] / 2, image.shape[0] / 2)])
+    return pred(image)
+
+
+def _matched_share(task, want, got, factor):
+    """The share of the CPU's detections or instances that the card's
+    answer holds: the class, a score within 1e-3 relative, and a box
+    within 1 / factor + 1 pixel or a mask agreeing on 99% of its pixels."""
+    (wm, wl, ws), (gm, gl, gs) = want, got
+    if len(ws) == 0 and len(gs) == 0:
+        return 1.0
+    free = np.ones(len(gs), bool)
+    matched = 0
+    for m, c, s in zip(wm, wl, ws):
+        for j in np.flatnonzero(free & (gl == c)
+                                & (np.abs(gs - s) <= 1e-3 * abs(s))):
+            if task == "instance_segmentation":
+                near = np.mean(gm[j] == m) >= 0.99
+            else:
+                near = np.abs(gm[j] - m).max() <= 1 / factor + 1
+            if near:
+                free[j] = False
+                matched += 1
+                break
+    return matched / max(len(ws), len(gs))
+
+
+def _network_l2(cpu_pred, card_pred, image, size):
+    """The relative L2 distance of two predictors' network outputs on the
+    letterboxed image (every output tensor, flattened)."""
+    def flat(out):
+        if isinstance(out, (tuple, list)):
+            return torch.cat([flat(o) for o in out])
+        return out.float().flatten().cpu()
+
+    outs = []
+    for pred in (cpu_pred, card_pred):
+        canvas, _, _ = serve_predictors.letterbox(image, size, pred.device)
+        with torch.no_grad():
+            outs.append(flat(pred.model(canvas[None])))
+    return float((outs[1] - outs[0]).norm() / outs[0].norm())
+
+
+def _serve_parity(card, task):
+    """One request at a small input in f32 on the card (TF32 off) against
+    the same predictor, with the same seeded weights, on the CPU."""
+    name, extra, small = SERVE_TASKS[task]
+    cls = getattr(serve_predictors, name)
+    kw = dict(extra, **small, dtype=torch.float32, seed=7)
+    image = _photo(48, 400, 5) if task == "text_recognition" else \
+        _photo(180, 240, 5)
+    # one seeded init on the host: the card's predictor is the CPU one's
+    # copy with its model moved (the same weights, one init fewer)
+    cpu_pred = cls(device="cpu", **kw)
+    card_pred = copy.copy(cpu_pred)
+    card_pred.model = copy.deepcopy(cpu_pred.model).to("cuda")
+    card_pred.device = torch.device("cuda")
+    want = _parity_outputs(task, cpu_pred, image)
+    got = _parity_outputs(task, card_pred, image)
+    if task == "text_recognition":
+        ok, reading = got == want, f"text {got!r} vs {want!r}"
+    elif task in ("classification", "salient_object_detection",
+                  "human_matting"):
+        l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        ok, reading = l2 <= SERVE_PARITY_BOUNDS["l2"], f"L2 {l2:.3e}"
+    elif task in ("detection", "face_detection", "instance_segmentation"):
+        size = small["input_size"]
+        share = _matched_share(task, want, got, size / max(image.shape[:2]))
+        n = len(want[-1])
+        ok = share >= SERVE_PARITY_BOUNDS["matched"]
+        reading = f"{n} on the CPU, {share:.4f} matched"
+        if task == "instance_segmentation":
+            # the seeded SOLOv2 keeps no instance (its masks stay under the
+            # 0.5 threshold): its network outputs are held in L2 as well
+            l2 = _network_l2(cpu_pred, card_pred, image, size)
+            ok = ok and l2 <= SERVE_PARITY_BOUNDS["l2"]
+            reading += f"; network outputs L2 {l2:.3e}"
+    elif task == "text_detection":
+        (wb, ws), (gb, gs) = want, got
+        ok = len(wb) == len(gb) and all(
+            a.shape == b.shape and np.abs(a - b).max() <= 1.0
+            for a, b in zip(wb, gb))
+        reading = f"{len(wb)} polygons on the CPU, {len(gb)} on the card"
+    else:
+        agree = float(np.mean(got == want))
+        ok, reading = (agree >= SERVE_PARITY_BOUNDS["agree"],
+                       f"pixel agreement {agree:.6f}")
+    print(f"http_serving: {task} card (f32, TF32 off) vs CPU at "
+          f"{small} [{card}]: {reading}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{task}: the card's f32 answer disagrees with "
+                           f"the CPU's")
+    del card_pred, cpu_pred
+    torch.cuda.empty_cache()
+
+
+def phase_http_serving(card):
+    """The port's HTTP server with all twelve tasks at their predictors'
+    defaults, on the card: JPEG bodies over real sockets, the host clock's
+    latency per task, one profiled request a task through the server's
+    ``predict``, K4 launched 4 times a SAM request and no hand kernel on
+    any other endpoint, the responses' keys and shapes, and one small f32
+    request a task on the card against the CPU. Returns the launches."""
+    t0 = time.perf_counter()
+    httpd, model_server = http_serve.build_server(list(SERVE_TASKS), {},
+                                                  port=0, device="cuda")
+    model_server.warm()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/predict/"
+    print(f"http_serving: twelve tasks built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    images = [_photo(720, 1280, 0), _photo(1280, 720, 1)]
+    bodies = [(_jpeg_body(img), img.shape[:2]) for img in images]
+    strip = _photo(48, 400, 2)
+    strip_body = [(_jpeg_body(strip), strip.shape[:2])]
+    launches = {}
+    try:
+        for task in SERVE_TASKS:
+            reqs = strip_body if task == "text_recognition" else bodies
+            queries = SAM_QUERIES if task == "interactive_segmentation" \
+                else ("",)
+            _reset_launches()
+            latencies = []
+            n = SERVE_WARM_UP + SERVE_TIMED
+            for i in range(n):
+                body, hw = reqs[i % len(reqs)]
+                query = queries[i % len(queries)]
+                t = time.perf_counter()
+                status, ctype, payload = _http_post(url + task + query, body)
+                dt = (time.perf_counter() - t) * 1e3
+                if status != 200:
+                    raise RuntimeError(f"{task}{query}: HTTP {status}")
+                _check_response(task, query, ctype, payload, hw)
+                if i >= SERVE_WARM_UP:
+                    latencies.append(dt)
+            if task == "interactive_segmentation":
+                counts = dict(fa.KERNEL_LAUNCHES)
+                if counts["flash_attention_relpos_fwd"] != 4 * n or any(
+                        v for k, v in counts.items()
+                        if k != "flash_attention_relpos_fwd"):
+                    raise RuntimeError(f"SAM requests: launches {counts}, "
+                                       f"4 of K4 a request expected")
+                _wide_kernels_only("the SAM endpoint")
+                launches["flash_attention_relpos_fwd"] = counts[
+                    "flash_attention_relpos_fwd"]
+            else:
+                _no_hand_kernel(f"http_serving {task}")
+            median = float(np.median(latencies))
+            body, _ = reqs[0]
+            t = time.perf_counter()
+            serve_codec.decode_image(body)
+            decode_ms = (time.perf_counter() - t) * 1e3
+            direct = []
+            for _ in range(3):
+                t = time.perf_counter()
+                model_server.predict(task, body, "image/jpeg", {})
+                direct.append((time.perf_counter() - t) * 1e3)
+            busy_ms, _ = _profile_device(lambda: model_server.predict(
+                task, body, "image/jpeg", {}))
+            idle = (f"device busy {busy_ms:.2f} ms, idle share "
+                    f"{1 - busy_ms / median:.3f}" if busy_ms > 0
+                    else "device busy not measured")
+            print(f"http_serving: {task} [{card}]: median {median:.2f} ms, "
+                  f"max {max(latencies):.2f} ms over {len(latencies)} "
+                  f"requests after {SERVE_WARM_UP}; in this thread, no "
+                  f"socket: decode {decode_ms:.2f} ms, the server's predict "
+                  f"{float(np.median(direct)):.2f} ms (median of 3); "
+                  f"profiled request: {idle}", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    del model_server
+    torch.cuda.empty_cache()
+    for task in SERVE_TASKS:
+        _serve_parity(card, task)
+    print(f"http_serving: {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
     return launches
 
 
@@ -4888,6 +5197,10 @@ DDPM_RECIPE_OPT = ("AdamW", {"lr": 2e-4, "global_weight_decay": False,
                              "no_weight_decay_layer_name_list": []})
 DDPM_RECIPE_SCHED = ("CosineLR", {"warm_up_epochs": 1})
 DDPM_EPOCHS, DDPM_STEPS_PER_EPOCH = 500, 30000 // 64
+# the 1000-step DDPM run's batch, cut from 16 to make room for the HTTP
+# phase (it took 70.9 s at 16, a step's time nearly proportional); the
+# 50-step DDIM run keeps 16, whose samples feed the FID and IS (10 splits)
+DDPM_SAMPLE_IMAGES = 4
 SAMPLE_IMAGES = 16
 
 
@@ -5117,8 +5430,8 @@ def phase_inst_cli(card):
 def phase_ddpm_train(card, warm_up=2, timed=6):
     """The celebahq/ddpm_64 UNet at 64^2, batch 64, f32 through
     ``make_train_step`` on a resident batch (synthetic images in [-1, 1]);
-    then the full 1000-step DDPM sampler on 16 images, a 50-step DDIM
-    sampler, and the InceptionV3 features of the 16 samples at 299^2 with
+    then the full 1000-step DDPM sampler on 4 images, a 50-step DDIM
+    sampler on 16, and the InceptionV3 features of its 16 samples at 299^2 with
     the FID and IS arithmetic on seeded weights (their value means nothing
     without the pretrained weights; the time is the reading). Returns (the
     launches: none, images per second)."""
@@ -5151,11 +5464,12 @@ def phase_ddpm_train(card, warm_up=2, timed=6):
           f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
     _profiled_step(card, "DiffusionUNet", step, state, batch, step_ms,
                    top=12)
-    shape = (SAMPLE_IMAGES, DDPM_IMAGE, DDPM_IMAGE, 3)
     samples, seconds = None, {}
-    for name, sampler in (("DDPM, 1000 steps", DDPMSampler(t=1000)),
-                          ("DDIM, 50 steps", DDIMSampler(ddpm_t=1000,
-                                                         ddim_t=50))):
+    for name, sampler, n in (
+            ("DDPM, 1000 steps", DDPMSampler(t=1000), DDPM_SAMPLE_IMAGES),
+            ("DDIM, 50 steps", DDIMSampler(ddpm_t=1000, ddim_t=50),
+             SAMPLE_IMAGES)):
+        shape = (n, DDPM_IMAGE, DDPM_IMAGE, 3)
         generate = diff_task.make_generate_fn(model, sampler, shape,
                                               device="cuda")
         torch.cuda.reset_peak_memory_stats()
@@ -5164,8 +5478,8 @@ def phase_ddpm_train(card, warm_up=2, timed=6):
         out = generate(torch.Generator("cuda").manual_seed(0))
         torch.cuda.synchronize()
         s = seconds[name] = time.perf_counter() - t0
-        print(f"ddpm_train: {name} on {SAMPLE_IMAGES} images [{card}]: "
-              f"{s:.2f} s, {1e3 * s / SAMPLE_IMAGES:.1f} ms an image, peak "
+        print(f"ddpm_train: {name} on {n} images [{card}]: "
+              f"{s:.2f} s, {1e3 * s / n:.1f} ms an image, peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"samples finite {bool(torch.isfinite(out).all())}, in "
               f"[{out.min().item():.3f}, {out.max().item():.3f}]",
@@ -5174,14 +5488,17 @@ def phase_ddpm_train(card, warm_up=2, timed=6):
             raise RuntimeError(f"ddpm_train: the {name} sampler gave "
                                f"{tuple(out.shape)}, finite "
                                f"{bool(torch.isfinite(out).all())}")
-        samples = out if samples is None else samples
+        samples = out  # the DDIM run's, for the FID and IS
     model.eval()
-    x = torch.randn(shape, device="cuda")
-    t = torch.full((SAMPLE_IMAGES,), 500, dtype=torch.int64, device="cuda")
+    x = torch.randn((DDPM_SAMPLE_IMAGES, DDPM_IMAGE, DDPM_IMAGE, 3),
+                    device="cuda")
+    t = torch.full((DDPM_SAMPLE_IMAGES,), 500, dtype=torch.int64,
+                   device="cuda")
     with torch.no_grad():
         busy_ms, events = _profile_device(lambda: model(x, t, None, False))
     print(f"ddpm_train: one sampler step's UNet forward at batch "
-          f"{SAMPLE_IMAGES}, profiled: device busy {busy_ms:.2f} ms, beside "
+          f"{DDPM_SAMPLE_IMAGES}, profiled: device busy {busy_ms:.2f} ms, "
+          f"beside "
           f"{1e3 * seconds['DDPM, 1000 steps'] / 1000:.4f} ms a step of "
           f"the 1000-step run "
           f"[{card}]", flush=True)
@@ -5960,12 +6277,13 @@ class config:
 def phase_packed_cli(card, resident_ips):
     """A 224^2 pack of ``PACKED_SAMPLES`` synthetic images written by
     ``pack_dataset``, then the ResNet-50 train CLI for two epochs of it in
-    this process, four times in turns (D, P, P, D): through the
+    this process, three times in turns (D, P, D; a second P run cut to
+    make room for the HTTP phase): through the
     ``DataLoader`` (D: a ``PackedDataset`` with a per-sample transform,
     read a sample at a time) and through the ``PackedLoader`` (P: no
     transform, one native gather a batch). Each run's logged rate over its
     second epoch, whose start the first epoch has warmed, beside
-    ``resnet50_train``'s resident rate; the medians of each loader's two.
+    ``resnet50_train``'s resident rate; the medians of each loader's runs.
     Returns the launches (none)."""
     import os
     import tempfile
@@ -5988,7 +6306,7 @@ def phase_packed_cli(card, resident_ips):
               f"({os.path.getsize(path) / 2**20:.1f} MiB) in "
               f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
         for turn, loader in enumerate(("DataLoader", "PackedLoader",
-                                       "PackedLoader", "DataLoader")):
+                                       "DataLoader")):
             work = os.path.join(tmp, f"{turn}_{loader}")
             os.makedirs(work)
             with open(os.path.join(work, "train_config.py"), "w") as f:
@@ -6053,37 +6371,47 @@ def _slice_19(card, resident_ips):
     return paths
 
 
+def _timed(name, fn, *args):
+    """``fn(*args)``, printing the seconds it took under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
-    kernels = phase_kernels(card)
-    serving = phase_serving(card)
-    vit = phase_training(card)
-    sam, sam_ips = phase_sam_training(card)
-    kernels += phase_msda_kernels(card)
-    dino, dino_ips = phase_dino_training(card)
-    probes, probe_launches = phase_probes(card)
+    kernels = _timed("kernels", phase_kernels, card)
+    serving = _timed("serving", phase_serving, card)
+    http_serving = _timed("http_serving", phase_http_serving, card)
+    vit = _timed("training", phase_training, card)
+    sam, sam_ips = _timed("sam_training", phase_sam_training, card)
+    kernels += _timed("msda_kernels", phase_msda_kernels, card)
+    dino, dino_ips = _timed("dino_training", phase_dino_training, card)
+    probes, probe_launches = _timed("probes", phase_probes, card)
     kernels += probes
-    resnet, resident_ips = phase_resnet50_training(
-        card, next(k["ms"] for k in probes if k["name"] == "probe_mm_stats"))
-    phase_cli(card, resident_ips)
-    sam_cli = phase_sam_cli(card, sam_ips)
-    dino_cli = phase_dino_cli(card, dino_ips)
-    seg, seg_ips = phase_seg_train(card)
-    seg_cli = phase_seg_cli(card, seg_ips)
-    pfan, pfan_cli = phase_pfan_cli(card)
-    seg_learns = phase_seg_learns(card)
-    fcos, _ = phase_fcos_train(card)
-    retina, _ = phase_retina_train(card)
-    sapiens, sapiens_ips = phase_sapiens_train(card)
-    parity = phase_dense_parity(card)
-    dense_cli = phase_dense_cli(card, sapiens_ips)
-    fcos_learns = phase_fcos_learns(card)
-    slice_15 = _slice_15(card)
-    slice_16 = _slice_16(card)
-    slice_17 = _slice_17(card)
-    slice_18 = _slice_18(card)
-    slice_19 = _slice_19(card, resident_ips)
+    resnet, resident_ips = _timed(
+        "resnet50_training", phase_resnet50_training, card,
+        next(k["ms"] for k in probes if k["name"] == "probe_mm_stats"))
+    _timed("cli", phase_cli, card, resident_ips)
+    sam_cli = _timed("sam_cli", phase_sam_cli, card, sam_ips)
+    dino_cli = _timed("dino_cli", phase_dino_cli, card, dino_ips)
+    seg, seg_ips = _timed("seg_train", phase_seg_train, card)
+    seg_cli = _timed("seg_cli", phase_seg_cli, card, seg_ips)
+    pfan, pfan_cli = _timed("pfan_cli", phase_pfan_cli, card)
+    seg_learns = _timed("seg_learns", phase_seg_learns, card)
+    fcos, _ = _timed("fcos_train", phase_fcos_train, card)
+    retina, _ = _timed("retina_train", phase_retina_train, card)
+    sapiens, sapiens_ips = _timed("sapiens_train", phase_sapiens_train, card)
+    parity = _timed("dense_parity", phase_dense_parity, card)
+    dense_cli = _timed("dense_cli", phase_dense_cli, card, sapiens_ips)
+    fcos_learns = _timed("fcos_learns", phase_fcos_learns, card)
+    slice_15 = _timed("slice_15", _slice_15, card)
+    slice_16 = _timed("slice_16", _slice_16, card)
+    slice_17 = _timed("slice_17", _slice_17, card)
+    slice_18 = _timed("slice_18", _slice_18, card)
+    slice_19 = _timed("slice_19", _slice_19, card, resident_ips)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -6099,8 +6427,10 @@ def main():
     # counts are the SAM-B matting run's), PFAN matting none; nor do the
     # instance-segmentation and diffusion paths (slice 17) and the OCR
     # paths (slice 18), nor the slice-19 backbones, family variants and
-    # packed loader.
-    paths = {"sam_serving": serving, "vit_train": vit, "sam_train": sam,
+    # packed loader. The HTTP server launches K4 4 times a SAM request and
+    # no hand kernel on its eleven other endpoints.
+    paths = {"sam_serving": serving, "http_serving": http_serving,
+             "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
              "dino_cli": dino_cli, "seg_train": seg, "seg_cli": seg_cli,

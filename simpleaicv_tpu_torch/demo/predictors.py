@@ -1,18 +1,32 @@
-"""Single-image SAM predictor of the PyTorch port (counterpart of
-``SAMPredictor`` in ``demo/predictors.py``).
+"""Single-image predictors of the PyTorch port, the serving layer
+(counterpart of ``demo/predictors.py``).
 
-One request is one image and one prompt: the image is letterboxed into the
-model's square input on the device, encoded, decoded with the prompt, and
-the best of the four masks (by predicted IoU) is binarised and resized back
-to the image's shape. Point, box and drawn-region prompts are served; no
-OpenCV is needed:
-  * the letterbox resize is ``F.interpolate(mode="bilinear",
-    align_corners=False, antialias=False)``, the taps of cv2 ``INTER_LINEAR``
-    on float input;
-  * the resize back is ``mode="nearest"``, the floor mapping of cv2
-    ``INTER_NEAREST``;
+Each predictor builds one model on its device (the CUDA card unless
+``device="cpu"``; it raises when there is no card), in ``dtype`` (bf16 by
+default), with weights drawn from a ``torch.Generator`` seeded with
+``seed``, or the port's ``best`` checkpoint at ``trained_model_path``
+(parameters and BatchNorm statistics; ``core.weights.load_jax_params``
+carries JAX trees across). The constructors keep the JAX predictors'
+keywords, so the JAX server's ``--config`` JSON serves here unchanged.
+Each ``__call__`` runs under its own ``torch.no_grad()``: grad mode is
+thread-local, and the HTTP server answers requests on threads of its own.
+
+The pre- and post-processing runs on the predictor's device and needs no
+OpenCV:
+  * the square resize and the letterbox are ``F.interpolate(mode=
+    "bilinear", align_corners=False, antialias=False)``, the taps of cv2
+    ``INTER_LINEAR`` on float input (resize first, then / 255);
+  * the resize back of a label map or mask is a gather at cv2
+    ``INTER_NEAREST``'s rows and columns, ``floor(x / (dst / src))`` in
+    double precision (``nearest_indices``); ``F.interpolate``'s nearest
+    mode takes the scale in single precision and parts from cv2 by a row
+    or a column at thousands of sizes;
+  * an alpha goes back bilinearly, as cv2 ``INTER_LINEAR`` on f32;
   * a drawn region's bounding rectangle is a numpy nonzero box, as cv2
     ``boundingRect`` computes it.
+The decoders return numpy arrays, so the instance masks are resized on
+the host, through one gather that composes the JAX predictor's two
+nearest resizes.
 """
 
 from __future__ import annotations
@@ -21,11 +35,54 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import MODELS
-from ..models import interactive_segmentation  # noqa: F401  (registers SAM)
+from .. import models  # noqa: F401  (registers the models and decoders)
+from ..core.checkpoint import load_checkpoint_tensors
+from ..core.registry import BACKBONES, DECODERS, MODELS
+from ..data.text_detection import DBNetDecoder
+from ..data.text_recognition import CTCTextLabelConverter
 from ..models.common import init_params, resolve_device
+from ..models.text_recognition import CTCModel
 
-__all__ = ["SAMPredictor", "letterbox", "bounding_rect"]
+__all__ = ["ClassificationPredictor", "DetectionPredictor",
+           "FaceDetectionPredictor", "SemanticSegmentationPredictor",
+           "ParsingPredictor", "BinarySegmentationPredictor",
+           "HumanMattingPredictor", "InstanceSegmentationPredictor",
+           "TextDetectionPredictor", "TextRecognitionPredictor",
+           "SAMPredictor", "letterbox", "square_resize", "nearest_indices",
+           "resize_nearest", "bounding_rect"]
+
+
+def _as_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or its name as a JSON config gives it."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def _served(model, device, seed, trained_model_path):
+    """``model`` with the weights of a port checkpoint, every parameter and
+    buffer (a strict load), or else seeded ones, in eval mode on
+    ``device``."""
+    if trained_model_path:
+        model.load_state_dict(load_checkpoint_tensors(trained_model_path))
+    else:
+        init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def _resized(image_rgb: np.ndarray, hw, device):
+    """[h, w, 3] image -> [hw[0], hw[1], 3] f32 in [0, 1] on ``device``."""
+    image = np.ascontiguousarray(image_rgb)
+    if image.dtype != np.uint8:
+        image = image.astype(np.float32)
+    img = torch.from_numpy(image).to(device).float().permute(2, 0, 1)[None]
+    resized = F.interpolate(img, size=tuple(hw), mode="bilinear",
+                            align_corners=False, antialias=False)
+    return resized[0].permute(1, 2, 0) / 255.0
+
+
+def square_resize(image_rgb: np.ndarray, size: int, device):
+    """[h, w, 3] image -> [1, size, size, 3] f32 in [0, 1] on ``device``
+    (the JAX predictors' ``cv2.resize(img, (s, s)) / 255``)."""
+    return _resized(image_rgb, (size, size), device)[None]
 
 
 def letterbox(image_rgb: np.ndarray, size: int, device):
@@ -35,13 +92,25 @@ def letterbox(image_rgb: np.ndarray, size: int, device):
     h, w = image_rgb.shape[:2]
     factor = size / max(h, w)
     nh, nw = int(round(h * factor)), int(round(w * factor))
-    img = torch.from_numpy(np.ascontiguousarray(image_rgb, np.float32))
-    img = img.to(device).permute(2, 0, 1)[None]
-    resized = F.interpolate(img, size=(nh, nw), mode="bilinear",
-                            align_corners=False, antialias=False)
     canvas = torch.zeros(size, size, 3, device=device)
-    canvas[:nh, :nw] = resized[0].permute(1, 2, 0) / 255.0
+    canvas[:nh, :nw] = _resized(image_rgb, (nh, nw), device)
     return canvas, factor, (nh, nw)
+
+
+def nearest_indices(src: int, dst: int) -> np.ndarray:
+    """The source index of each of ``dst`` places under cv2
+    ``INTER_NEAREST``: ``min(floor(x * (1 / (dst / src))), src - 1)``."""
+    scale = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * scale).astype(np.int64),
+                      src - 1)
+
+
+def resize_nearest(mask, hw):
+    """[..., h, w] tensor -> [..., hw[0], hw[1]] at cv2 ``INTER_NEAREST``'s
+    places, on the tensor's device."""
+    iy, ix = (torch.from_numpy(nearest_indices(s, d)).to(mask.device)
+              for s, d in zip(mask.shape[-2:], hw))
+    return mask.index_select(-2, iy).index_select(-1, ix)
 
 
 def bounding_rect(mask: np.ndarray):
@@ -62,24 +131,244 @@ def _rgb_to_gray_u8(rgb: np.ndarray) -> np.ndarray:
         np.uint8)
 
 
+class ClassificationPredictor:
+    """Softmax probabilities of a square-resized image; the top ``topk``
+    as (class, probability), in the JAX predictor's order (numpy's
+    ``argsort`` of the negated probabilities)."""
+
+    def __init__(self, network="resnet50", num_classes=1000, input_size=224,
+                 trained_model_path="", device="cuda", dtype=torch.bfloat16,
+                 seed=0):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.model = _served(
+            BACKBONES.create(network, num_classes=num_classes,
+                             dtype=_as_dtype(dtype)),
+            self.device, seed, trained_model_path)
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray, topk: int = 5):
+        x = square_resize(image_rgb, self.input_size, self.device)
+        probs = torch.softmax(self.model(x).float(), -1)[0].cpu().numpy()
+        idx = np.argsort(-probs)[:topk]
+        return [(int(i), float(probs[i])) for i in idx]
+
+
+class DetectionPredictor:
+    """Letterboxed dense detection (FCOS or RetinaNet and their decoders):
+    (boxes [K, 4] in image pixels, classes [K], scores [K]) above
+    ``score_threshold``, as numpy."""
+
+    def __init__(self, network="resnet50_fcos", decoder="FCOSDecoder",
+                 num_classes=80, input_size=800, trained_model_path="",
+                 decoder_kwargs=None, device="cuda", dtype=torch.bfloat16,
+                 seed=0):
+        self._setup(network, {"num_classes": num_classes}, decoder,
+                    input_size, trained_model_path, decoder_kwargs, device,
+                    dtype, seed)
+
+    def _setup(self, network, model_kwargs, decoder, input_size,
+               trained_model_path, decoder_kwargs, device, dtype, seed):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.model = _served(
+            MODELS.create(network, dtype=_as_dtype(dtype), **model_kwargs),
+            self.device, seed, trained_model_path)
+        self.decoder = DECODERS.create(decoder, **(decoder_kwargs or {}))
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray, score_threshold: float = 0.3):
+        canvas, factor, _ = letterbox(image_rgb, self.input_size, self.device)
+        scores, classes, boxes = self.decoder(self.model(canvas[None]))
+        keep = scores[0] > score_threshold
+        return boxes[0][keep] / factor, classes[0][keep], scores[0][keep]
+
+
+class FaceDetectionPredictor(DetectionPredictor):
+    """RetinaFace: one face class, so no ``num_classes``."""
+
+    def __init__(self, network="resnet50_retinaface",
+                 decoder="RetinaFaceDecoder", input_size=1024,
+                 trained_model_path="", decoder_kwargs=None, device="cuda",
+                 dtype=torch.bfloat16, seed=0):
+        self._setup(network, {}, decoder, input_size, trained_model_path,
+                    decoder_kwargs, device, dtype, seed)
+
+
+class SemanticSegmentationPredictor:
+    """The argmax label map of a square-resized image, resized back
+    nearest: uint8 [h, w]."""
+
+    def __init__(self, network="resnet50_deeplabv3plus", num_classes=150,
+                 input_size=512, trained_model_path="", device="cuda",
+                 dtype=torch.bfloat16, seed=0):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.model = _served(
+            MODELS.create(network, num_classes=num_classes,
+                          dtype=_as_dtype(dtype)),
+            self.device, seed, trained_model_path)
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray) -> np.ndarray:
+        x = square_resize(image_rgb, self.input_size, self.device)
+        mask = torch.argmax(self.model(x), -1)[0].to(torch.uint8)
+        return resize_nearest(mask, image_rgb.shape[:2]).cpu().numpy()
+
+
+class ParsingPredictor(SemanticSegmentationPredictor):
+    """Face and human parsing on the PFAN parsing heads (19 classes unless
+    told otherwise, for human parsing too, as the JAX server builds it)."""
+
+    def __init__(self, network="resnet50_pfan_face_parsing", num_classes=19,
+                 input_size=512, trained_model_path="", device="cuda",
+                 dtype=torch.bfloat16, seed=0):
+        super().__init__(network=network, num_classes=num_classes,
+                         input_size=input_size,
+                         trained_model_path=trained_model_path, device=device,
+                         dtype=dtype, seed=seed)
+
+
+class BinarySegmentationPredictor:
+    """PFAN's sigmoid map (a matting model's fused alpha, its last output)
+    of a square-resized image, resized back bilinearly: f32 [h, w]."""
+
+    def __init__(self, network="resnet50_pfan_segmentation", input_size=832,
+                 trained_model_path="", output_head=None, device="cuda",
+                 dtype=torch.bfloat16, seed=0):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.output_head = output_head
+        self.model = _served(MODELS.create(network, dtype=_as_dtype(dtype)),
+                             self.device, seed, trained_model_path)
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray) -> np.ndarray:
+        out = self.model(square_resize(image_rgb, self.input_size,
+                                       self.device))
+        if isinstance(out, (tuple, list)):  # matting: (global, local, fused)
+            out = out[-1]
+        alpha = F.interpolate(out[..., 0].float()[None],
+                              size=image_rgb.shape[:2], mode="bilinear",
+                              align_corners=False, antialias=False)
+        return alpha[0, 0].cpu().numpy()
+
+
+class HumanMattingPredictor(BinarySegmentationPredictor):
+    """The fused alpha of the PFAN matting model's three heads."""
+
+    def __init__(self, network="resnet50_pfan_matting", input_size=832,
+                 trained_model_path="", device="cuda", dtype=torch.bfloat16,
+                 seed=0):
+        super().__init__(network=network, input_size=input_size,
+                         trained_model_path=trained_model_path, device=device,
+                         dtype=dtype, seed=seed)
+
+
+class InstanceSegmentationPredictor:
+    """Letterboxed SOLOv2 or YOLACT (``num_classes + 1`` with the
+    background for YOLACT): (uint8 [h, w] masks, classes [K], scores [K])
+    above ``score_threshold``."""
+
+    def __init__(self, network="resnet50_solov2", decoder="SOLOV2Decoder",
+                 num_classes=80, input_size=1024, trained_model_path="",
+                 decoder_kwargs=None, device="cuda", dtype=torch.bfloat16,
+                 seed=0):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        classes = num_classes + 1 if "yolact" in network else num_classes
+        self.model = _served(
+            MODELS.create(network, num_classes=classes,
+                          dtype=_as_dtype(dtype)),
+            self.device, seed, trained_model_path)
+        self.decoder = DECODERS.create(decoder, **(decoder_kwargs or {}))
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray, score_threshold: float = 0.3):
+        h, w = image_rgb.shape[:2]
+        s = self.input_size
+        canvas, _, (nh, nw) = letterbox(image_rgb, s, self.device)
+        masks, labels, scores = self.decoder(self.model(canvas[None]))
+        keep = scores[0] > score_threshold
+        kept = masks[0][keep]
+        # the JAX predictor's resize to s x s, crop to (nh, nw) and resize
+        # to (h, w), all nearest, as one gather
+        iy = nearest_indices(kept.shape[1], s)[nearest_indices(nh, h)]
+        ix = nearest_indices(kept.shape[2], s)[nearest_indices(nw, w)]
+        out_masks = [m[np.ix_(iy, ix)].astype(np.uint8) for m in kept]
+        return out_masks, labels[0][keep], scores[0][keep]
+
+
+class TextDetectionPredictor:
+    """Letterboxed DBNet and ``DBNetDecoder``: (polygons [K_i, 2] f32 in
+    image pixels, scores)."""
+
+    def __init__(self, network="resnet50_dbnet", input_size=1024,
+                 trained_model_path="", decoder_kwargs=None, device="cuda",
+                 dtype=torch.bfloat16, seed=0):
+        self.device = resolve_device(device)
+        self.input_size = input_size
+        self.model = _served(MODELS.create(network, dtype=_as_dtype(dtype)),
+                             self.device, seed, trained_model_path)
+        self.decoder = DBNetDecoder(**(decoder_kwargs or {}))
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray):
+        canvas, factor, _ = letterbox(image_rgb, self.input_size, self.device)
+        boxes, scores = self.decoder(self.model(canvas[None]))[0]
+        return [np.asarray(b, np.float32) / factor for b in boxes], scores
+
+
+class TextRecognitionPredictor:
+    """CTC greedy decode of a line resized to ``input_h`` high (at most
+    ``input_w`` wide) on a zero canvas; ``chars`` defaults to printable
+    ASCII."""
+
+    def __init__(self, backbone="resnet50", encoder="BiLSTMEncoder",
+                 chars=None, str_max_length=80, input_h=32, input_w=512,
+                 trained_model_path="", device="cuda", dtype=torch.bfloat16,
+                 seed=0):
+        self.device = resolve_device(device)
+        if chars is None:
+            chars = [chr(c) for c in range(32, 127)]
+        self.converter = CTCTextLabelConverter(chars, str_max_length)
+        self.input_h, self.input_w = input_h, input_w
+        self.model = _served(
+            CTCModel(backbone_type=backbone, encoder_type=encoder,
+                     num_classes=self.converter.num_classes,
+                     dtype=_as_dtype(dtype)),
+            self.device, seed, trained_model_path)
+
+    @torch.no_grad()
+    def __call__(self, image_rgb: np.ndarray) -> str:
+        h, w = image_rgb.shape[:2]
+        nw = min(int(round(w * self.input_h / h)), self.input_w)
+        canvas = torch.zeros(1, self.input_h, self.input_w, 3,
+                             device=self.device)
+        canvas[0, :, :nw] = _resized(image_rgb, (self.input_h, nw),
+                                     self.device)
+        idxs = torch.argmax(self.model(canvas), -1).cpu().numpy()
+        return self.converter.decode(idxs)[0]
+
+
 class SAMPredictor:
-    """Point-, box- and drawn-region-prompted SAM masks.
+    """Point-, box- and drawn-region-prompted SAM masks: one image and one
+    prompt a request, letterboxed, encoded, decoded with the prompt, and
+    the best of the four masks (by predicted IoU) binarised and resized
+    back to the image's shape.
 
     ``network`` names a registered SAM (``sam_b``, ``sam_l``, ``sam_h``).
-    Weights are drawn from a ``torch.Generator`` seeded with ``seed``;
-    ``core.weights.load_jax_params(predictor.model, params)`` or
-    ``predictor.model.load_state_dict`` supply trained ones. Runs on the
-    CUDA card unless ``device="cpu"``.
     """
 
-    def __init__(self, network="sam_b", image_size=1024, device="cuda",
-                 dtype=torch.bfloat16, seed=0, **model_kwargs):
+    def __init__(self, network="sam_b", image_size=1024,
+                 trained_model_path="", device="cuda", dtype=torch.bfloat16,
+                 seed=0, **model_kwargs):
         self.device = resolve_device(device)
         self.image_size = image_size
-        model = MODELS.create(network, image_size=image_size, dtype=dtype,
-                              **model_kwargs)
-        init_params(model, torch.Generator().manual_seed(seed))
-        self.model = model.to(self.device).eval()
+        self.model = _served(
+            MODELS.create(network, image_size=image_size,
+                          dtype=_as_dtype(dtype), **model_kwargs),
+            self.device, seed, trained_model_path)
 
     @torch.no_grad()
     def mask_logits(self, image_rgb: np.ndarray, points_xy=None,
@@ -105,9 +394,7 @@ class SAMPredictor:
     def _binary_mask(self, logits, nhw, hw) -> np.ndarray:
         nh, nw = nhw
         mask = (logits > 0).to(torch.uint8)[:nh, :nw]
-        mask = F.interpolate(mask[None, None].float(), size=hw,
-                             mode="nearest")[0, 0]
-        return mask.to(torch.uint8).cpu().numpy()
+        return resize_nearest(mask, hw).cpu().numpy()
 
     def __call__(self, image_rgb: np.ndarray, points_xy) -> np.ndarray:
         """uint8 {0, 1} mask [h, w] for up to 9 positive clicks (x, y)."""

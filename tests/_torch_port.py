@@ -202,3 +202,83 @@ def assert_updates_agree(got, want, start, opt):
         dg, dw = np.concatenate(flat_g), np.concatenate(flat_w)
         cos = np.dot(dg, dw) / (np.linalg.norm(dg) * np.linalg.norm(dw))
         assert cos > 0.99, cos
+
+
+def load_jax_demo(name: str):
+    """The JAX package's ``demo/<name>.py`` as a module of its own (the
+    ``demo`` folder is no package)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "demo", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_demo_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def skip_jax_init(module):
+    """While the block runs, the functions that ``module`` (the JAX
+    ``demo/predictors.py``) jits return None instead of compiling and
+    running: a predictor built in the block has ``variables`` None, for
+    seeded weights to take their place, and compiles no ``init``. The
+    forward functions it jits compile at their first call after the
+    block."""
+    real = module.jax
+    building = [True]
+
+    class _SkipInitJax:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def jit(fn, **kwargs):
+            compiled = real.jit(fn, **kwargs)
+
+            def call(*args):
+                return None if building[0] else compiled(*args)
+            return call
+
+    module.jax = _SkipInitJax()
+    try:
+        yield
+    finally:
+        building[0] = False
+        module.jax = real
+
+
+def zero_fill(model, generator=None):
+    """A stand-in for the port's ``init_params`` where every weight is
+    loaded after (a zero fill costs nothing beside the truncated normal's
+    draw)."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    return model
+
+
+def jax_variables(params, stats):
+    """A flax variables dict of numpy ``params`` and ``batch_stats`` (or
+    None)."""
+    variables = {"params": jax.tree.map(jnp.asarray, params)}
+    if stats is not None:
+        variables["batch_stats"] = jax.tree.map(jnp.asarray, stats)
+    return variables
+
+
+def seed_both(jax_predictor, port_predictor, seed):
+    """Draws seeded JAX trees of the port model's layout
+    (``export_jax_params``: no JAX ``init`` is traced), loads them into
+    the port predictor's model and sets them as the JAX predictor's
+    variables; returns (params, batch_stats or None)."""
+    from simpleaicv_tpu_torch.core.weights import (export_jax_batch_stats,
+                                                   export_jax_params,
+                                                   load_jax_params)
+    model = port_predictor.model
+    params = random_params(export_jax_params(model), seed)
+    stats = export_jax_batch_stats(model)
+    stats = random_batch_stats(stats, seed + 1) if stats else None
+    load_jax_params(model, params, batch_stats=stats)
+    jax_predictor.variables = jax_variables(params, stats)
+    return params, stats

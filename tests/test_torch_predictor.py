@@ -127,7 +127,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'simpleaicv_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'cv2',\n"
+        "              'simpleaicv_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
