@@ -3263,14 +3263,15 @@ SAM_CLI_TRAIN_CONFIG = '''"""SAM-B on SA-1B as
 experiments/13.interactive_segmentation_training/sa_1b/sam_b/train_config.py
 states it (sam_b at 1024^2 with gradient checkpointing, SAMMultiLevelLoss,
 prompt kinds 0.5 / 0.25 / 0.25, 2 decoder point iterations, AdamW 1e-4 /
-1e-4, CosineLR with a 1-epoch warm-up, batch 8), cut to: synthetic data,
-FakeSAMSegmentationDataset of 32 train 1024^2 images and one named test set
-of 8 under SamResize(1024) (no SA-1B here); 1 epoch (not 100); 8 loader
-workers (not 16)."""
+1e-4, CosineLR with a 1-epoch warm-up, batch 8, SAMSegmentationDataset of
+sa_000020/train under SamResize(1024)), cut to: an SA-1B tree written for
+the run, 32 train 1024^2 JPEGs with compressed-RLE jsons, and one named
+test set of 8 (sa_000021; the recipe has none); 1 epoch (not 100); 8
+loader workers (not 16)."""
 
 from {pkg}.core.registry import LOSSES, MODELS
-from {pkg}.data.interactive_segmentation import (FakeSAMSegmentationDataset,
-                                                 SAMBatchCollater, SamResize)
+from {pkg}.data.datasets import SAMSegmentationDataset
+from {pkg}.data.interactive_segmentation import SAMBatchCollater, SamResize
 
 
 class config:
@@ -3281,10 +3282,12 @@ class config:
                           use_gradient_checkpoint=True)
     train_criterion = LOSSES.create("SAMMultiLevelLoss")
 
-    train_dataset = FakeSAMSegmentationDataset(
-        32, input_image_size, transform=SamResize(input_image_size))
-    test_dataset = {{"synthetic": FakeSAMSegmentationDataset(
-        8, input_image_size, transform=SamResize(input_image_size))}}
+    train_dataset = SAMSegmentationDataset(
+        {root!r}, set_name_list=["sa_000020"], set_type="train",
+        transform=SamResize(input_image_size))
+    test_dataset = {{"sa_000021": SAMSegmentationDataset(
+        {root!r}, set_name_list=["sa_000021"], set_type="train",
+        transform=SamResize(input_image_size))}}
     train_collater = SAMBatchCollater(resize=input_image_size)
     test_collater = SAMBatchCollater(resize=input_image_size,
                                      use_noise_bbox=False)
@@ -3308,15 +3311,16 @@ class config:
 DINO_CLI_TRAIN_CONFIG = '''"""DINO-DETR R50 on COCO as
 experiments/3.detection_training/coco/res50_dinodetr_yoloresize1024/
 train_config.py states it (resnet50_dinodetr, 80 classes, full depth,
-DINODETRLoss, DINODETRDecoder, yolo-style 1024 resize with multi_scale, the
-flip and crop, Normalize, DETRDetectionCollater at 1024, AdamW 1e-4 with the
-backbone at 1e-5 and clipping at 0.1, MultiStepLR at 33), cut to: batch 2
-(not 16, one card); synthetic data, FakeDetectionDataset of 16 train and 8
-test 1024^2 images with up to 20 boxes (no COCO here); 1 epoch (not 39); 4
-loader workers (not 16)."""
+DINODETRLoss, DINODETRDecoder, CocoDetection of train2017 without the
+images with no object and of val2017, yolo-style 1024 resize with
+multi_scale, the flip and crop, Normalize, DETRDetectionCollater at 1024,
+AdamW 1e-4 with the backbone at 1e-5 and clipping at 0.1, MultiStepLR at
+33), cut to: batch 2 (not 16, one card); a COCO tree written for the run,
+16 train and 8 val JPEGs of about 1024 px with up to 20 boxes; 1 epoch
+(not 39); 4 loader workers (not 16)."""
 
 from {pkg}.core.registry import DECODERS, LOSSES, MODELS
-from {pkg}.data.datasets.coco import FakeDetectionDataset
+from {pkg}.data.datasets import CocoDetection
 from {pkg}.data.detection import (DetectionResize, DETRDetectionCollater,
                                   Normalize, RandomCrop,
                                   RandomHorizontalFlip)
@@ -3332,15 +3336,15 @@ class config:
     train_criterion = LOSSES.create("DINODETRLoss", num_classes=num_classes)
     decoder = DECODERS.create("DINODETRDecoder", num_classes=num_classes)
 
-    train_dataset = FakeDetectionDataset(
-        num_samples=16, image_hw=1024, num_classes=num_classes, max_boxes=20,
+    train_dataset = CocoDetection(
+        {root!r}, set_name="train2017", filter_no_object_image=True,
         transform=Compose([
             DetectionResize(resize=input_image_size,
                             resize_type="yolo_style", multi_scale=True),
             RandomHorizontalFlip(prob=0.5), RandomCrop(prob=0.5),
             Normalize()]))
-    test_dataset = FakeDetectionDataset(
-        num_samples=8, image_hw=1024, num_classes=num_classes, max_boxes=20,
+    test_dataset = CocoDetection(
+        {root!r}, set_name="val2017",
         transform=Compose([
             DetectionResize(resize=input_image_size,
                             resize_type="yolo_style"), Normalize()]))
@@ -3364,6 +3368,114 @@ class config:
     print_interval = 2
     use_ema_model = False
 '''
+
+# COCO's 80 category ids (1 to 90 with ten gaps)
+COCO_CATEGORY_IDS = [i for i in range(1, 91)
+                     if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+
+
+def _write_jpeg(path, image):
+    from PIL import Image
+    Image.fromarray(image).save(path, format="JPEG", quality=90)
+
+
+def write_coco_set(root, seed=0):
+    """The dino_cli phase's COCO tree: annotations/instances_{train2017,
+    val2017}.json and images/<set>/*.jpg, 16 train and 8 val images of
+    about 1024 px, each 1 to 20 coloured boxes on noise (the class gives
+    the colour, as FakeDetectionDataset draws them). The first train
+    image gains a crowd annotation and the second a box 0.5 px wide,
+    which ``CocoDetection`` drops. Returns the annotations it keeps, by
+    set."""
+    import os
+    rng = np.random.RandomState(seed)
+    kept = {}
+    for set_name, n in (("train2017", 16), ("val2017", 8)):
+        os.makedirs(os.path.join(root, "images", set_name), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            h, w = (1024, 1024) if i % 3 == 0 else (
+                int(rng.randint(896, 1025)), int(rng.randint(896, 1025)))
+            image = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+            image_id = 100000 * (set_name == "val2017") + 10 * i + 1
+            name = f"{image_id:012d}.jpg"
+            for _ in range(rng.randint(1, 21)):
+                bw, bh = rng.randint(w // 16, w // 3), rng.randint(h // 16,
+                                                                  h // 3)
+                x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                cls = rng.randint(80)
+                image[y:y + bh, x:x + bw] = 0
+                image[y:y + bh, x:x + bw, cls % 3] = 120 + 135 * (cls // 3) // 26
+                anns.append({"id": len(anns) + 1, "image_id": image_id,
+                             "category_id": COCO_CATEGORY_IDS[cls],
+                             "bbox": [float(x), float(y), float(bw),
+                                      float(bh)],
+                             "area": float(bw * bh), "iscrowd": 0})
+            _write_jpeg(os.path.join(root, "images", set_name, name), image)
+            images.append({"id": image_id, "file_name": name, "height": h,
+                           "width": w})
+        kept[set_name] = len(anns)
+        if set_name == "train2017":
+            anns.append({"id": len(anns) + 1, "image_id": images[0]["id"],
+                         "category_id": 1, "bbox": [10.0, 10.0, 50.0, 40.0],
+                         "area": 2000.0, "iscrowd": 1})
+            anns.append({"id": len(anns) + 1, "image_id": images[1]["id"],
+                         "category_id": 1, "bbox": [10.0, 10.0, 0.5, 40.0],
+                         "area": 20.0, "iscrowd": 0})
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        with open(os.path.join(root, "annotations",
+                               f"instances_{set_name}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c, "name": f"class{c}"}
+                                      for c in COCO_CATEGORY_IDS]}, f)
+    return kept
+
+
+def write_sa1b_set(root, seed=0):
+    """The sam_cli phase's SA-1B tree: <root>/sa_000020/train/ 32 and
+    <root>/sa_000021/train/ 8 1024^2 JPEGs, each with 2 to 5 objects
+    (ellipses and rectangles in bright colours on noise) and a same-stem
+    json whose masks are compressed RLE, as real SA-1B writes them.
+    Returns the masks written, by set."""
+    import os
+    from simpleaicv_tpu_torch.data.rle import rle_encode
+    rng = np.random.RandomState(seed)
+    hw = 1024
+    ys, xs = np.mgrid[:hw, :hw]
+    kept = {}
+    for set_name, n in (("sa_000020", 32), ("sa_000021", 8)):
+        d = os.path.join(root, set_name, "train")
+        os.makedirs(d, exist_ok=True)
+        kept[set_name] = 0
+        for i in range(n):
+            image = rng.randint(0, 60, (hw, hw, 3)).astype(np.uint8)
+            annots = []
+            for k in range(rng.randint(2, 6)):
+                cx, cy = rng.randint(hw // 8, 7 * hw // 8, 2)
+                ax, ay = rng.randint(hw // 16, hw // 4, 2)
+                if k % 2:
+                    inside = (((xs - cx) / ax) ** 2
+                              + ((ys - cy) / ay) ** 2) <= 1.0
+                else:
+                    inside = (np.abs(xs - cx) <= ax) & (np.abs(ys - cy) <= ay)
+                image[inside] = rng.randint(120, 256, 3).astype(np.uint8)
+                y0, x0 = np.nonzero(inside.any(1))[0][0], \
+                    np.nonzero(inside.any(0))[0][0]
+                y1, x1 = np.nonzero(inside.any(1))[0][-1], \
+                    np.nonzero(inside.any(0))[0][-1]
+                annots.append({"id": k, "segmentation": rle_encode(inside),
+                               "area": int(inside.sum()),
+                               "bbox": [int(x0), int(y0), int(x1 - x0 + 1),
+                                        int(y1 - y0 + 1)]})
+            stem = f"sa_{seed * 1000 + i:06d}"
+            _write_jpeg(os.path.join(d, stem + ".jpg"), image)
+            with open(os.path.join(d, stem + ".json"), "w") as f:
+                json.dump({"image": {"height": hw, "width": hw,
+                                     "file_name": stem + ".jpg"},
+                           "annotations": annots}, f)
+            kept[set_name] += len(annots)
+    return kept
+
 
 # a test config over the train config's model: its test set (the first of
 # a named set), collater, decoder and classes where it has them
@@ -3420,21 +3532,32 @@ def _loader_rates(work_dir):
 
 
 def _cli_in_process(card, path, train_cli, test_cli, train_config,
-                    resident_ips, kernels):
+                    resident_ips, kernels, write_set=None):
     """Trains ``train_config`` for one epoch through ``train_cli.main`` and
     evaluates its best checkpoint through ``test_cli.main``, in this
     process (the launch counts are this process's), in a scratch directory.
-    Prints the seconds per run, the logged images/s beside the resident
-    step's, peak memory, the eval metrics and the launches; returns the
-    launches. Fails when a CLI raises, writes no best checkpoint or logs no
-    evaluation, or when a kernel of ``kernels`` was not launched or a narrow
-    variant was; with no ``kernels``, when any hand kernel was launched."""
+    With ``write_set``, the config reads a dataset that ``write_set(root)``
+    writes under the scratch directory first (``{root}`` in the config),
+    and the seconds it took are printed. Prints the seconds per run, the
+    logged images/s beside the resident step's, peak memory, the eval
+    metrics and the launches; returns the launches. Fails when a CLI
+    raises, writes no best checkpoint or logs no evaluation, or when a
+    kernel of ``kernels`` was not launched or a narrow variant was; with
+    no ``kernels``, when any hand kernel was launched."""
     import os
     import tempfile
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
+        fields = {"pkg": "simpleaicv_tpu"}
+        if write_set is not None:
+            fields["root"] = os.path.join(work_dir, "data")
+            t0 = time.perf_counter()
+            written = write_set(fields["root"])
+            print(f"{path}: the host wrote the on-disk set in "
+                  f"{time.perf_counter() - t0:.1f} s ({written} annotations "
+                  f"by set)", flush=True)
         for name, text in (("train_config.py", train_config.format(
-                pkg="simpleaicv_tpu")), ("test_config.py", CLI_EVAL_CONFIG)):
+                **fields)), ("test_config.py", CLI_EVAL_CONFIG)):
             with open(os.path.join(work_dir, name), "w") as f:
                 f.write(text)
         argv = ["--work-dir", work_dir]
@@ -3482,20 +3605,50 @@ def _cli_in_process(card, path, train_cli, test_cli, train_config,
     return launches
 
 
+def _checked_sa1b(root):
+    """Writes the SA-1B tree and checks that ``SAMSegmentationDataset``
+    finds every image with its json."""
+    from simpleaicv_tpu_torch.data.datasets import SAMSegmentationDataset
+    written = write_sa1b_set(root)
+    for set_name, want in (("sa_000020", 32), ("sa_000021", 8)):
+        n = len(SAMSegmentationDataset(root, [set_name], "train"))
+        if n != want:
+            raise RuntimeError(f"SAMSegmentationDataset found {n} of the "
+                               f"{want} images of {set_name}")
+    return written
+
+
+def _checked_coco(root):
+    """Writes the COCO tree and checks that ``CocoDetection`` keeps every
+    annotation but the crowd and the degenerate one."""
+    from simpleaicv_tpu_torch.data.datasets import CocoDetection
+    written = write_coco_set(root)
+    for set_name, want in written.items():
+        ds = CocoDetection(root, set_name)
+        ds._load()
+        kept = sum(len(ds.load_annots(i)) for i in ds.image_ids)
+        if kept != want:
+            raise RuntimeError(f"CocoDetection kept {kept} annotations of "
+                               f"{set_name}, not {want}")
+    return written
+
+
 def phase_sam_cli(card, resident_ips):
     """The SAM train and test CLIs on SAM-B 1024^2 (the sa_1b/sam_b
-    recipe's fields, synthetic data)."""
+    recipe's fields) over an SA-1B tree on disk."""
     return _cli_in_process(card, "sam_cli", sam_train_cli, sam_test_cli,
-                           SAM_CLI_TRAIN_CONFIG, resident_ips, SAM_KERNELS)
+                           SAM_CLI_TRAIN_CONFIG, resident_ips, SAM_KERNELS,
+                           write_set=_checked_sa1b)
 
 
 def phase_dino_cli(card, resident_ips):
     """The DETR-family train CLI (with its per-epoch COCO evaluation) and
     the detection test CLI on DINO-DETR R50 1024^2 (the
-    res50_dinodetr_yoloresize1024 recipe's fields, batch 2, synthetic
-    data)."""
+    res50_dinodetr_yoloresize1024 recipe's fields, batch 2) over a COCO
+    tree on disk."""
     return _cli_in_process(card, "dino_cli", det_train_cli, det_test_cli,
-                           DINO_CLI_TRAIN_CONFIG, resident_ips, MSDA_KERNELS)
+                           DINO_CLI_TRAIN_CONFIG, resident_ips, MSDA_KERNELS,
+                           write_set=_checked_coco)
 
 
 # ---- slice 13: DeepLabV3+ and PFAN ----------------------------------------

@@ -6,9 +6,12 @@
 Files are decoded by the port's libjpeg binding (``data/native_io.py``):
 with ``native_decode_hw`` DCT-scaled and stretched to (hw, hw) bilinearly,
 as the JAX reader's native path does (the classification Resize
-geometry); without it at full size. The JAX reader falls back to cv2 for a
-file libjpeg cannot decode (ImageNet's CMYK and PNG-disguised files); the
-port has no cv2, so it raises naming the file.
+geometry); without it at full size. A file libjpeg cannot decode
+(ImageNet's CMYK and PNG-disguised files) falls back, as the JAX reader
+falls back to cv2, to ``data/image_io.py::decode_image`` (OpenCV's
+pixels), stretched with ``data/transforms.py::resize_bilinear`` (the
+port's ``cv2.resize``) where ``native_decode_hw`` is set. A libjpeg
+binding that does not build still raises.
 """
 
 from __future__ import annotations
@@ -19,13 +22,15 @@ from typing import Callable, Optional
 import numpy as np
 
 from .. import native_io
+from ..image_io import decode_image
+from ..transforms import resize_bilinear
 
 __all__ = ["ILSVRC2012Dataset", "decode_file"]
 
 
 def decode_file(path: str, hw: Optional[int] = None) -> np.ndarray:
-    """The JPEG at ``path`` as [h, w, 3] f32 RGB, or stretched to (hw, hw);
-    raises ``ValueError`` naming the file if it does not decode."""
+    """The image at ``path`` as [h, w, 3] f32 RGB, or stretched to (hw,
+    hw); raises ``ValueError`` naming the file if it does not decode."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -33,8 +38,9 @@ def decode_file(path: str, hw: Optional[int] = None) -> np.ndarray:
             return native_io.decode_image(data).astype(np.float32)
         return native_io.decode_resize(data, hw, letterbox=False)
     except ValueError:
-        raise ValueError(f"{path}: libjpeg cannot decode this file (the "
-                         f"port reads JPEG only)") from None
+        pass
+    image = decode_image(data, path).astype(np.float32)
+    return image if hw is None else resize_bilinear(image, hw, hw)
 
 
 class ILSVRC2012Dataset:

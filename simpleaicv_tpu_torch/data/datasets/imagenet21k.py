@@ -4,8 +4,9 @@ reader, and the semantic-tree reader that turns a label into one label per
 hierarchy level of the miil semantic tree (``imagenet21k_miil_tree.pth``,
 read with ``torch.load``), with the per-level normalisation factors that
 ``SemanticSoftmaxLoss`` takes. Images are decoded by the port's libjpeg
-binding (``ilsvrc2012.decode_file``) where the JAX reader calls
-``cv2.imread``; a file that does not decode raises naming it.
+binding, and a file it cannot decode by ``data/image_io.py``
+(``ilsvrc2012.decode_file``), where the JAX reader calls ``cv2.imread``;
+a file that decodes in neither raises naming it.
 """
 
 from __future__ import annotations

@@ -35,9 +35,9 @@ cv2):
   made with cv2 (``tests/test_torch_ocr_raster.py::hershey_digit_table``
   builds it again and compares).
 
-Lines and polygons whose vertices lie outside the image are drawn
-unclipped with the outside pixels dropped; OpenCV clips such a line
-first, which can move its pixels. No caller in the port draws outside.
+Lines and polygons whose vertices lie outside the image are clipped as
+OpenCV clips them (``clipLine``) before they are drawn and filled, as
+COCO and SA-1B polygons on an image's border need.
 """
 
 from __future__ import annotations
@@ -86,10 +86,59 @@ def _put_pixels(img, ys, xs, value):
     img[ys[keep], xs[keep]] = value
 
 
+def _outside(h, w, *pts):
+    return any(not (0 <= x < w and 0 <= y < h) for x, y in pts)
+
+
+def _clip_line(h, w, p0, p1):
+    """OpenCV's ``clipLine`` of the segment p0-p1 to the image, in its
+    order of steps (a y side first, then an x side; the second point's
+    step reads the first's clipped x): (inside, clipped p0, clipped p1).
+    The points are moved even when the segment misses the image."""
+    (x1, y1), (x2, y2) = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line(img, p0, p1, value):
+    """OpenCV's ``Line`` (8-connected): a segment with an end outside the
+    image is clipped first, and one that misses it draws nothing."""
+    h, w = img.shape[:2]
+    if _outside(h, w, p0, p1):
+        inside, p0, p1 = _clip_line(h, w, p0, p1)
+        if not inside:
+            return
+    ys, xs = _line_pixels(p0, p1)
+    _put_pixels(img, ys, xs, value)
+
+
 def _outline(img, pts, value):
     for i in range(len(pts)):
-        ys, xs = _line_pixels(pts[i - 1], pts[i])
-        _put_pixels(img, ys, xs, value)
+        _line(img, pts[i - 1], pts[i], value)
 
 
 def polylines(img, pts, value):
@@ -99,36 +148,54 @@ def polylines(img, pts, value):
     return img
 
 
+def _poly_edges(h, w, pts):
+    """The edges of OpenCV 5's ``fillPoly`` (``LINE_8``, shift 0): for
+    each non-horizontal edge its rows [y0, y1), its 16.16 x at row y0 and
+    its 16.16 step a row (the slope truncated toward 0). An edge with an
+    end outside the image runs along its clipped segment (``clipLine``),
+    at the clipped x where that segment is flat, over the rows of the
+    unclipped edge."""
+    edges = []
+    for i in range(len(pts)):
+        (x0, y0), (x1, y1) = pts[i - 1], pts[i]
+        if y0 == y1:
+            continue
+        top = min(y0, y1)
+        c0, c1 = (x0 << _SHIFT, y0), (x1 << _SHIFT, y1)
+        if _outside(h, w, (x0, y0), (x1, y1)):
+            _, t0, t1 = _clip_line(h, w, (x0, y0), (x1, y1))
+            if t0[1] == t1[1]:
+                edges.append((top, max(y0, y1), t0[0] << _SHIFT, 0))
+                continue
+            c0, c1 = (t0[0] << _SHIFT, t0[1]), (t1[0] << _SHIFT, t1[1])
+        num, den = c1[0] - c0[0], c1[1] - c0[1]
+        dx = abs(num) // abs(den) * (1 if (num < 0) == (den < 0) else -1)
+        c = c0 if y0 < y1 else c1
+        edges.append((top, max(y0, y1), c[0] + (top - c[1]) * dx, dx))
+    return edges
+
+
 def fill_poly(img, pts, value):
     """``cv2.fillPoly(img, [pts], value)`` (``LINE_8``, shift 0) in place on
-    a 2-D array; ``pts`` [N, 2] int. Each edge's outline pixels, then the
-    even-odd scanlines: an edge between rows y0 < y1 crosses rows y0 to
-    y1 - 1 at x = (x0 << 16) + (y - y0) * dx, dx its 16.16 slope
-    truncated toward 0; each row's sorted crossings pair into spans from
-    ceil(left) to floor(right). OpenCV 5 rounds its spans otherwise in
-    places, but only on pixels its outline covers too: the union is the
-    same (held against cv2 on random polygons)."""
-    pts = np.asarray(pts, np.int64).reshape(-1, 2)
-    n = len(pts)
-    if n == 0:
+    a 2-D array; ``pts`` [N, 2] int. Each edge's outline pixels
+    (``_line``), then the even-odd scanlines of OpenCV's
+    ``FillEdgeCollection``: each row's sorted edge crossings pair into
+    spans from ceil(left) to floor(right), clipped to the image. The
+    edges are OpenCV's (``_poly_edges``), clipped where a vertex lies
+    outside the image. OpenCV 5 rounds its spans otherwise in places,
+    but only on pixels its outline covers too: the union is the same
+    (held against cv2 on random polygons, inside the image and across
+    its border)."""
+    pts = [(int(x), int(y)) for x, y in
+           np.asarray(pts, np.int64).reshape(-1, 2)]
+    if not pts:
         return img
     _outline(img, pts, value)
     h, w = img.shape[:2]
-    p0, p1 = np.roll(pts, 1, axis=0), pts
-    keep = p0[:, 1] != p1[:, 1]
-    if keep.sum() < 2:
+    edges = _poly_edges(h, w, pts)
+    if len(edges) < 2:
         return img
-    p0, p1 = p0[keep], p1[keep]
-    ex0 = p0[:, 0] << _SHIFT
-    ex1 = p1[:, 0] << _SHIFT
-    ddy = p1[:, 1] - p0[:, 1]
-    num = ex1 - ex0
-    # C's division truncates toward zero
-    slope = np.abs(num) // np.abs(ddy) * np.sign(num) * np.sign(ddy)
-    down = p0[:, 1] < p1[:, 1]
-    top = np.where(down, p0[:, 1], p1[:, 1])
-    bottom = np.where(down, p1[:, 1], p0[:, 1])
-    x_top = np.where(down, ex0, ex1)
+    top, bottom, x_top, slope = (np.array(v, np.int64) for v in zip(*edges))
     counts = bottom - top
     edge = np.repeat(np.arange(len(top)), counts)
     start = np.repeat(np.cumsum(counts) - counts, counts)

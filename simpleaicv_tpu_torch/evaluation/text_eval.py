@@ -4,8 +4,9 @@ one to an unused ground-truth polygon by IoU over the two polygons
 rasterised with ``data.raster.fill_poly`` (OpenCV's ``fillPoly``), at IoU
 0.5; a prediction matched to an ignored ground truth counts neither way.
 
-The JAX module's ``evaluate_widerface_style`` is not ported: no CLI of
-either package calls it.
+``evaluate_widerface_style``: the WIDER FACE easy, medium and hard APs,
+each the VOC AP of ``data/datasets/voc.py`` over one subset's results,
+and their mean.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ..data.datasets.voc import evaluate_voc_detection
 from ..data.raster import fill_poly
 
-__all__ = ["evaluate_text_detection"]
+__all__ = ["evaluate_text_detection", "evaluate_widerface_style"]
 
 
 def _poly_iou(p1, p2):
@@ -66,3 +68,16 @@ def evaluate_text_detection(per_image_results: Sequence[dict],
     f1 = 2 * precision * recall / max(precision + recall, 1e-4)
     return {"precision": precision, "recall": recall, "f1": f1,
             "key_metric": f1}
+
+
+def evaluate_widerface_style(per_subset_results: dict,
+                             iou_threshold: float = 0.5) -> dict:
+    """{subset: per-image results as ``evaluate_voc_detection`` takes them}
+    -> {"<subset>_ap": AP in 0..1, ..., "key_metric": their mean}."""
+    out = {}
+    for subset, results in per_subset_results.items():
+        stats = evaluate_voc_detection(results, num_classes=1,
+                                       iou_threshold=iou_threshold)
+        out[f"{subset}_ap"] = stats["mAP"] / 100.0
+    out["key_metric"] = float(np.mean(list(out.values())))
+    return out

@@ -282,3 +282,28 @@ def seed_both(jax_predictor, port_predictor, seed):
     load_jax_params(model, params, batch_stats=stats)
     jax_predictor.variables = jax_variables(params, stats)
     return params, stats
+
+
+def assert_samples_equal(got, want, where=""):
+    """A reader's sample against the JAX reader's: the same keys, and each
+    value equal, arrays in dtype, shape and every element."""
+    assert list(got) == list(want), (where, list(got), list(want))
+    for key in want:
+        a, b = got[key], want[key]
+        if isinstance(b, (list, tuple)):
+            assert isinstance(a, (list, tuple)) and len(a) == len(b), (
+                where, key)
+            for i, (x, y) in enumerate(zip(a, b)):
+                assert_values_equal(x, y, f"{where} {key}[{i}]")
+        else:
+            assert_values_equal(a, b, f"{where} {key}")
+
+
+def assert_values_equal(a, b, where=""):
+    if isinstance(b, np.ndarray) or isinstance(a, np.ndarray):
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray), where
+        assert a.dtype == b.dtype and a.shape == b.shape, (
+            where, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)

@@ -78,15 +78,22 @@ def test_an_unported_registry_name_raises_missing_counterpart(tmp_path):
         load_config(str(tmp_path))
 
 
-def test_imagenet_resnet50_names_the_missing_dataset():
+def test_imagenet_resnet50_names_the_missing_dataset(tmp_path):
     """The ImageNet config loads since the ILSVRC2012 reader is ported (it
-    reads nothing when it is built); a COCO config still names the reader
-    it lacks."""
+    reads nothing when it is built), and so does a COCO config since the
+    COCO reader is (its model built on the meta device); a config that
+    imports a reader module the port still lacks names it."""
     cfg = load_config(str(EXP / "imagenet/resnet50"))
     assert type(cfg.train_dataset).__name__ == "ILSVRC2012Dataset"
-    with pytest.raises(MissingCounterpartError, match="CocoDetection"):
-        load_config(str(EXP.parent / "3.detection_training/coco/"
-                         "res50_fcos_retinaresize800"))
+    with torch.device("meta"):
+        cfg = load_config(str(EXP.parent / "3.detection_training/coco/"
+                               "res50_fcos_retinaresize800"))
+    assert type(cfg.train_dataset).__name__ == "CocoDetection"
+    (tmp_path / "train_config.py").write_text(
+        "from simpleaicv_tpu.data.mosaic import MosaicResizeDetection\n")
+    with pytest.raises(MissingCounterpartError,
+                       match="MosaicResizeDetection"):
+        load_config(str(tmp_path))
 
 
 def test_a_failure_inside_a_counterpart_is_not_masked(tmp_path):

@@ -15,8 +15,11 @@ OpenCV on the CPU:
   (``csrc/libsimpleaicv_io.so``), and, where no DCT scale applies, within
   1e-3 of OpenCV's decode and f32 ``cv2.resize`` (read: 1.9e-4);
 * the ILSVRC2012 reader's class ids and images against the JAX reader's,
-  and a PNG in the folder raising with its name (the JAX reader decodes it
-  with cv2);
+  a PNG in the folder decoded as the JAX reader decodes it with cv2, and
+  a file that decodes in neither raising with its name;
+* the ILSVRC2012 reader's fallback for a PNG named .JPEG and CMYK JPEGs,
+  which libjpeg refuses: equal to the JAX reader's cv2 decode, and its
+  stretch within 1e-3 of ``cv2.resize``;
 * the ImageNet-21K readers on a semantic tree written with ``torch.save``:
   the hierarchy levels, normalisation factors and semantic labels equal to
   the JAX reader's, and the collater's batch;
@@ -33,6 +36,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from simpleaicv_tpu.data import native_io as jax_native_io
 from simpleaicv_tpu.data.datasets import cifar as jax_cifar
@@ -53,6 +57,7 @@ SLICE_MODULES = [
     "data/native_io.py", "data/host_build.py", "data/packed.py",
     "data/packed_tasks.py", "data/datasets/cifar.py",
     "data/datasets/ilsvrc2012.py", "data/datasets/imagenet21k.py",
+    "data/image_io.py",
     "tools/train_imagenet21k_classification.py",
     "tools/test_imagenet21k_classification.py",
     "tools/prepare_dataset.py"]
@@ -214,8 +219,54 @@ def test_ilsvrc2012_reader_matches_jax(tmp_path):
                                                        letterbox=False))
     _image_tree(tmp_path / "val", ["n01"], png=True)
     reader = ILSVRC2012Dataset(str(tmp_path), "val")
+    np.testing.assert_array_equal(
+        reader[2]["image"],
+        jax_ilsvrc.ILSVRC2012Dataset(str(tmp_path), "val")[2]["image"])
+    (tmp_path / "val" / "n01" / "z.png").write_bytes(b"neither")
     with pytest.raises(ValueError, match="z.png"):
         reader[2]
+
+
+def test_ilsvrc2012_falls_back_where_libjpeg_refuses(tmp_path):
+    """ImageNet's files that libjpeg does not decode, a PNG named .JPEG
+    and CMYK JPEGs: the port falls back to ``data/image_io.py`` as the JAX
+    reader falls back to cv2. At full size the images equal the JAX
+    reader's; stretched by ``native_decode_hw``, within 1e-3 of its f32
+    ``cv2.resize`` (the port's bilinear resize; read: 2e-4)."""
+    rng = np.random.RandomState(5)
+    d = tmp_path / "train" / "n01440764"
+    os.makedirs(d)
+    img = cv2.GaussianBlur((rng.rand(37, 53, 3) * 255).astype(np.uint8),
+                           (5, 5), 1.5)
+    ok, png = cv2.imencode(".png", img)
+    assert ok
+    (d / "n01440764_0.JPEG").write_bytes(png.tobytes())
+    for i, q in ((1, 90), (2, 75)):
+        Image.fromarray(img[:, :, ::-1]).convert("CMYK").save(
+            d / f"n01440764_{i}.JPEG", format="JPEG", quality=q)
+    cv2.imwrite(str(d / "n01440764_3.JPEG"), img)
+    for i in range(3):
+        with open(d / f"n01440764_{i}.JPEG", "rb") as f:
+            with pytest.raises(ValueError, match="not a decodable JPEG"):
+                native_io.decode_image(f.read())
+    mine = ILSVRC2012Dataset(str(tmp_path), "train")
+    theirs = jax_ilsvrc.ILSVRC2012Dataset(str(tmp_path), "train")
+    assert len(mine) == len(theirs) == 4
+    for i in range(3):
+        a, b = mine[i], theirs[i]
+        assert a["label"] == b["label"] == 0
+        assert a["image"].dtype == b["image"].dtype == np.float32
+        np.testing.assert_array_equal(a["image"], b["image"])
+    for hw in (24, 80):
+        mine = ILSVRC2012Dataset(str(tmp_path), "train",
+                                 native_decode_hw=hw)
+        theirs = jax_ilsvrc.ILSVRC2012Dataset(str(tmp_path), "train",
+                                              native_decode_hw=hw)
+        for i in range(3):
+            a, b = mine[i]["image"], theirs[i]["image"]
+            assert a.shape == b.shape == (hw, hw, 3)
+            assert a.dtype == b.dtype == np.float32
+            assert np.abs(a - b).max() <= 1e-3
 
 
 def _tree_file(path):

@@ -2,7 +2,8 @@
 geometry rebuilt without cv2) against cv2 on seeded random polygons
 (convex and concave), random masks and the fake OCR datasets' samples.
 
-Exact, as integers: the filled, outlined and contour-filled masks, the
+Exact, as integers: the filled, outlined and contour-filled masks (also
+of polygons across the image's border, which OpenCV clips), the
 elliptic elements (radii 1 to 60), the eroded and dilated masks (radii 1
 to 12), the contours' vertices and their order, the convex hulls and the
 rendered digits (and the committed glyph table, which
@@ -122,6 +123,26 @@ def test_fill_poly_and_polylines_equal_opencv():
     want = cv2.fillPoly(np.ones((30, 30), np.float32), [p], 0.0)
     assert np.array_equal(raster.fill_poly(np.ones((30, 30), np.float32), p,
                                            0.0), want)
+
+
+def test_fill_poly_and_polylines_across_the_border_equal_opencv():
+    """Polygons with vertices outside the image, as COCO and SA-1B
+    polygons on an image's border have: OpenCV clips each edge
+    (``clipLine``) before it draws and fills."""
+    rng = np.random.RandomState(1)
+    for t in range(900):
+        h, w = rng.randint(20, 90, 2)
+        n = rng.randint(3, 12)
+        spread = (0.5, 3.0, 0.1)[t % 3]
+        p = np.stack([rng.uniform(-spread, 1 + spread, n) * w,
+                      rng.uniform(-spread, 1 + spread, n) * h], 1)
+        p = p.astype(np.float32).astype(np.int32)
+        want = cv2.fillPoly(np.zeros((h, w), np.uint8), [p], 1)
+        got = raster.fill_poly(np.zeros((h, w), np.uint8), p, 1)
+        assert np.array_equal(got, want), (h, w, p.tolist())
+        want = cv2.polylines(np.zeros((h, w), np.uint8), [p], True, 1)
+        got = raster.polylines(np.zeros((h, w), np.uint8), p, 1)
+        assert np.array_equal(got, want), (h, w, p.tolist())
 
 
 def test_elements_erode_and_dilate_equal_opencv():
