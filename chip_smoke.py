@@ -2,6 +2,12 @@
 """Drives the PyTorch port (``simpleaicv_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases training,seg_train [--tree DIR]
+
+The second form runs only the named phases (``phase_<name>``, each given
+the card alone) after the device phase, in a new process from ``DIR``'s
+``chip_smoke.py`` and package (default: this checkout), and prints no
+kernels line: two trees' phases compared in one run on one card.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: requires a CUDA card and prints its name and power limit;
@@ -194,6 +200,20 @@ Phases, each of which raises (exit code 1) on failure:
      against the CPU's;
  44. ocr_cli: fake_synthetic/resnet18_dbnet and resnet18_ctc through the
      OCR train and test CLIs in this process.
+ 45. parallel: a world of ``min(cards, 4)`` ranks under NCCL through the
+     port's launcher (one card: a world of one in this process through a
+     ``FileStore``): three ViT-B/16 b128 flash steps through the
+     distributed engine, each rank its rows (in a world of one equal bit
+     for bit to the same steps without a process group, which run twice
+     to show they repeat; K1-K3 12 launches a step each); one epoch of
+     ViT-B/16 b128 flash (3 steps and a 128-image evaluation) through the
+     classification train CLI's ``Trainer`` with both checkpoints (K1-K3
+     12 a step, K1 12 more for the evaluation); ``pipeline_vit``
+     on ViT-B/16 with flash, eval b128, 4 microbatches over ``world``
+     stages against the plain forward (K1 12 a microbatch over all
+     stages), ring attention at [2, 12, 4096, 64] f32 over the world
+     against full attention with dq, dk, dv, and one FSDP2 step of the
+     multichip check's ResNet-18 against the plain step.
 Phases 23-34, 37, 40 and 41 print images/s, ms a step, peak memory, the
 idle share and the top rows of one profiled step where they train on a
 resident batch. The paths of phases 13-22, 24-27, 31 and 33-44 and the
@@ -6524,6 +6544,392 @@ def _slice_19(card, resident_ips):
     return paths
 
 
+# ---------------------------------------------------------------- parallel
+
+PAR_BATCH, PAR_STEPS, PAR_MICRO = 128, 3, 4
+PAR_RING = (2, 12, 4096, 64)
+PAR_OPT = OptimizerConfig(
+    name="AdamW", lr=1e-3, weight_decay=0.05,
+    no_weight_decay_layer_name_list=("position_encoding", "cls_token"),
+    lr_layer_decay=0.75, lr_layer_decay_block_nums=12, block_name="blocks")
+PAR_SCHED = SchedulerConfig("CosineLR", lr=1e-3, epochs=100,
+                            warm_up_epochs=5, min_lr=1e-6)
+
+
+def _par_vit_steps(rows):
+    """``PAR_STEPS`` engine steps of ViT-B/16 (flash, the training phase's
+    recipe) on rows ``rows`` of a seeded global batch of ``PAR_BATCH``:
+    (model, losses, K1-K3 launches, ms a step after the first)."""
+    model = _vit_b16(use_flash_attention=True, seed=3)
+    opt, _ = build_optimizer(PAR_OPT, PAR_SCHED, 4, model)
+    state = create_train_state(model, opt, EngineConfig())
+    step = make_train_step(make_loss_fn(LOSSES.create("OneHotLabelCELoss")),
+                           EngineConfig())
+    g = torch.Generator(device="cuda").manual_seed(4)
+    image = torch.randn(PAR_BATCH, 224, 224, 3, generator=g, device="cuda")
+    labels = torch.randint(0, 1000, (PAR_BATCH,), generator=g, device="cuda")
+    rows = torch.as_tensor(rows, device="cuda")
+    batch = {"image": image[rows],
+             "label": torch.nn.functional.one_hot(labels[rows], 1000).float()}
+    _reset_launches()
+    losses = []
+    for i in range(PAR_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch, seed=0)
+        losses.append(metrics["loss"].item())
+    step_ms = (time.perf_counter() - t0) * 1e3 / (PAR_STEPS - 1)
+    return (model, losses, {k: fa.KERNEL_LAUNCHES[k] for k in TRAIN_KERNELS},
+            step_ms)
+
+
+PAR_TRAINER_CONFIG = '''"""ViT-B/16 as
+experiments/0.classification_training/imagenet/vit_base_patch16/train_config.py
+states it (global pool, drop-path 0.1, bf16, AdamW 1e-3 with layer-wise
+decay 0.75 over 12 blocks and no decay on the embeddings, CosineLR with 5
+warm-up epochs), with flash attention, cut to: batch {batch}; one epoch of
+{n} synthetic 224^2 images of 1000 classes (fake_synthetic's
+FakeClassificationDataset: no ImageNet here); CE on integer labels (no
+mixup collater); {batch} test images; no EMA. The mesh is the config's
+default: every rank on ``data``."""
+
+from simpleaicv_tpu.core.registry import BACKBONES, LOSSES
+from simpleaicv_tpu.data.collater import ClassificationCollater
+from simpleaicv_tpu.data.datasets import FakeClassificationDataset
+
+
+class config:
+    network = "vit_base_patch16"
+    num_classes = 1000
+    input_image_size = 224
+    model = BACKBONES.create(network, image_size=input_image_size,
+                             num_classes=num_classes, global_pool=True,
+                             drop_path_prob=0.1, use_flash_attention=True)
+    train_criterion = LOSSES.create("CELoss")
+    test_criterion = LOSSES.create("CELoss")
+    train_dataset = FakeClassificationDataset(
+        num_samples={n}, image_hw=224, num_classes=num_classes)
+    test_dataset = FakeClassificationDataset(
+        num_samples={batch}, image_hw=224, num_classes=num_classes)
+    train_collater = ClassificationCollater()
+    test_collater = ClassificationCollater()
+    seed = 0
+    batch_size = {batch}
+    num_workers = 8
+    optimizer = ("AdamW", {{"lr": 1e-3, "global_weight_decay": False,
+                           "weight_decay": 0.05, "beta1": 0.9,
+                           "beta2": 0.999,
+                           "no_weight_decay_layer_name_list": [
+                               "position_encoding", "cls_token"],
+                           "lr_layer_decay": 0.75,
+                           "lr_layer_decay_block_nums": 12,
+                           "block_name": "blocks"}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 5, "min_lr": 1e-6}})
+    epochs = 1
+    print_interval = 1
+    use_ema_model = False
+'''
+
+
+def _par_trainer(work_dir):
+    """The classification train CLI (``Trainer``: ``initialize_multihost``,
+    the mesh, each rank's rows, the engine, the evaluation summed over the
+    ranks, the best epoch taken from rank 0, whole-tensor checkpoints) on
+    ``PAR_TRAINER_CONFIG`` at ViT-B/16's full width, in this rank's process
+    group. Returns (seconds, K1-K3 launches, the logged losses, the best
+    metric)."""
+    import os
+    os.makedirs(work_dir, exist_ok=True)
+    with open(os.path.join(work_dir, "train_config.py"), "w") as f:
+        f.write(PAR_TRAINER_CONFIG.format(batch=PAR_BATCH,
+                                          n=PAR_BATCH * PAR_STEPS))
+    t0 = time.perf_counter()
+    _reset_launches()
+    best = cls_train_cli.main(["--work-dir", work_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fa.KERNEL_LAUNCHES[k] for k in TRAIN_KERNELS}
+    _wide_kernels_only("the Trainer's ViT-B/16 epoch")
+    with open(os.path.join(work_dir, "log", "train.log")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(r" loss (\S+) lr ", log)]
+    for name in ("checkpoints/best", "checkpoints/latest/1.pt"):
+        if not os.path.exists(os.path.join(work_dir, name)):
+            raise RuntimeError(f"the Trainer wrote no {name}")
+    return seconds, launches, losses, best
+
+
+def _par_resnet(rank, world, sharded):
+    """One engine step of the multichip check's first leg (ResNet-18, f32,
+    64^2, global batch 16, SGD, accumulation 2, EMA) on this rank's rows,
+    the model under FSDP2's ``fully_shard`` when ``sharded``: every
+    parameter sharded on its first dim over the world, through the two
+    arguments the Trainer's ``fsdp_shard`` passes (``shard_placement_fn``,
+    ``ignored_params``). ``fsdp_shard`` itself is not called: on a mesh
+    whose ``fsdp`` dim is 1 (one card) its rule shards no parameter, and
+    FSDP2 would then hold every parameter as an ignored, plain tensor.
+    Returns (loss, whole parameters)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    from simpleaicv_tpu_torch.parallel import mesh as pmesh
+    model = init_params(BACKBONES.create("resnet18", num_classes=10,
+                                         dtype=torch.float32),
+                        torch.Generator().manual_seed(5)).cuda()
+    if sharded:
+        fully_shard(model, mesh=pmesh.make_mesh(
+            pmesh.MeshConfig(data=1, fsdp=world)), ignored_params=set(),
+            shard_placement_fn=lambda p: Shard(0))
+    cfg = EngineConfig(accumulation_steps=2, use_ema=True, ema_decay=0.9)
+    opt, _ = build_optimizer(OptimizerConfig(name="SGD", lr=0.01,
+                                             momentum=0.9,
+                                             weight_decay=1e-4),
+                             SchedulerConfig("CosineLR", lr=0.01, epochs=10),
+                             10, model)
+    state = create_train_state(model, opt, cfg)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    image = torch.randn(16, 64, 64, 3, generator=g, device="cuda")
+    label = torch.randint(0, 10, (16,), generator=g, device="cuda")
+    rows = torch.as_tensor(pmesh.rows_of(np.arange(16), rank, world, 2),
+                           device="cuda")
+    state, metrics = make_train_step(make_loss_fn(LOSSES.create("CELoss")),
+                                     cfg)(state, {"image": image[rows],
+                                                  "label": label[rows]})
+    return metrics["loss"].item(), {
+        n: pmesh.full_tensor(p).detach().clone()
+        for n, p in model.named_parameters()}
+
+
+def _parallel_rank(ref, ref_resnet, work_dir):
+    """The parallel phase on this rank of the world (a process group is
+    up): ViT-B/16 steps through the distributed engine against ``ref``
+    (the same steps without a process group), the Trainer's epoch through
+    the train CLI (in ``work_dir``), ``pipeline_vit`` against the plain
+    forward, ring attention against full attention, and one FSDP2 step of
+    ResNet-18 against ``ref_resnet`` (the plain step). Returns numbers and
+    launch counts."""
+    from simpleaicv_tpu_torch.parallel import mesh as pmesh
+    from simpleaicv_tpu_torch.parallel.pipeline import make_pipeline_mesh
+    from simpleaicv_tpu_torch.parallel.pipeline_vit import (
+        make_vit_pipeline_apply, vit_stage_params)
+    from simpleaicv_tpu_torch.parallel.ring_attention import (
+        ring_attention_local)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = pmesh.rank(), pmesh.world_size()
+    out = {"rank": rank, "world": world,
+           "device": str(torch.device("cuda", torch.cuda.current_device()))}
+
+    # ViT-B/16: each rank its rows of the global batch, one step each time
+    t0 = time.perf_counter()
+    model, losses, launches, out["step_ms"] = _par_vit_steps(
+        pmesh.rows_of(np.arange(PAR_BATCH), rank, world))
+    _wide_kernels_only("the distributed ViT train step")
+    out["vit_s"] = time.perf_counter() - t0
+    out["vit_launches"] = launches
+    out["losses"] = losses
+    params = dict(model.named_parameters())
+    if world == 1:
+        out["bit_equal"] = losses == ref["losses"] and all(
+            torch.equal(params[n], t) for n, t in ref["params"].items())
+    diffs = [((params[n].double() - t.to(params[n].device).double()).norm()
+              / t.double().norm().clamp(min=1e-30)).item()
+             for n, t in ref["params"].items()]
+    out["vit_param_rel"] = max(diffs)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # the Trainer through the train CLI, at full width
+    (out["trainer_s"], out["trainer_launches"], out["trainer_losses"],
+     out["trainer_best"]) = _par_trainer(work_dir)
+    torch.cuda.empty_cache()
+    model = _vit_b16(use_flash_attention=True, seed=3).cuda()
+
+    # the pipelined ViT (eval) over the world's stages against the forward
+    mesh = make_pipeline_mesh(world)
+    stage = vit_stage_params(model, world, mesh)
+    apply = make_vit_pipeline_apply(model, mesh, n_micro=PAR_MICRO)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    image = torch.randn(PAR_BATCH, 224, 224, 3, generator=g, device="cuda")
+    with torch.no_grad():
+        model.eval()
+        want = model(image).float()
+        _reset_launches()
+        got = apply(stage, image).float()
+        out["pipe_launches"] = {k: fa.KERNEL_LAUNCHES[k]
+                                for k in TRAIN_KERNELS}
+        # a second, warm call for its time (and the same bits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = apply(stage, image).float()
+        torch.cuda.synchronize()
+        out["pipe_ms"] = (time.perf_counter() - t0) * 1e3
+        out["pipe_repeat"] = bool(torch.equal(again, got))
+    _wide_kernels_only("the pipelined ViT")
+    out["pipe_rel"] = ((got - want).abs().max()
+                       / want.abs().max()).item()
+    del model, stage, apply
+    torch.cuda.empty_cache()
+
+    # ring attention over the world against full attention, with gradients
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, dout = (torch.randn(PAR_RING, generator=g, device="cuda")
+                     for _ in range(4))
+    n_local = PAR_RING[2] // world
+    part = slice(rank * n_local, (rank + 1) * n_local)
+    for _ in range(2):  # the second, warm, is timed and kept
+        ins = [t[:, :, part].clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention_local(*ins)
+        o.backward(dout[:, :, part])
+        torch.cuda.synchronize()
+        out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    scores = torch.einsum("bhnd,bhmd->bhnm", full[0],
+                          full[1]) * PAR_RING[3]**-0.5
+    want = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(scores, -1),
+                        full[2])
+    want.backward(dout)
+    del scores
+    out["ring_rel"] = max(
+        ((a - b[:, :, part]).abs().max() / b.abs().max()).item()
+        for a, b in [(o.detach(), want.detach())]
+        + [(t.grad, f.grad) for t, f in zip(ins, full)])
+    del q, k, v, dout, ins, full, o, want
+    torch.cuda.empty_cache()
+
+    # one FSDP2 step of ResNet-18 against the plain step
+    loss, tensors = _par_resnet(rank, world, sharded=True)
+    out["fsdp_loss"] = loss
+    ref_loss, ref_tensors, start = ref_resnet
+    out["fsdp_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+    out["fsdp_update_rel"] = max(
+        ((tensors[n] - ref_tensors[n]).double().norm()
+         / (ref_tensors[n] - start[n]).double().norm().clamp(min=1e-30))
+        .item() for n in tensors)
+    return out
+
+
+def phase_parallel(card):
+    """The parallel layer on the card: a world of one process a card (at
+    most 4) under NCCL through the port's launcher (a world of one runs in
+    this process through a ``FileStore``). Returns {path: launches}."""
+    import os
+    import tempfile
+    from simpleaicv_tpu_torch.parallel import multihost
+    world = min(torch.cuda.device_count(), 4)
+    print(f"parallel: world {world}, backend nccl, card {card}", flush=True)
+    # the same steps without a process group, twice: the reference, and
+    # the control that shows two such runs give the same bits
+    model, ref_losses, _, ref_ms = _par_vit_steps(np.arange(PAR_BATCH))
+    ref = {"losses": ref_losses,
+           "params": {n: p.detach().clone()
+                      for n, p in model.named_parameters()}}
+    del model
+    model, losses, _, _ = _par_vit_steps(np.arange(PAR_BATCH))
+    if losses != ref_losses or not all(
+            torch.equal(p, ref["params"][n])
+            for n, p in model.named_parameters()):
+        raise RuntimeError("two runs of the same steps differ")
+    del model
+    start = {n: p.detach().clone().cuda() for n, p in init_params(
+        BACKBONES.create("resnet18", num_classes=10, dtype=torch.float32),
+        torch.Generator().manual_seed(5)).named_parameters()}
+    ref_loss, ref_tensors = _par_resnet(0, 1, sharded=False)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        if world == 1:
+            results = [multihost.run_here(
+                _parallel_rank, work, ref, (ref_loss, ref_tensors, start),
+                os.path.join(work, "trainer"), backend="nccl",
+                timeout=120)]
+        else:
+            cpu = lambda d: {n: t.cpu() for n, t in d.items()}  # noqa: E731
+            results = multihost.run_world(
+                "chip_smoke:_parallel_rank", world, work,
+                ({"losses": ref_losses, "params": cpu(ref["params"])},
+                 (ref_loss, cpu(ref_tensors), cpu(start)),
+                 os.path.join(work, "trainer")),
+                backend="nccl", timeout=300)
+    for r in results:
+        print(f"parallel rank {r['rank']} of {r['world']} on {r['device']}: "
+              f"ViT-B/16 b{PAR_BATCH} flash, {PAR_STEPS} distributed engine "
+              f"steps in {r['vit_s']:.2f} s with the model's build, "
+              f"{r['step_ms']:.2f} ms a step after the first ({ref_ms:.2f} "
+              f"without a process group), losses "
+              f"{' '.join(f'{v:.5f}' for v in r['losses'])} (without a "
+              f"process group {' '.join(f'{v:.5f}' for v in ref_losses)}), "
+              f"largest parameter relative difference "
+              f"{r['vit_param_rel']:.3g}"
+              + (f", bit for bit equal: {r['bit_equal']}"
+                 if "bit_equal" in r else "")
+              + f"; K1-K3 launches {r['vit_launches']}", flush=True)
+        print(f"parallel rank {r['rank']}: the train CLI's Trainer, "
+              f"ViT-B/16 b{PAR_BATCH} flash, one epoch of {PAR_STEPS} steps "
+              f"and a {PAR_BATCH}-image evaluation in {r['trainer_s']:.2f} s "
+              f"with the model's build and both checkpoints, logged losses "
+              f"{' '.join(f'{v:.4f}' for v in r['trainer_losses'])}, best "
+              f"acc1 {r['trainer_best']:.4f}; K1-K3 launches "
+              f"{r['trainer_launches']}", flush=True)
+        print(f"parallel rank {r['rank']}: pipeline_vit ViT-B/16 eval b"
+              f"{PAR_BATCH}, {PAR_MICRO} microbatches over {world} stages in "
+              f"{r['pipe_ms']:.1f} ms (warm; the same bits twice: "
+              f"{r['pipe_repeat']}), logits within {r['pipe_rel']:.3g} of "
+              f"the largest plain logit; launches {r['pipe_launches']}; ring "
+              f"attention {list(PAR_RING)} f32 forward and backward over "
+              f"{world} ranks in {r['ring_ms']:.1f} ms (warm), within "
+              f"{r['ring_rel']:.3g} of full attention (output and dq, dk, "
+              f"dv); FSDP2 ResNet-18 step loss {r['fsdp_loss']:.6f}, "
+              f"{r['fsdp_loss_rel']:.3g} from the plain step's, updates "
+              f"within {r['fsdp_update_rel']:.3g}", flush=True)
+        # world of one: every path equals the run without a process group
+        # bit for bit; more ranks sum in other orders (bf16 steps of a
+        # seeded ViT-B/16: 1% of a parameter's norm at most)
+        if world == 1 and not r["bit_equal"]:
+            raise RuntimeError("the world of one differs from the steps "
+                               "without a process group")
+        if not r["vit_param_rel"] <= (0.0 if world == 1 else 1e-2):
+            raise RuntimeError("the distributed ViT steps part from the "
+                               "steps without a process group")
+        if any(r["vit_launches"][k] != 12 * PAR_STEPS for k in TRAIN_KERNELS):
+            raise RuntimeError(f"the distributed ViT step did not launch "
+                               f"each flash kernel 12 times a step: "
+                               f"{r['vit_launches']}")
+        # K1-K3 12 times a train step, K1 12 more for the one test batch
+        if (r["trainer_launches"] != {
+                "flash_attention_fwd": 12 * (PAR_STEPS + 1),
+                "flash_attention_dq": 12 * PAR_STEPS,
+                "flash_attention_dkv": 12 * PAR_STEPS}
+                or len(r["trainer_losses"]) != PAR_STEPS
+                or not np.isfinite(r["trainer_losses"]).all()
+                or not np.isfinite(r["trainer_best"])):
+            raise RuntimeError(f"the Trainer's epoch: launches "
+                               f"{r['trainer_launches']}, losses "
+                               f"{r['trainer_losses']}, best "
+                               f"{r['trainer_best']}")
+        want_k1 = 12 // world * PAR_MICRO
+        if r["pipe_launches"] != {"flash_attention_fwd": want_k1,
+                                  "flash_attention_dq": 0,
+                                  "flash_attention_dkv": 0}:
+            raise RuntimeError(f"pipeline_vit launched "
+                               f"{r['pipe_launches']}, want K1 {want_k1}")
+        # bf16 through 12 blocks on microbatches of 32 against batches of
+        # 128 (other GEMM tilings): 2% of the largest logit
+        if not (r["pipe_rel"] <= 2e-2 and r["pipe_repeat"]):
+            raise RuntimeError("pipeline_vit disagrees with the forward")
+        if not r["ring_rel"] <= 1e-4:
+            raise RuntimeError("ring attention disagrees with full "
+                               "attention")
+        if not (r["fsdp_loss_rel"] <= 1e-5 and r["fsdp_update_rel"] <= 1e-3):
+            raise RuntimeError("the FSDP2 step disagrees with the plain step")
+    sums = lambda key: {k: sum(r[key][k] for r in results)  # noqa: E731
+                        for k in TRAIN_KERNELS}
+    return {"parallel_vit_train": sums("vit_launches"),
+            "parallel_trainer": sums("trainer_launches"),
+            "parallel_pipeline_vit": sums("pipe_launches")}
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``name``."""
     t0 = time.perf_counter()
@@ -6532,7 +6938,35 @@ def _timed(name, fn, *args):
     return out
 
 
+_PHASE_RUNNER = """
+import sys
+import chip_smoke as cs
+card = cs.phase_device()
+for name in sys.argv[1:]:
+    cs._timed(name, getattr(cs, "phase_" + name), card)
+"""
+
+
+def run_phases(argv):
+    """``--phases a,b [--tree DIR]``: phases ``a`` and ``b`` of ``DIR``'s
+    script in a process of their own; returns its exit code."""
+    import argparse
+    import os
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument("--phases", required=True)
+    parser.add_argument("--tree",
+                        default=os.path.dirname(os.path.abspath(__file__)))
+    args = parser.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    env = dict(os.environ, PYTHONPATH=tree)
+    return subprocess.run([sys.executable, "-c", _PHASE_RUNNER,
+                           *args.phases.split(",")], cwd=tree,
+                          env=env).returncode
+
+
 def main():
+    if len(sys.argv) > 1:
+        return run_phases(sys.argv[1:])
     t_start = time.perf_counter()
     card = phase_device()
     kernels = _timed("kernels", phase_kernels, card)
@@ -6565,6 +6999,7 @@ def main():
     slice_17 = _timed("slice_17", _slice_17, card)
     slice_18 = _timed("slice_18", _slice_18, card)
     slice_19 = _timed("slice_19", _slice_19, card, resident_ips)
+    parallel = _timed("parallel", phase_parallel, card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
     # refinement prediction), so its ``launches`` is their sum. The ResNet-50
@@ -6592,7 +7027,7 @@ def main():
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
              "fcos_learns": fcos_learns, **slice_15, **slice_16,
-             **slice_17, **slice_18, **slice_19}
+             **slice_17, **slice_18, **slice_19, **parallel}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

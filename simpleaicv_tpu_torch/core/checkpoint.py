@@ -14,6 +14,10 @@ sees half a file:
   bicubic resize of position embeddings whose token count differs.
 
 Saves are synchronous: an epoch's save finishes before the next epoch.
+A checkpoint holds whole tensors: under FSDP2 the sharded parameters, their
+moments and EMA are gathered first (a collective, so every rank calls
+``save_latest`` and ``whole``, and one writes), and every rank reads the
+file back into its own slices on resume.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import full_tensor, local, shard_like
 
 __all__ = ["CheckpointManager", "load_checkpoint_tensors",
            "load_state_dict_partial"]
@@ -48,13 +54,27 @@ class CheckpointManager:
         return sorted(int(f[:-3]) for f in os.listdir(self.latest_dir)
                       if f.endswith(".pt") and f[:-3].isdigit())
 
-    def save_latest(self, epoch: int, state, extra: Optional[dict] = None):
+    @staticmethod
+    def whole(tensors: Optional[dict]):
+        """``tensors`` with each sharded one gathered whole (every rank
+        calls it)."""
+        if tensors is None:
+            return None
+        return {k: full_tensor(v) for k, v in tensors.items()}
+
+    def save_latest(self, epoch: int, state, extra: Optional[dict] = None,
+                    write: bool = True):
         """Saves ``state`` (an engine ``TrainState``) as of the end of
-        ``epoch`` and drops all but the newest ``max_to_keep``."""
+        ``epoch`` and drops all but the newest ``max_to_keep``; with
+        ``write`` False only gathers (the other ranks' part of a sharded
+        save)."""
         payload = {"epoch": epoch, "step": state.step,
-                   "model": state.model.state_dict(),
+                   "model": self.whole(state.model.state_dict()),
                    "optimizer": state.optimizer.state_dict(),
-                   "ema": state.ema_params, "extra": extra or {}}
+                   "ema": self.whole(state.ema_params),
+                   "extra": extra or {}}
+        if not write:
+            return
         _atomic_save(payload, os.path.join(self.latest_dir, f"{epoch}.pt"))
         for old in self._epochs()[:-self.max_to_keep]:
             os.remove(os.path.join(self.latest_dir, f"{old}.pt"))
@@ -70,12 +90,12 @@ class CheckpointManager:
             map_location=state.device, weights_only=True)
         if (payload["ema"] is None) != (state.ema_params is None):
             raise ValueError("the checkpoint and this run disagree on EMA")
-        state.model.load_state_dict(payload["model"])
+        load_whole(state.model, payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         if state.ema_params is not None:
             with torch.no_grad():
                 for name, t in state.ema_params.items():
-                    t.copy_(payload["ema"][name])
+                    local(t).copy_(shard_like(payload["ema"][name], t))
         state.step = int(payload["step"])
         return int(payload["epoch"]), payload["extra"]
 
@@ -97,6 +117,21 @@ class CheckpointManager:
         named = os.path.join(self.directory, f"{network}-metric{metric:.3f}")
         if os.path.exists(self.best_path) and not os.path.exists(named):
             os.symlink(self.best_path, named)
+
+
+@torch.no_grad()
+def load_whole(model, tensors: dict):
+    """``model.load_state_dict(tensors)`` for whole tensors, into this
+    rank's slices of the parameters FSDP2 shards."""
+    own = model.state_dict()
+    if not any(local(v) is not v for v in own.values()):
+        model.load_state_dict(tensors)
+        return
+    if set(own) != set(tensors):
+        raise ValueError(f"checkpoint keys differ from the model's: "
+                         f"{sorted(set(own) ^ set(tensors))[:5]}")
+    for name, t in own.items():
+        local(t).copy_(shard_like(tensors[name], t))
 
 
 def load_checkpoint_tensors(path: str, map_location="cpu") -> dict:

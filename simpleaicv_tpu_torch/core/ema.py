@@ -2,12 +2,16 @@
 ``simpleaicv_tpu/core/ema.py``): per step
 ``ema = decay * ema + (1 - decay) * params`` with default decay 0.9999. The
 EMA parameters are a dict keyed like ``model.named_parameters()``, so
-``model.load_state_dict(ema, strict=False)`` evaluates with them.
+``model.load_state_dict(ema, strict=False)`` evaluates with them. A
+parameter sharded by FSDP2 keeps a sharded EMA, updated through this
+rank's slice.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import local
 
 
 def ema_init(model):
@@ -21,8 +25,8 @@ def ema_update(ema_params, model, decay: float = 0.9999):
     is rounded to f32 first, as the JAX package holds it."""
     d = torch.tensor(decay, dtype=torch.float32).item()
     params = dict(model.named_parameters())
-    ema = [ema_params[name] for name in params]
+    ema = [local(ema_params[name]) for name in params]
     torch._foreach_mul_(ema, d)
-    torch._foreach_add_(ema, [p.detach() for p in params.values()],
+    torch._foreach_add_(ema, [local(p.detach()) for p in params.values()],
                         alpha=1.0 - d)
     return ema_params

@@ -2,8 +2,20 @@
 
 Per-task behaviour comes in as a ``loss_fn``; everything else is shared:
 gradient accumulation over micro-batches, value and norm clipping, skipping
-of non-finite batches, the optimizer update, EMA. Single device; sharding
-over several cards is not ported yet.
+of non-finite batches, the optimizer update, EMA.
+
+In a world of W ranks (``torch.distributed``, one card each) each rank
+takes its rows of the global batch (``data.loader.rank_indices``) and a
+step computes the JAX engine's step on the W-device mesh, one global-batch
+step: BatchNorm statistics are the global micro-batch's
+(``ops.fused_bn``); after the micro-batch loop the gradients are averaged
+over the ranks with one ``all_reduce`` per dtype (FSDP2's sharded
+gradients come averaged from its own reduce-scatter, and an expert
+parameter's from its replicas' group, ``parallel.moe``); the metrics are
+averaged in the same collective that counts the ranks with a non-finite
+loss or gradient, so every rank skips together, and the host reads one
+number a step. No ``DistributedDataParallel``: its hooks would reduce on
+every micro-batch.
 
 The state lives on the card: ``create_train_state`` and ``make_eval_step``
 take ``device="cuda"`` and raise when there is no card; pass
@@ -23,7 +35,9 @@ in place, returning the same object. The semantics are the JAX engine's:
   buffers stay as they were; PyTorch updates BatchNorm statistics during the
   forward, so the buffers are put back from a copy. EMA still updates, and
   ``metrics["skipped"]`` is 1;
-* ``TrainState.step`` always advances; it only seeds the step's generator.
+* ``TrainState.step`` always advances; it only seeds the step's generator,
+  with the rank, so that ranks draw different dropout and drop-path masks
+  (rank 0 draws what one process draws).
 
 The finiteness decision is read on the host (one ``.item()`` per step) and
 the update is then launched or not; the schedule is evaluated on the host
@@ -36,9 +50,11 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.common import resolve_device
+from ..parallel.mesh import local, rank, world_size
 from .ema import ema_init, ema_update
 from .optim import Optimizer, clip_by_value_, global_norm
 
@@ -95,11 +111,15 @@ def _require_on(device, model, batch):
             raise ValueError(f"{what} lies on {d}, the step runs on {device}")
 
 
-def step_generator(generator: torch.Generator, seed: int, step: int):
-    """Seeds ``generator`` for one step from (seed, step): the port's stand-in
-    for ``fold_in(rng, step)``. It gives other numbers than JAX's."""
+def step_generator(generator: torch.Generator, seed: int, step: int,
+                   rank: int = 0):
+    """Seeds ``generator`` for one step from (seed, step, rank): the port's
+    stand-in for ``fold_in(rng, step)``. It gives other numbers than JAX's;
+    rank 0 gets the numbers of a run without ranks."""
     mask = (1 << 64) - 1
     x = (seed * 0x9E3779B97F4A7C15 + step) & mask
+    if rank:
+        x = ((x ^ (x >> 33)) * 0xFF51AFD7ED558CCD + rank) & mask
     x = ((x ^ (x >> 31)) * 0xBF58476D1CE4E5B9) & mask
     # mixed so that the low 32 bits, all a CPU generator keeps of a seed,
     # depend on both numbers
@@ -118,6 +138,44 @@ def _micro_batches(batch, accum):
             for i in range(accum)]
 
 
+def _sync_group(p):
+    """The ranks whose gradients of ``p`` the engine averages: None (the
+    world) for a replicated parameter, the replicas' group for an expert
+    shard (``parallel.moe.shard_experts``)."""
+    return getattr(p, "_sync_group", None)
+
+
+def average_gradients(params, grads, accum: int):
+    """Divides ``grads`` by ``accum`` and, in a world of W ranks, makes each
+    the mean over the ranks of the global batch: one ``all_reduce`` per
+    group and dtype over the flattened unsharded gradients, divided by W
+    with the micro-batch count. An FSDP2 gradient (sharded) arrives
+    averaged and is only divided by ``accum``."""
+    world = world_size()
+    if world == 1:
+        if accum > 1:
+            torch._foreach_div_(grads, float(accum))
+        return
+    buckets: Dict[Any, list] = {}
+    sharded = []
+    for p, g in zip(params, grads):
+        if g is not local(g):
+            sharded.append(local(g))
+        else:
+            buckets.setdefault((id(_sync_group(p)), g.dtype), []).append(
+                (p, g))
+    for members in buckets.values():
+        group = _sync_group(members[0][0])
+        flat = torch.cat([g.reshape(-1) for _, g in members])
+        dist.all_reduce(flat, group=group)
+        flat /= float(world * accum)
+        grads_in = [g for _, g in members]
+        torch._foreach_copy_(grads_in, [c.view_as(g) for c, g in zip(
+            torch.split(flat, [g.numel() for g in grads_in]), grads_in)])
+    if sharded and accum > 1:
+        torch._foreach_div_(sharded, float(accum))
+
+
 def make_train_step(loss_fn: LossFn, cfg: EngineConfig, augment_fn=None):
     """Builds the train step ``(state, batch, seed=0) -> (state, metrics)``.
 
@@ -134,7 +192,7 @@ def make_train_step(loss_fn: LossFn, cfg: EngineConfig, augment_fn=None):
         params, device = opt.params, state.device
         _require_on(device, model, batch)
         generator = step_generator(torch.Generator(device=device), seed,
-                                   state.step)
+                                   state.step, rank())
         model.train()
         if augment_fn is not None:
             batch = augment_fn(batch, generator)
@@ -155,22 +213,36 @@ def make_train_step(loss_fn: LossFn, cfg: EngineConfig, augment_fn=None):
                  for p in params]
 
         with torch.no_grad():
-            if accum > 1:
-                torch._foreach_div_(grads, float(accum))
+            average_gradients(params, grads, accum)
             if cfg.clip_grad_value and cfg.clip_grad_value > 0:
                 clip_by_value_(grads, cfg.clip_grad_value)
             if cfg.clip_max_norm and cfg.clip_max_norm > 0:
                 scale = torch.clamp(
                     cfg.clip_max_norm / global_norm(grads).clamp(min=1e-12),
                     max=1.0)
-                torch._foreach_mul_(grads, scale)
+                torch._foreach_mul_([local(g) for g in grads], scale)
 
             ok = True
+            bad = None
             if cfg.skip_non_finite:
                 # a tensor's largest |value| is finite iff all of it is
-                peaks = list(torch._foreach_norm(grads, float("inf")))
-                ok = bool(torch.isfinite(
-                    torch.stack(peaks + [metrics["loss"]])).all().item())
+                peaks = list(torch._foreach_norm([local(g) for g in grads],
+                                                 float("inf")))
+                bad = (~torch.isfinite(torch.stack(
+                    peaks + [metrics["loss"]])).all()).float()
+            if world_size() > 1:
+                # one collective: the metrics' sums and the count of ranks
+                # that saw a non-finite value
+                keys = list(metrics)
+                vec = torch.stack([metrics[k] for k in keys]
+                                  + ([bad] if bad is not None else []))
+                dist.all_reduce(vec)
+                metrics = {k: vec[i] / world_size()
+                           for i, k in enumerate(keys)}
+                if bad is not None:
+                    bad = vec[-1]
+            if bad is not None:
+                ok = not bool(bad.item())
             if ok:
                 opt.step(grads)
             else:

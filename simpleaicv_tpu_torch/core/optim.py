@@ -21,7 +21,10 @@ that form (``blocks.3.attn.qkv.weight`` -> ``blocks_3/attn/qkv/weight``)
 before matching, so the same lists select the same parameters.
 
 The update runs as multi-tensor (``torch._foreach``) operations on f32
-parameters, in place. The step count that the schedule and Adam's bias
+parameters, in place. A parameter sharded by FSDP2 (a ``DTensor``) is
+updated through this rank's slice, with its moments sharded alike;
+``global_norm`` is the norm of the whole gradient, its slices' squares
+summed over the ranks that shard it. The step count that the schedule and Adam's bias
 correction read lives in the optimizer and advances only when ``step`` is
 called, so a skipped batch leaves it alone.
 """
@@ -37,6 +40,7 @@ import torch
 from torch import nn
 
 from ..models.common import resolve_device
+from ..parallel.mesh import full_tensor, local, shard_like
 from .schedule import SchedulerConfig, lr_at_epoch
 from .weights import path_form
 
@@ -173,10 +177,13 @@ class Optimizer:
         return self
 
     def state_dict(self):
-        """The moments (keyed by kind, then parameter name) and the step
-        count; the hyperparameters come from the config."""
+        """The moments (keyed by kind, then parameter name; whole tensors,
+        gathered from the ranks for a sharded parameter, so every rank
+        calls it) and the step count; the hyperparameters come from the
+        config."""
         return {"step_count": self.step_count,
-                "moments": {key: dict(zip(self.names, tensors))
+                "moments": {key: {n: full_tensor(t)
+                                  for n, t in zip(self.names, tensors)}
                             for key, tensors in self.moments.items()}}
 
     @torch.no_grad()
@@ -198,7 +205,7 @@ class Optimizer:
                     raise ValueError(f"{key}[{name}]: saved shape "
                                      f"{tuple(saved[name].shape)}, here "
                                      f"{tuple(t.shape)}")
-                t.copy_(saved[name])
+                local(t).copy_(shard_like(saved[name], t))
         self.step_count = int(state["step_count"])
 
     def leaf_lrs(self, step: Optional[int] = None):
@@ -222,12 +229,17 @@ class Optimizer:
         grads = list(grads)
         if cfg.clip_grad_value is not None:
             clip_by_value_(grads, float(cfg.clip_grad_value))
+        norm = None
         if cfg.clip_max_norm is not None:
             norm = global_norm(grads)
+        # from here on every tensor is this rank's slice
+        grads = [local(g) for g in grads]
+        params = [local(p) for p in self.params]
+        if norm is not None:
             max_norm = float(cfg.clip_max_norm)
             torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0,
                                                    max_norm / norm))
-        decayed = self._pick(self.params, self._decayed)
+        decayed = self._pick(params, self._decayed)
         decays = self._pick(self.wds, self._decayed)
 
         if cfg.name == "SGD":
@@ -237,7 +249,7 @@ class Optimizer:
                                     torch._foreach_mul(decayed, decays))
             updates = grads
             if cfg.momentum:
-                trace = self.moments["trace"]
+                trace = [local(t) for t in self.moments["trace"]]
                 torch._foreach_mul_(trace, cfg.momentum)
                 torch._foreach_add_(trace, grads)
                 updates = trace
@@ -245,7 +257,8 @@ class Optimizer:
                     updates = torch._foreach_add(grads, trace,
                                                  alpha=cfg.momentum)
         else:
-            mu, nu = self.moments["mu"], self.moments["nu"]
+            mu = [local(t) for t in self.moments["mu"]]
+            nu = [local(t) for t in self.moments["nu"]]
             torch._foreach_mul_(mu, cfg.beta1)
             torch._foreach_add_(mu, grads, alpha=1.0 - cfg.beta1)
             torch._foreach_mul_(nu, cfg.beta2)
@@ -265,7 +278,7 @@ class Optimizer:
 
         lrs = self.leaf_lrs()
         torch._foreach_add_(
-            self._pick(self.params, self._live),
+            self._pick(params, self._live),
             torch._foreach_mul(self._pick(updates, self._live),
                                [-lrs[i] for i in self._live]))
         self.step_count += 1
@@ -273,14 +286,45 @@ class Optimizer:
 
 def clip_by_value_(tensors, value: float):
     """Clamps every element of ``tensors`` to [-value, value], in place."""
+    tensors = [local(t) for t in tensors]
     torch._foreach_clamp_max_(tensors, value)
     torch._foreach_clamp_min_(tensors, -value)
 
 
 def global_norm(tensors):
-    """The 2-norm of all of ``tensors`` taken as one vector, a 0-d tensor."""
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(list(tensors))))
+    """The 2-norm of all of ``tensors`` taken as one vector, a 0-d tensor.
+    A sharded tensor (a ``DTensor``) counts whole: the squares of its
+    slices are summed over the ranks of its sharded mesh dims (one
+    collective for each set of such ranks)."""
+    tensors = list(tensors)
+    plain = [t for t in tensors if not _sharded_dims(t)]
+    if len(plain) == len(tensors):
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(plain)))
+    by_groups = {}
+    for t in tensors:
+        dims = _sharded_dims(t)
+        if dims:
+            by_groups.setdefault((id(t.device_mesh), dims), []).append(t)
+    total = (torch.stack(torch._foreach_norm(plain)).square().sum()
+             if plain else None)
+    for sharded in by_groups.values():
+        mesh = sharded[0].device_mesh
+        sq = torch.stack(torch._foreach_norm(
+            [local(t) for t in sharded])).square().sum()
+        for d in _sharded_dims(sharded[0]):
+            torch.distributed.all_reduce(sq, group=mesh.get_group(d))
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
+def _sharded_dims(t):
+    """The mesh dims over which a ``DTensor`` is sharded; () for any other
+    tensor or a replicated one."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return ()
+    return tuple(i for i, p in enumerate(placements) if p.is_shard())
 
 
 def build_optimizer(cfg: OptimizerConfig, sched: SchedulerConfig,

@@ -1,12 +1,28 @@
-"""The training driver (counterpart of ``simpleaicv_tpu/core/trainer.py``) on
-one device: the model, data, optimizer, schedule, EMA, evaluation,
-checkpoints and resume of an experiment config. Task adapters provide the
-loss and eval functions.
+"""The training loop (counterpart of ``simpleaicv_tpu/core/trainer.py``):
+the model, data, optimizer, schedule, EMA, evaluation, checkpoints and
+resume of an experiment config. Task adapters provide the loss and eval
+functions.
+
+It runs on one card, or on one card in each process of a world that
+``torchrun`` (or ``parallel.multihost.initialize_multihost``'s environment)
+starts: the ``('data', 'fsdp')`` mesh comes from the config's ``mesh_data``
+and ``mesh_fsdp`` as in the JAX Trainer, each rank reads its rows of the
+global batch, and a step is the global batch's (``core.engine``). With
+``mesh_fsdp`` above 1 the model goes to FSDP2's ``fully_shard`` on the 2-D
+mesh (replicated over ``data``, sharded over ``fsdp``: HSDP), each
+parameter on the dimension ``parallel.mesh.infer_param_sharding`` names and
+the ones under ``fsdp_min_size`` left replicated. Checkpoints hold whole
+tensors, gathered on every rank and written by rank 0; every rank reads
+them back on resume. An evaluation that sums its meters over the ranks
+(``evaluate.sums_over_ranks``) reads each rank's share of the test set;
+any other reads the whole set on every rank. The best epoch is chosen by
+rank 0's key metric on every rank.
 
 Against the JAX ``Trainer``:
 
-* one device, the card unless the caller passes ``device="cpu"``; no mesh
-  and no sharding;
+* the card unless the caller passes ``device="cpu"``;
+* ``initialize_multihost()`` is called at start (a no-op without its
+  environment); the JAX CLIs never call it;
 * the model comes from the config and is initialised with
   ``init_params(model, torch.Generator().manual_seed(seed))`` (other numbers
   than JAX's init), then, with ``trained_model_path``, partially loaded from
@@ -39,6 +55,8 @@ from ..data.collater import ClassificationCollater
 from ..data.loader import DataLoader
 from ..data.packed import PackedDataset, PackedLoader
 from ..models.common import init_params, resolve_device
+from ..parallel.mesh import MeshConfig, fsdp_shard, from_rank0, make_mesh
+from ..parallel.multihost import initialize_multihost
 from .checkpoint import (CheckpointManager, load_checkpoint_tensors,
                          load_state_dict_partial)
 from .config import config_repr
@@ -126,12 +144,15 @@ def train_loader(config, batch_size: int, workers: int, seed: int):
     collater or a plain ``ClassificationCollater``, with a cast of the
     uint8 images to the collater's ``image_dtype`` (uint8, no cast, for a
     config with ``device_augment``; f32 with no collater). Everything else
-    goes to the ``DataLoader``."""
+    goes to the ``DataLoader``. Each rank reads its rows of every global
+    batch for the config's ``accumulation_steps``."""
     ds, tc = config.train_dataset, getattr(config, "train_collater", None)
+    accum = getattr(config, "accumulation_steps", 1)
     if isinstance(ds, PackedDataset) and ds.transform is None:
         if getattr(tc, "packed_batch", False):
             return PackedLoader(ds, batch_size, shuffle=True, drop_last=True,
-                                seed=seed, n_threads=workers, collate=tc)
+                                seed=seed, n_threads=workers, collate=tc,
+                                accumulation_steps=accum)
         if tc is None or type(tc) is ClassificationCollater:
             if tc is not None:
                 target = np.dtype(tc.image_dtype)
@@ -147,11 +168,13 @@ def train_loader(config, batch_size: int, workers: int, seed: int):
                     out["image"] = b["image"].astype(target)
                     return out
             return PackedLoader(ds, batch_size, shuffle=True, drop_last=True,
-                                seed=seed, n_threads=workers, collate=collate)
+                                seed=seed, n_threads=workers, collate=collate,
+                                accumulation_steps=accum)
     return DataLoader(ds, batch_size, tc, shuffle=True, drop_last=True,
                       num_workers=workers, seed=seed,
                       worker_mode=getattr(config, "loader_worker_mode",
-                                          "thread"))
+                                          "thread"),
+                      accumulation_steps=accum)
 
 
 class Trainer:
@@ -161,8 +184,12 @@ class Trainer:
                  evaluate: Optional[Callable] = None, device="cuda"):
         self.config = config
         self.work_dir = os.path.abspath(work_dir)
+        initialize_multihost()
         self.logger = get_logger("train", os.path.join(self.work_dir, "log"))
         self.device = resolve_device(device)
+        self.mesh_cfg = MeshConfig(data=getattr(config, "mesh_data", -1),
+                                   fsdp=getattr(config, "mesh_fsdp", 1))
+        self.mesh = make_mesh(self.mesh_cfg)
 
         # ---- model ----
         self.model = config.model
@@ -179,6 +206,9 @@ class Trainer:
                 self.model.state_dict())
             self.model.load_state_dict(tensors)
             self.log(f"partially loaded {n} tensors from {trained_path}")
+        if self.mesh is not None and self.mesh_cfg.fsdp > 1:
+            self.model.to(self.device)
+            fsdp_shard(self.model, self.mesh, self.mesh_cfg.fsdp_min_size)
 
         # ---- data ----
         bs = config.batch_size
@@ -195,10 +225,13 @@ class Trainer:
                        for i, d in enumerate(tds)}
             if not isinstance(tds, dict):
                 tds = {"test": tds}
+            # an evaluation that does not sum over the ranks scores the
+            # whole set on each
+            shard = getattr(evaluate, "sums_over_ranks", False)
             self.test_loaders = {
                 name: DataLoader(d, bs, config.test_collater, shuffle=False,
                                  drop_last=False, num_workers=workers,
-                                 seed=self.seed)
+                                 seed=self.seed, shard=shard)
                 for name, d in tds.items()}
             self.test_loader = next(iter(self.test_loaders.values()))
         self.steps_per_epoch = max(len(self.train_loader), 1)
@@ -357,14 +390,18 @@ class Trainer:
                 self.log(f"epoch {epoch} eval: {metrics}")
             if key_metric is None:
                 key_metric = -loss  # loss-only tasks: lower loss = better
+            # every rank takes the branch (and gathers the sharded tensors
+            # in it); rank 0 writes
+            key_metric = from_rank0(key_metric)
             if key_metric > self.best_metric:
                 self.best_metric = key_metric
+                tensors = self.ckpt.whole(self.eval_tensors())
                 if process_index() == 0:
-                    self.ckpt.save_best(self.eval_tensors(), key_metric)
-            if process_index() == 0:
-                self.ckpt.save_latest(epoch, self.state,
-                                      {"best_metric": self.best_metric,
-                                       "time": time.time()})
+                    self.ckpt.save_best(tensors, key_metric)
+            self.ckpt.save_latest(epoch, self.state,
+                                  {"best_metric": self.best_metric,
+                                   "time": time.time()},
+                                  write=process_index() == 0)
             self.log(f"epoch {epoch} done; loss {loss:.4f} "
                      f"best {self.best_metric:.4f}")
         if process_index() == 0:

@@ -2,8 +2,12 @@
 
 Each epoch reshuffles with ``np.random.RandomState(seed + epoch)`` and hands
 process ``rank`` of ``world`` (torch.distributed's, or 0 of 1) its
-contiguous share of the order, as ``DistributedSampler`` does. Within a
-process, workers build the batches ahead of the consumer:
+contiguous share of the order, as ``DistributedSampler`` does and as the
+JAX loader does. With ``accumulation_steps`` above 1 in a world above 1,
+a rank reads other rows of the same global batch (``rank_indices``): the
+JAX engine splits the *global* batch into contiguous micro-batches, and
+rank ``r``'s micro-batch ``i`` is its slice of global micro-batch ``i``.
+Within a process, workers build the batches ahead of the consumer:
 
 * ``worker_mode="thread"`` (the default): a thread pool with a bounded
   window of per-sample futures and a bounded queue of collated batches,
@@ -40,8 +44,9 @@ from typing import Callable, Iterator
 import numpy as np
 
 from ..core.platform import process_count, process_index
+from ..parallel.mesh import rows_of
 
-__all__ = ["DataLoader"]
+__all__ = ["DataLoader", "rank_indices"]
 
 # a worker process's dataset, collater, seed and epoch, set by its
 # initializer
@@ -71,18 +76,44 @@ def _proc_fetch_batch(task):
     return _WORKER_COLLATE([_WORKER_DS[int(i)] for i in idxs])
 
 
+def rank_indices(order: np.ndarray, rank: int, world: int,
+                 local_batch: int, accumulation_steps: int = 1):
+    """Rank ``rank``'s sample indices for an epoch of ``order``, batch
+    ``b`` at ``[b * local_batch, (b + 1) * local_batch)``. The JAX loader
+    gives process ``p`` the contiguous ``order[p * per:(p + 1) * per]``
+    and its global batch ``b`` is the processes' batches ``b`` one after
+    the other; here rank ``r``'s batch ``b`` is ``rows_of`` that global
+    batch, which with one micro-batch is process ``r``'s own batch. Rows
+    past the last whole batch stay the JAX loader's."""
+    per = len(order) // world
+    mine = order[rank * per:(rank + 1) * per]
+    if world == 1 or accumulation_steps == 1:
+        return mine
+    nb = per // local_batch
+    shards = order[:world * per].reshape(world, per)[:, :nb * local_batch]
+    glob = shards.reshape(world, nb, local_batch).transpose(1, 0, 2)
+    rows = rows_of(glob.reshape(nb, world * local_batch), rank, world,
+                   accumulation_steps)
+    return np.concatenate([rows.reshape(-1), mine[nb * local_batch:]])
+
+
 class DataLoader:
 
     def __init__(self, dataset, batch_size: int, collater: Callable,
                  shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 4, seed: int = 0, prefetch: int = 4,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread", accumulation_steps: int = 1,
+                 shard: bool = True):
         """``batch_size`` is the global batch; each process takes its
-        ``batch_size / world`` share."""
+        ``batch_size / world`` share, split for ``accumulation_steps``
+        micro-batches as ``rank_indices`` says. With ``shard=False`` every
+        process reads the whole dataset in batches of ``batch_size``, as
+        one process does."""
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode must be 'thread' or 'process', "
                              f"got {worker_mode!r}")
-        n_proc = process_count()
+        self.shard = shard
+        n_proc = self._world()[1]
         if batch_size % n_proc:
             raise ValueError(f"batch {batch_size} does not split over "
                              f"{n_proc} processes")
@@ -95,13 +126,19 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.worker_mode = worker_mode
+        self.accumulation_steps = max(int(accumulation_steps), 1)
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
+    def _world(self) -> tuple[int, int]:
+        """(this process's index, the number of processes) the dataset is
+        split over."""
+        return (process_index(), process_count()) if self.shard else (0, 1)
+
     def __len__(self):
-        n = len(self.dataset) // process_count()
+        n = len(self.dataset) // self._world()[1]
         if self.drop_last:
             return n // self.local_batch_size
         return (n + self.local_batch_size - 1) // self.local_batch_size
@@ -113,9 +150,8 @@ class DataLoader:
             order = rng.permutation(n)
         else:
             order = np.arange(n)
-        pid, count = process_index(), process_count()
-        per = n // count
-        return order[pid * per:(pid + 1) * per]
+        return rank_indices(order, *self._world(), self.local_batch_size,
+                            self.accumulation_steps)
 
     def _iter_process(self, indices, bs, n_batches) -> Iterator:
         """One task per collated batch, at most ``prefetch + num_workers``

@@ -44,6 +44,7 @@ import numpy as np
 
 from ..core.platform import process_count, process_index
 from . import native_io
+from .loader import rank_indices
 
 __all__ = ["PackWriter", "PackReader", "PackedDataset", "PackedLoader",
            "pack_dataset", "pack_image_folder"]
@@ -196,7 +197,8 @@ class PackedLoader:
 
     def __init__(self, source, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
-                 n_threads: int = 1, collate=None):
+                 n_threads: int = 1, collate=None,
+                 accumulation_steps: int = 1):
         if isinstance(source, str):
             source = PackReader(source)
         elif isinstance(source, PackedDataset):
@@ -209,6 +211,7 @@ class PackedLoader:
         self.prefetch = max(int(prefetch), 1)
         self.n_threads = max(int(n_threads), 1)
         self.collate = collate
+        self.accumulation_steps = max(int(accumulation_steps), 1)
         self.epoch = 0
         n_proc = process_count()
         if batch_size % n_proc:
@@ -233,8 +236,8 @@ class PackedLoader:
                 self.seed + self.epoch).permutation(n)
         else:
             order = np.arange(n)
-        per = n // self._nproc
-        return order[self._pid * per:(self._pid + 1) * per]
+        return rank_indices(order, self._pid, self._nproc,
+                            self.local_batch_size, self.accumulation_steps)
 
     def __iter__(self) -> Iterator[dict]:
         indices = self._local_indices()

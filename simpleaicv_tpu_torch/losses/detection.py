@@ -25,6 +25,7 @@ from ..models.detection.anchor import (FCOSPositions, OnDevice,
                                        RetinaAnchors, anchor_boxes,
                                        feature_sizes, flatten_levels)
 from ..ops.iou import iou_method
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["RetinaLoss", "FCOSLoss"]
 
@@ -51,7 +52,7 @@ def _focal_loss(cls_preds, gt_one_hot, valid_mask, positive_num, alpha,
     bce = -(gt_one_hot * torch.log(p)
             + (1.0 - gt_one_hot) * torch.log(1.0 - p))
     loss = torch.sum(focal_w * bce * valid_mask[:, :, None])
-    return loss / positive_num.clamp(min=1.0)
+    return loss / per_rank(positive_num.clamp(min=1.0))
 
 
 def _zero_without_positives(positive_num, terms: dict) -> dict:
@@ -103,7 +104,7 @@ class RetinaLoss:
         gt_boxes, gt_cls = self.assign(anchors, annotations)
         valid = (gt_cls >= 0).float()
         positive = (gt_cls > 0).float()
-        positive_num = positive.sum()
+        positive_num = global_sum(positive.sum())
 
         cls_loss = _focal_loss(cls_preds, _one_hot(gt_cls, num_classes),
                                valid, positive_num, self.alpha, self.gamma)
@@ -118,7 +119,7 @@ class RetinaLoss:
             ious = iou_method(pred_boxes, gt_boxes,
                               iou_type=self.box_loss_type)
             reg_loss = torch.sum((1.0 - ious) * positive)
-        reg_loss = reg_loss / positive_num.clamp(min=1.0)
+        reg_loss = reg_loss / per_rank(positive_num.clamp(min=1.0))
         terms = _zero_without_positives(positive_num, {
             "cls_loss": cls_loss, "reg_loss": reg_loss})
         return {"cls_loss": self.cls_loss_weight * terms["cls_loss"],
@@ -201,7 +202,7 @@ class FCOSLoss:
         ltrb, gt_cls, centerness = self.assign(points, strides, mi,
                                                annotations)
         positive = (gt_cls > 0).float()
-        positive_num = positive.sum()
+        positive_num = global_sum(positive.sum())
         cls_loss = _focal_loss(cls_preds, _one_hot(gt_cls, num_classes),
                                torch.ones_like(gt_cls), positive_num,
                                self.alpha, self.gamma)
@@ -214,13 +215,13 @@ class FCOSLoss:
         ious = iou_method(pred_boxes, gt_boxes,
                           iou_type=self.box_loss_iou_type)
         reg_loss = torch.sum((1.0 - ious) * centerness * positive)
-        reg_loss = reg_loss / positive_num.clamp(min=1.0)
+        reg_loss = reg_loss / per_rank(positive_num.clamp(min=1.0))
 
         cp = center_preds[..., 0].float().clamp(1e-4, 1.0 - 1e-4)
         cn_bce = -(centerness * torch.log(cp)
                    + (1.0 - centerness) * torch.log(1.0 - cp))
-        center_loss = torch.sum(cn_bce * positive) / positive_num.clamp(
-            min=1.0)
+        center_loss = torch.sum(cn_bce * positive) / per_rank(
+            positive_num.clamp(min=1.0))
 
         terms = _zero_without_positives(positive_num, {
             "cls_loss": cls_loss, "reg_loss": reg_loss,

@@ -15,6 +15,7 @@ import torch
 
 from ..core.registry import LOSSES
 from ..ops.iou import iou_method
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["cxcywh_to_xyxy", "pairwise_giou", "hungarian_match", "DETRLoss"]
 
@@ -99,8 +100,8 @@ class DETRLoss:
         annotations = annotations.float()
         matched = self.match(cls_preds[-1], reg_preds[-1], annotations)
 
-        total_targets = (annotations[..., 4] >= 0).sum().float().clamp(
-            min=1.0)
+        total_targets = per_rank(global_sum(
+            (annotations[..., 4] >= 0).sum().float()).clamp(min=1.0))
         safe_idx = matched.clamp(min=0)
         gt_boxes = annotations[..., :4].gather(
             1, safe_idx[..., None].expand(-1, -1, 4))
@@ -113,12 +114,13 @@ class DETRLoss:
                                    device=annotations.device)
         class_weights[-1] = self.no_object_cls_weight
         w = class_weights[target_classes]
+        w_total = per_rank(global_sum(w.sum()).clamp(min=1e-8))
 
         loss_dict = {}
         for layer in range(cls_preds.shape[0]):
             logp = torch.log_softmax(cls_preds[layer].float(), -1)
             nll = -logp.gather(-1, target_classes[..., None])[..., 0]
-            cls_loss = (nll * w).sum() / w.sum().clamp(min=1e-8)
+            cls_loss = (nll * w).sum() / w_total
             reg = reg_preds[layer].float()
             l1 = (reg - gt_boxes).abs().sum(-1)
             l1_loss = (l1 * is_matched).sum() / total_targets

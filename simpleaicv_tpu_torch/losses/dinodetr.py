@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from ..core.registry import LOSSES
 from ..ops.iou import iou_method
 from .detr import cxcywh_to_xyxy, hungarian_match, pairwise_giou
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["DINODETRLoss"]
 
@@ -100,8 +101,8 @@ class DINODETRLoss:
         """preds: the DINODETR output dict; annotations [B, M, 5] as
         normalised (cx, cy, w, h, class), class -1 for padding."""
         annotations = annotations.float()
-        total_targets = (annotations[..., 4] >= 0).sum().float().clamp(
-            min=1.0)
+        total_targets = per_rank(global_sum(
+            (annotations[..., 4] >= 0).sum().float()).clamp(min=1.0))
         loss_dict = {}
         aux_cls, aux_reg = preds["aux_pred_logits"], preds["aux_pred_boxes"]
         n_layers = aux_cls.shape[0]
@@ -129,7 +130,8 @@ class DINODETRLoss:
             dn_matched = torch.where(active, meta["dn_gt_index"],
                                      torch.full_like(meta["dn_gt_index"], -1))
             dn_cls, dn_reg = preds["dn_pred_logits"], preds["dn_pred_boxes"]
-            dn_total = active.sum().float().clamp(min=1.0)
+            dn_total = per_rank(global_sum(
+                active.sum().float()).clamp(min=1.0))
             for layer in range(dn_cls.shape[0]):
                 terms = self.losses_for(dn_cls[layer], dn_reg[layer],
                                         annotations, dn_matched, dn_total,

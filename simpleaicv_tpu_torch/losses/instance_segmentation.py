@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.registry import LOSSES
 from ..models.instance_segmentation.decode import topk_stable
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["SOLOV2Loss"]
 
@@ -141,9 +142,13 @@ class SOLOV2Loss:
             total_dice = total_dice + (dice * valid_pair).sum()
             total_pairs = total_pairs + valid_pair.sum()
 
-        cls_loss = torch.where(total_pos > 0,
-                               total_cls / total_pos.clamp(min=1.0), 0.0)
-        dice_loss = torch.where(total_pairs > 0,
-                                total_dice / total_pairs.clamp(min=1.0), 0.0)
+        total_pos, total_pairs = global_sum(
+            torch.stack([total_pos.float(), total_pairs.float()]))
+        cls_loss = torch.where(
+            total_pos > 0, total_cls / per_rank(total_pos.clamp(min=1.0)),
+            0.0)
+        dice_loss = torch.where(
+            total_pairs > 0,
+            total_dice / per_rank(total_pairs.clamp(min=1.0)), 0.0)
         return {"cls_loss": self.cls_loss_weight * cls_loss,
                 "dice_loss": self.dice_loss_weight * dice_loss}

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import LOSSES
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["SAMMultiLevelLoss", "SAMMultiLevelIoUMaxLoss",
            "SAMMultiLevelAssignLoss", "SAMDistillMSELoss", "SAMDistillLoss"]
@@ -141,7 +142,7 @@ class SAMMultiLevelAssignLoss(SAMMultiLevelLoss):
         valid = (lo[None] < ratio[:, None]) & (ratio[:, None] < hi[None])
         n_valid = valid.sum(dim=1).float()
         has = n_valid > 0
-        n_has = has.float().sum().clamp(min=1.0)
+        n_has = per_rank(global_sum(has.float().sum()).clamp(min=1.0))
 
         def batch_mean(per_bi):                              # [B, K] -> 0-d
             zero = per_bi.new_zeros(())

@@ -5,6 +5,7 @@ the per-patch MSE or L1 over the masked patches only, in f32, divided by
 from __future__ import annotations
 
 from ..core.registry import LOSSES
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["MAEMSELoss", "MAEL1Loss"]
 
@@ -14,7 +15,7 @@ class MAEMSELoss:
 
     def __call__(self, pred, label, mask):
         loss = (pred.float() - label.float()).square().mean(dim=-1)
-        return (loss * mask).sum() / (mask.sum() + 1e-4)
+        return (loss * mask).sum() / per_rank(global_sum(mask.sum()) + 1e-4)
 
 
 @LOSSES.register()
@@ -22,4 +23,4 @@ class MAEL1Loss:
 
     def __call__(self, pred, label, mask):
         loss = (pred.float() - label.float()).abs()
-        return (loss * mask).sum() / (mask.sum() + 1e-4)
+        return (loss * mask).sum() / per_rank(global_sum(mask.sum()) + 1e-4)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import LOSSES
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["GlobalTrimapCELoss", "GloabelTrimapIouLoss", "LocalAlphaLoss",
            "LocalLaplacianLoss", "FusionAlphaLoss", "FusionLaplacianLoss",
@@ -129,7 +130,8 @@ class LocalAlphaLoss:
     def __call__(self, local_pred, alpha, trimap):
         p = _clip(local_pred)[..., 0]
         w = (trimap == 128).float()
-        return _charbonnier((p - alpha.float()) * w).sum() / (w.sum() + 1.0)
+        return (_charbonnier((p - alpha.float()) * w).sum()
+                / per_rank(global_sum(w.sum()) + 1.0))
 
 
 @LOSSES.register()

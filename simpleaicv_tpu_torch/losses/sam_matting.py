@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..core.registry import LOSSES
 from .matting import (_charbonnier, _clip, _convert_trimap, _gauss_kernel,
                       conv_gauss, halve)
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["SAMMattingOneLevelLoss", "SAMMattingMultiLevelLoss",
            "SAMMattingMultiLevelIoUMaxLoss", "SAMMattingMultiLevelAssignLoss"]
@@ -171,7 +172,8 @@ class SAMMattingOneLevelLoss(_SAMMattingLossBase):
         t = _Terms(images, preds, targets, self.mask_threshold)
         return self._pack(
             ce=t.ce.mean(), iou=t.iou.mean(),
-            local_alpha=t.local_alpha_num.sum() / (t.L * t.wsum.sum() + 1.0),
+            local_alpha=t.local_alpha_num.sum() / per_rank(
+                t.L * global_sum(t.wsum.sum()) + 1.0),
             local_lap=t.lap_local.mean(),
             fusion_alpha=t.fusion_alpha.mean(),
             fusion_lap=t.lap_fused.mean(), comp=t.comp.mean(),
@@ -207,7 +209,8 @@ class SAMMattingMultiLevelIoUMaxLoss(_SAMMattingLossBase):
 
         return self._pack(
             ce=pick(t.ce).mean(), iou=pick(t.iou).mean(),
-            local_alpha=pick(t.local_alpha_num).sum() / (t.wsum.sum() + 1.0),
+            local_alpha=pick(t.local_alpha_num).sum() / per_rank(
+                global_sum(t.wsum.sum()) + 1.0),
             local_lap=pick(t.lap_local).mean(),
             fusion_alpha=pick(t.fusion_alpha).mean(),
             fusion_lap=pick(t.lap_fused).mean(), comp=pick(t.comp).mean(),
@@ -239,8 +242,8 @@ class SAMMattingMultiLevelAssignLoss(_SAMMattingLossBase):
         valid = ((ratio[:, None] > lo) & (ratio[:, None] < hi)).float()
         n_valid = valid.sum(1)
         per_sample = (per_level * valid).sum(1) / n_valid.clamp(min=1.0)
-        n_samples = (n_valid > 0).float().sum()
-        return per_sample.sum() / n_samples.clamp(min=1.0)
+        n_samples = global_sum((n_valid > 0).float().sum())
+        return per_sample.sum() / per_rank(n_samples.clamp(min=1.0))
 
     def __call__(self, images, preds, targets):
         t = _Terms(images, preds, targets, self.mask_threshold)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import LOSSES
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["SegCELoss", "SegMultiClassBCELoss", "SegIoULoss", "SegDiceLoss",
            "SegLovaszLoss", "SegCombinedLoss"]
@@ -43,7 +44,8 @@ def _labels(label, num_classes: int, ignore_index):
 
 
 def _masked_mean(loss, valid):
-    return (loss * valid).sum() / valid.sum().clamp(min=1.0)
+    return (loss * valid).sum() / per_rank(
+        global_sum(valid.sum()).clamp(min=1.0))
 
 
 @LOSSES.register()

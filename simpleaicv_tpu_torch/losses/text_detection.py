@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import LOSSES
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["DBNetLoss"]
 
@@ -61,10 +62,10 @@ class DBNetLoss:
         prob_loss = torch.where(count > 0, (pos_loss + neg_loss) /
                                 torch.clamp(count, min=1.0), 0.0)
 
-        t_den = t_ign.sum()
+        t_den = global_sum(t_ign.sum())
         thresh_loss = torch.where(
             t_den > 0, (torch.abs(thresh - t_mask) * t_ign).sum() /
-            torch.clamp(t_den, min=1.0), 0.0)
+            per_rank(torch.clamp(t_den, min=1.0)), 0.0)
 
         inter = (binary * p_mask * p_ign).sum()
         union = (binary * p_ign).sum() + (p_mask * p_ign).sum()

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..core.registry import LOSSES
 from ..models.instance_segmentation.decode import topk_stable
 from ..models.instance_segmentation.yolact import YOLACTAnchors
+from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["YOLACTLoss"]
 
@@ -146,23 +147,26 @@ class YOLACTLoss:
         logp = torch.log_softmax(logits, -1)
         ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
         loss = (ce * (pos | neg)).sum()
-        return torch.where(n_pos > 0, loss / n_pos.clamp(min=1), 0.0)
+        n_pos = global_sum(n_pos)
+        return torch.where(n_pos > 0, loss / per_rank(n_pos.clamp(min=1)),
+                           0.0)
 
     @staticmethod
     def _box_loss(box_preds, box_labels, cls_labels, beta=1.0):
         pos = (cls_labels > 0).float()
-        n_pos = pos.sum()
+        n_pos = global_sum(pos.sum())
         x = (box_preds.float() - box_labels).abs()
         sl1 = torch.where(x >= beta, x - 0.5 * beta, 0.5 * x * x / beta)
         loss = (sl1.sum(-1) * pos).sum()
-        return torch.where(n_pos > 0, loss / n_pos.clamp(min=1.0), 0.0)
+        return torch.where(n_pos > 0, loss / per_rank(n_pos.clamp(min=1.0)),
+                           0.0)
 
     def _mask_loss(self, coef_preds, proto_outs, gt_masks, max_gt_boxes,
                    max_gt_idx, cls_labels):
         b, hp, wp, _ = proto_outs.shape
         device = proto_outs.device
         pos = cls_labels > 0
-        n_pos_total = pos.sum()
+        n_pos_total = global_sum(pos.sum())
         sel_flag, sel = topk_stable(pos.float(), self.max_masks)  # [B, k]
         valid = sel_flag > 0
         rows = torch.arange(b, device=device)[:, None]
@@ -187,7 +191,7 @@ class YOLACTLoss:
         area = ((gbox[..., 2] - gbox[..., 0])
                 * (gbox[..., 3] - gbox[..., 1])).clamp(min=1e-8)
         total = (bce.sum((2, 3)) / area * valid).sum()
-        denom = hp * wp * n_pos_total.clamp(min=1)
+        denom = hp * wp * per_rank(n_pos_total.clamp(min=1))
         return torch.where(n_pos_total > 0, total / denom, 0.0)
 
     @staticmethod

@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops.fused_bn import FusedBatchNorm
+from ..parallel.mesh import global_sum, world_size
 
 __all__ = ["Linear", "Conv2d", "ConvTranspose2d", "BatchNorm", "LayerNorm",
            "GroupNorm", "InstanceNorm", "Embed", "ConvBnAct", "max_pool_same",
@@ -38,11 +39,16 @@ __all__ = ["Linear", "Conv2d", "ConvTranspose2d", "BatchNorm", "LayerNorm",
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises for CUDA when there is no card,
-    so a CUDA entry point never carries on quietly on the CPU."""
+    so a CUDA entry point never carries on quietly on the CPU. ``"cuda"``
+    names the current card with its index."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is "
                            f"available; pass device='cpu' to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        # the process's own card (a rank's, set by initialize_multihost),
+        # so that every comparison of devices names the same index
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -165,7 +171,8 @@ class BatchNorm(nn.Module):
     ``max(E[x^2] - E[x]^2, 0)``, with no shift; the running variance blends
     this *biased* batch variance; the output ``(x - mean) * (scale *
     rsqrt(var + eps)) + bias`` in f32, differentiated by autograd through
-    the statistics. Parameters ``weight`` and ``bias`` (flax ``scale`` and
+    the statistics. In a world of several ranks the statistics are the
+    global batch's (sums over the ranks, ``parallel.mesh.global_sum``). Parameters ``weight`` and ``bias`` (flax ``scale`` and
     ``bias``), buffers ``running_mean`` and ``running_var`` (flax
     ``batch_stats`` ``mean`` and ``var``)."""
 
@@ -191,9 +198,19 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp(xf.square().mean(dim=dims) - mean.square(),
-                              min=0.0)
+            if world_size() > 1:
+                # the global batch's statistics, differentiated through
+                # the sum over ranks
+                c = x.shape[-1]
+                sums = global_sum(torch.cat([
+                    xf.sum(dim=dims), xf.square().sum(dim=dims),
+                    xf.new_full((1,), float(x.numel() // c))]))
+                mean = sums[:c] / sums[-1]
+                sq = sums[c:2 * c] / sums[-1]
+            else:
+                mean = xf.mean(dim=dims)
+                sq = xf.square().mean(dim=dims)
+            var = torch.clamp(sq - mean.square(), min=0.0)
             if update_stats:
                 m = self.momentum
                 with torch.no_grad():

@@ -33,6 +33,19 @@ compute dtype, as the einsums' transpose in JAX does (``_f32_parts``).
 The auxiliary loss is not sown into a collection: each ``MoEFeedForward``
 keeps the value of its last forward in ``aux_loss``, and ``moe_aux_loss``
 sums them over a model.
+
+In a world of several ranks the routing is the global batch's, as the JAX
+package's on a mesh: the capacity comes from the global token count, the
+positions run over the ranks' tokens in rank order (one ``all_reduce`` of
+each rank's per-expert counts), and the load-balance and z terms are means
+over the global tokens (``parallel.mesh.global_sum``). With the expert
+stacks sharded (``shard_experts``: ``wi``/``bi``/``wo``/``bo`` split on
+their leading ``[E]`` dim over the mesh's ``fsdp`` dim, as
+``expert_param_sharding`` states), each kept choice's row is sent to the
+rank that owns its expert with ``all_to_all_single`` and its output comes
+back the same way (the all-to-all that the JAX partitioner derives from the
+dispatch and combine einsums); with them replicated, each rank runs its own
+rows. ``dispatch`` and ``combine`` serve the world of one.
 """
 
 from __future__ import annotations
@@ -43,10 +56,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from ..models.common import _lecun_normal, truncated_normal_
+from .mesh import global_sum, world_size
 
 __all__ = ["top_k_dispatch", "top_k_route", "dispatch", "combine",
-           "MoEFeedForward", "moe_aux_loss"]
+           "MoEFeedForward", "moe_aux_loss", "expert_param_sharding",
+           "shard_experts"]
+
+_EXPERT_LEAVES = ("wi", "bi", "wo", "bo")
 
 
 def _choices(probs, top_k: int):
@@ -76,21 +95,70 @@ def _aux_and_gates(probs, idxs, masks, top_k: int):
     return aux, gates
 
 
-def _positions(masks, idxs):
+def _positions(masks, idxs, starts=None):
     """Each choice's slot inside its expert's buffer [T] (int64): tokens
     earlier in the batch, and earlier choices, fill slots first. The count
     runs along the tokens of an [E, T] copy of each mask, the contiguous
     dimension (a sum down the T rows of 8 columns took 4.3 ms a call on
-    the card at T 25,216)."""
+    the card at T 25,216). ``starts`` [K, E] (int32), when given, is each
+    choice's first slot in each expert (a rank's place among the global
+    batch's); by default each choice starts where the previous ones of
+    these tokens ended."""
     e = masks[0].shape[1]
     offset = torch.zeros(e, 1, dtype=torch.int32, device=masks[0].device)
     out = []
-    for m, idx in zip(masks, idxs):
+    for k, (m, idx) in enumerate(zip(masks, idxs)):
+        if starts is not None:
+            offset = starts[k][:, None]
         mt = m.t().to(torch.int32).contiguous()          # [E, T]
         before = torch.cumsum(mt, dim=1, dtype=torch.int32) - mt + offset
         out.append(before.gather(0, idx[None, :])[0].to(torch.int64))
         offset = offset + mt.sum(dim=1, keepdim=True, dtype=torch.int32)
     return out
+
+
+def _global_starts(masks):
+    """[K, E] int32: where this rank's choices of each kind start in each
+    expert's buffer of the global batch, whose tokens are the ranks' in
+    rank order and whose first choices all come before its second ones
+    (one ``all_reduce`` of the ranks' per-expert counts)."""
+    w, r = world_size(), dist.get_rank()
+    counts = torch.zeros(w, len(masks), masks[0].shape[1], dtype=torch.int64,
+                         device=masks[0].device)
+    counts[r] = torch.stack([m.sum(dim=0) for m in masks]).to(torch.int64)
+    dist.all_reduce(counts)
+    totals = counts.sum(dim=0)                           # [K, E]
+    earlier_kinds = torch.cumsum(totals, dim=0) - totals
+    earlier_ranks = counts[:r].sum(dim=0)
+    return (earlier_kinds + earlier_ranks).to(torch.int32)
+
+
+def _global_route(logits, probs, capacity: int, top_k: int,
+                  z_weight: float, tokens: int):
+    """``top_k_route`` (and the z-loss) of this rank's tokens as part of the
+    global batch of ``tokens`` tokens: global positions and global means in
+    the auxiliary terms."""
+    e = probs.shape[1]
+    idxs, masks = _choices(probs, top_k)
+    stats = [masks[0].sum(dim=0), probs.sum(dim=0)]
+    if z_weight > 0.0:
+        stats.append(torch.logsumexp(logits, dim=-1).square().sum()[None])
+    stats = global_sum(torch.cat(stats)) / tokens
+    aux = e * (stats[:e] * stats[e:2 * e]).sum()
+    if z_weight > 0.0:
+        aux = aux + z_weight * stats[2 * e]
+    gates = [probs.gather(1, idx[:, None])[:, 0] for idx in idxs]
+    if top_k > 1:
+        denom = sum(gates)
+        gates = [g / torch.clamp(denom, min=1e-9) for g in gates]
+    slots, kept_gates = [], []
+    for idx, pos, g in zip(idxs, _positions(masks, idxs,
+                                            _global_starts(masks)), gates):
+        keep = pos < capacity
+        slots.append(torch.where(keep, idx * capacity + pos,
+                                 torch.full_like(pos, -1)))
+        kept_gates.append(g * keep.to(g.dtype))
+    return slots, kept_gates, aux
 
 
 def top_k_route(probs, capacity: int, top_k: int):
@@ -280,8 +348,10 @@ class MoEFeedForward(nn.Module):
     def forward(self, x, generator=None):
         b, n, c = x.shape
         t, e = b * n, self.num_experts
-        cap = self.capacity(t)
         xt = x.reshape(t, c)
+        if world_size() > 1:
+            return self._forward_global(xt, b, n, x.dtype)
+        cap = self.capacity(t)
         _, slots, gates, aux = self.route(xt)
         self.aux_loss = aux
         with torch.no_grad():
@@ -295,6 +365,122 @@ class MoEFeedForward(nn.Module):
         out = _ExpertProduct.apply(h.to(cd), self.wo.to(cd)) + self.bo
         y = combine(out.reshape(e * cap, c), slots, gates)
         return y.reshape(b, n, c).to(x.dtype)
+
+
+    def _expert_ffn(self, rows, j: int):
+        """Expert ``j`` of this rank's stacks on ``rows`` [R, C]: f32 [R, C]."""
+        cd = self.dtype
+        h = _ExpertProduct.apply(rows.to(cd)[None],
+                                 self.wi[j:j + 1].to(cd)) + self.bi[j:j + 1]
+        h = F.gelu(h, approximate="none")
+        return (_ExpertProduct.apply(h.to(cd), self.wo[j:j + 1].to(cd))
+                + self.bo[j:j + 1])[0]
+
+    def _forward_global(self, xt, b, n, dtype):
+        t, c = xt.shape
+        e, cd = self.num_experts, self.dtype
+        tokens = t * world_size()
+        cap = self.capacity(tokens)
+        logits = xt.float() @ self.router
+        probs = torch.softmax(logits, dim=-1)
+        slots, gates, aux = _global_route(logits, probs, cap, self.top_k,
+                                          self.router_z_weight, tokens)
+        self.aux_loss = aux
+        with torch.no_grad():
+            self.dropped = global_sum(sum((s < 0).sum() for s in slots)
+                                      .float()) / (tokens * self.top_k)
+        group = getattr(self, "expert_group", None)
+        if group is None:
+            # every rank holds every expert: its own kept rows through them
+            expert_in = dispatch(xt.to(cd), slots, cap, e)
+            h = _ExpertProduct.apply(expert_in, self.wi.to(cd)) + self.bi
+            h = F.gelu(h, approximate="none")
+            out = _ExpertProduct.apply(h.to(cd), self.wo.to(cd)) + self.bo
+            y = combine(out.reshape(e * cap, c), slots, gates)
+            return y.reshape(b, n, c).to(dtype)
+        return self._exchange(xt, slots, gates, cap, group).reshape(
+            b, n, c).to(dtype)
+
+    def _exchange(self, xt, slots, gates, cap: int, group):
+        """The kept rows to their experts' owners and back (two
+        ``all_to_all_single`` with autograd, one of the expert indices and
+        one of the counts), each choice's output times its gate summed into
+        its token's row."""
+        from torch.distributed.nn.functional import all_to_all_single
+        t, c = xt.shape
+        owners = dist.get_world_size(group)
+        per = self.wi.shape[0]                        # experts on each rank
+        slot = torch.cat(slots)
+        token = torch.arange(t, device=xt.device).repeat(len(slots))
+        gate = torch.cat(gates)
+        kept = torch.nonzero(slot >= 0)[:, 0]
+        expert = slot[kept] // cap
+        order = kept[torch.argsort(expert, stable=True)]
+        expert = slot[order] // cap
+        owner = expert // per
+        send_counts = torch.bincount(owner, minlength=owners)
+        recv_counts = torch.empty_like(send_counts)
+        dist.all_to_all_single(recv_counts, send_counts, group=group)
+        send_sizes, recv_sizes = send_counts.tolist(), recv_counts.tolist()
+        recv_expert = expert.new_empty(sum(recv_sizes))
+        dist.all_to_all_single(recv_expert, expert - owner * per, recv_sizes,
+                               send_sizes, group=group)
+        rows = all_to_all_single(
+            xt.new_empty(sum(recv_sizes), c), xt[token[order]], recv_sizes,
+            send_sizes, group=group)
+        out = rows.new_zeros(rows.shape[0], c, dtype=torch.float32)
+        for j in range(per):
+            mine = torch.nonzero(recv_expert == j)[:, 0]
+            if mine.numel():
+                out = out.index_copy(0, mine,
+                                     self._expert_ffn(rows[mine], j))
+        back = all_to_all_single(out.new_empty(len(order), c), out,
+                                 send_sizes, recv_sizes, group=group)
+        return torch.zeros(t, c, device=xt.device).index_add(
+            0, token[order], back * gate[order][:, None])
+
+
+def expert_param_sharding(mesh, model: nn.Module, axis: str = "fsdp"):
+    """The expert stacks' sharding (counterpart of the JAX package's):
+    ``{name: 0 or None}`` over ``model``'s parameters, 0 (the leading
+    ``[E]`` dim split over ``mesh``'s ``axis``) for the ``wi``, ``bi``,
+    ``wo`` and ``bo`` of each ``MoEFeedForward`` whose expert count the
+    axis divides, None (replicated) for everything else."""
+    n_ax = 1 if mesh is None else mesh[axis].size()
+    out = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        out[name] = 0 if (leaf in _EXPERT_LEAVES and n_ax > 1
+                          and p.shape[0] % n_ax == 0) else None
+    return out
+
+
+@torch.no_grad()
+def shard_experts(model: nn.Module, mesh, axis: str = "fsdp"):
+    """Keeps on this rank only its slice of each expert stack that
+    ``expert_param_sharding`` shards: the experts ``[i * E / n, (i + 1) *
+    E / n)`` for rank ``i`` of ``n`` along ``axis``. Each such layer sends
+    its rows to the experts' owners (``expert_group``), and the engine
+    averages the slices' gradients over the ranks that hold the same
+    experts (the other mesh dim). Call it before the optimizer is built."""
+    plan = expert_param_sharding(mesh, model, axis)
+    if not any(d is not None for d in plan.values()):
+        return model
+    others = [d for d in mesh.mesh_dim_names if d != axis]
+    replicas = mesh[others[0]].get_group() if others else None
+    n, i = mesh[axis].size(), mesh[axis].get_local_rank()
+    names = {id(p): name for name, p in model.named_parameters()}
+    for m in model.modules():
+        if not isinstance(m, MoEFeedForward) or plan[names[id(m.wi)]] is None:
+            continue
+        per = m.num_experts // n
+        for leaf in _EXPERT_LEAVES:
+            part = nn.Parameter(getattr(m, leaf)[i * per:(i + 1) * per]
+                                .clone())
+            part._sync_group = replicas
+            setattr(m, leaf, part)
+        m.expert_group = mesh[axis].get_group()
+    return model
 
 
 def moe_aux_loss(model: nn.Module):

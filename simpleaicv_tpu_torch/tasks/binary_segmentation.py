@@ -10,6 +10,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..parallel.mesh import sum_over_ranks
+
 __all__ = ["make_loss_fn", "make_eval_fn", "make_evaluate"]
 
 
@@ -58,7 +60,8 @@ def make_eval_fn(threshold: float = 0.5) -> Callable:
 def make_evaluate(beta_sq: float = 0.3):
     """``evaluate(eval_step, model, loader, shard_fn)``: the mean IoU,
     precision and recall over the images and the F-beta of the two means
-    (beta^2 = ``beta_sq``); ``key_metric`` is the mean IoU."""
+    (beta^2 = ``beta_sq``); ``key_metric`` is the mean IoU. The sums are
+    summed over the ranks."""
 
     def evaluate(eval_step, model, loader, shard_fn) -> dict:
         iou = prec = rec = n = 0.0
@@ -68,10 +71,12 @@ def make_evaluate(beta_sq: float = 0.3):
             prec += float(m["precision_sum"])
             rec += float(m["recall_sum"])
             n += float(m["n"])
+        iou, prec, rec, n = sum_over_ranks([iou, prec, rec, n]).tolist()
         n = max(n, 1.0)
         p, r = prec / n, rec / n
         f = (1 + beta_sq) * p * r / max(beta_sq * p + r, 1e-4)
         return {"miou": iou / n, "precision": p, "recall": r,
                 "f_squared_beta": f, "key_metric": iou / n}
 
+    evaluate.sums_over_ranks = True
     return evaluate

@@ -10,6 +10,7 @@ from typing import Callable
 import torch
 
 from ..core.meters import AccMeter
+from ..parallel.mesh import sum_over_ranks
 from ..parallel.moe import moe_aux_loss
 
 
@@ -66,11 +67,19 @@ def make_eval_fn(output_index=None) -> Callable:
 
 def evaluate(eval_step, model, loader, shard_fn) -> dict:
     """Host loop over the eval loader -> {'acc1': %, 'acc5': %};
-    ``shard_fn`` puts a batch on the model's device."""
+    ``shard_fn`` puts a batch on the model's device. The counts are summed
+    over the ranks, each of which read its share of the set."""
     meter = AccMeter()
     for batch in loader:
         m = eval_step(model, shard_fn(batch))
         meter.update(float(m["acc1_correct"]), float(m["acc5_correct"]),
                      float(m["n"]))
+    (meter.acc1_correct_num, meter.acc5_correct_num,
+     meter.sample_num) = sum_over_ranks([meter.acc1_correct_num,
+                                         meter.acc5_correct_num,
+                                         meter.sample_num]).tolist()
     acc1, acc5 = meter.compute()
     return {"acc1": acc1, "acc5": acc5, "key_metric": acc1}
+
+
+evaluate.sums_over_ranks = True

@@ -9,6 +9,8 @@ from typing import Callable
 
 import torch
 
+from ..parallel.mesh import sum_over_ranks
+
 __all__ = ["make_loss_fn", "make_eval_fn", "make_evaluate",
            "alpha_error_sums"]
 
@@ -75,7 +77,8 @@ def make_eval_fn() -> Callable:
 def make_evaluate():
     """``evaluate(eval_step, model, loader, shard_fn)``: the mean SAD, MAE
     and MSE over the images of the eval step's ``alpha_error_sums``;
-    ``key_metric`` is minus the SAD."""
+    ``key_metric`` is minus the SAD. The sums are summed over the
+    ranks."""
 
     def evaluate(eval_step, model, loader, shard_fn) -> dict:
         sums = dict.fromkeys(("sad_sum", "mae_sum", "mse_sum", "n"), 0.0)
@@ -83,9 +86,11 @@ def make_evaluate():
             m = eval_step(model, shard_fn(batch))
             for k in sums:
                 sums[k] += float(m[k])
+        sums = dict(zip(sums, sum_over_ranks(list(sums.values())).tolist()))
         n = max(sums["n"], 1.0)
         sad = sums["sad_sum"] / n
         return {"sad": sad, "mae": sums["mae_sum"] / n,
                 "mse": sums["mse_sum"] / n, "key_metric": -sad}
 
+    evaluate.sums_over_ranks = True
     return evaluate

@@ -12,6 +12,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import sum_over_ranks
+
 __all__ = ["make_loss_fn", "make_eval_fn", "make_evaluate"]
 
 
@@ -59,7 +61,7 @@ def make_evaluate(num_classes: int):
     """``evaluate(eval_step, model, loader, shard_fn)``: the areas summed on
     the host in float64 over the loader, then mIoU, mean precision, recall
     and dice in percent over the classes with ground truth; ``key_metric``
-    is the mIoU. (The JAX package's also takes the ignore index, which
+    is the mIoU; the areas are summed over the ranks. (The JAX package's also takes the ignore index, which
     only its eval function uses.)"""
 
     def evaluate(eval_step, model, loader, shard_fn) -> dict:
@@ -71,6 +73,7 @@ def make_evaluate(num_classes: int):
             tot_i += m["area_intersect"].double().cpu().numpy()
             tot_p += m["area_pred"].double().cpu().numpy()
             tot_g += m["area_gt"].double().cpu().numpy()
+        tot_i, tot_p, tot_g = sum_over_ranks(np.stack([tot_i, tot_p, tot_g]))
         union = tot_p + tot_g - tot_i
         present = tot_g > 0
         iou = np.where(union > 0, tot_i / np.clip(union, 1e-9, None), 0.0)
@@ -87,4 +90,5 @@ def make_evaluate(num_classes: int):
                 "mean_recall": mean(recall), "mean_dice": mean(dice),
                 "key_metric": miou}
 
+    evaluate.sums_over_ranks = True
     return evaluate

@@ -6,6 +6,9 @@ reads ``<dir>/test_config.py``, restores ``trained_model_path`` (a port
 checkpoint, for example ``checkpoints/best``) onto the seeded model, and
 logs the MACs and parameters, then top-1 and top-5. It runs on the card, or
 on the CPU under ``SIMPLEAICV_PLATFORM=cpu``.
+
+Under ``torchrun`` each rank evaluates its share of the set and the
+meters are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from ..core.profile import compute_macs_and_params, format_macs_params
 from ..core.trainer import batch_to_device
 from ..data.loader import DataLoader
 from ..models.common import init_params, resolve_device
+from ..parallel.multihost import initialize_multihost
 from ..tasks import classification
 from .common import load_test_config, parse_work_dir, restore_trained_params
 
 
 def main(argv=None):
     args = parse_work_dir("classification evaluation", argv)
+    initialize_multihost()  # a no-op unless torchrun started it
     config = load_test_config(args)
     logger = get_logger("test")
     device = resolve_device(device_from_env())

@@ -7,6 +7,9 @@ checkpoint, for example ``checkpoints/best``, with its BatchNorm
 statistics, which the JAX CLI does not restore) onto the seeded model and
 logs the mean SAD, MAE and MSE of the fused alpha. It runs on the card, or
 on the CPU under ``SIMPLEAICV_PLATFORM=cpu``.
+
+Under ``torchrun`` each rank evaluates its share of the set and the
+meters are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..core.platform import device_from_env
 from ..core.trainer import batch_to_device
 from ..data.loader import DataLoader
 from ..models.common import init_params, resolve_device
+from ..parallel.multihost import initialize_multihost
 from ..tasks import matting
 from .common import load_test_config, parse_work_dir, restore_trained_params
 
@@ -26,6 +30,7 @@ from .common import load_test_config, parse_work_dir, restore_trained_params
 def main(argv=None):
     """Returns the metrics and 'key_metric' (minus the mean SAD)."""
     args = parse_work_dir("human-matting evaluation", argv)
+    initialize_multihost()  # a no-op unless torchrun started it
     config = load_test_config(args)
     logger = get_logger("test")
     device = resolve_device(device_from_env())

@@ -8,6 +8,9 @@ checkpoint, for example ``checkpoints/best``, with its BatchNorm
 statistics) onto the seeded model and logs the mean IoU, precision, recall
 and F-beta. It runs on the card, or on the CPU under
 ``SIMPLEAICV_PLATFORM=cpu``.
+
+Under ``torchrun`` each rank evaluates its share of the set and the
+meters are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..core.platform import device_from_env
 from ..core.trainer import batch_to_device
 from ..data.loader import DataLoader
 from ..models.common import init_params, resolve_device
+from ..parallel.multihost import initialize_multihost
 from ..tasks import binary_segmentation as bseg
 from .common import load_test_config, parse_work_dir, restore_trained_params
 
@@ -27,6 +31,7 @@ from .common import load_test_config, parse_work_dir, restore_trained_params
 def main(argv=None):
     """Returns the metrics and 'key_metric' (the mean IoU)."""
     args = parse_work_dir("salient-object-detection evaluation", argv)
+    initialize_multihost()  # a no-op unless torchrun started it
     config = load_test_config(args)
     logger = get_logger("test")
     device = resolve_device(device_from_env())

@@ -9,6 +9,9 @@ statistics) onto the seeded model, logs its MACs and parameters, then the
 mIoU, precision, recall and dice. The face- and human-parsing CLIs evaluate
 the same way. It runs on the card, or on the CPU under
 ``SIMPLEAICV_PLATFORM=cpu``.
+
+Under ``torchrun`` each rank evaluates its share of the set and the
+meters are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..core.profile import compute_macs_and_params, format_macs_params
 from ..core.trainer import batch_to_device
 from ..data.loader import DataLoader
 from ..models.common import init_params, resolve_device
+from ..parallel.multihost import initialize_multihost
 from ..tasks import semantic_segmentation as seg
 from .common import load_test_config, parse_work_dir, restore_trained_params
 
@@ -30,6 +34,7 @@ def evaluate(description: str, argv=None):
     """Evaluates the work dir's test config; returns the metrics and
     'key_metric' (the mIoU)."""
     args = parse_work_dir(description, argv)
+    initialize_multihost()  # a no-op unless torchrun started it
     config = load_test_config(args)
     logger = get_logger("test")
     device = resolve_device(device_from_env())

@@ -8,6 +8,9 @@ of a train step's parameter changes against the JAX step's."""
 from __future__ import annotations
 
 import contextlib
+import fcntl
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -307,3 +310,71 @@ def assert_values_equal(a, b, where=""):
         np.testing.assert_array_equal(a, b, err_msg=where)
     else:
         assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def jax_mesh_steps(model, criterion, variables, batches, opt, sched, engine,
+                   mesh, min_size=None, steps_per_epoch=10):
+    """The JAX engine's steps of ``model`` (a flax module) with
+    ``criterion`` on ``mesh``: the batch sharded over every mesh axis and,
+    with ``min_size``, the parameters by ``infer_param_sharding``.
+    ``variables`` holds numpy ``params`` and maybe ``batch_stats``;
+    ``opt``, ``sched`` and ``engine`` are the configs' fields. Returns the
+    losses and numpy copies of the parameters, the batch statistics (or
+    None) and the EMA parameters (or None), in f32 compute."""
+    from simpleaicv_tpu.core import engine as jax_engine
+    from simpleaicv_tpu.core import optim as jax_optim
+    from simpleaicv_tpu.core import schedule as jax_schedule
+    from simpleaicv_tpu.parallel.mesh import (batch_sharding,
+                                              infer_param_sharding,
+                                              replicated)
+    from simpleaicv_tpu.tasks import classification as jax_task
+
+    with jax_f32():
+        params = jax.tree.map(jnp.asarray, variables["params"])
+        state_vars = {k: jax.tree.map(jnp.asarray, v)
+                      for k, v in variables.items() if k != "params"}
+        if min_size is not None:
+            params = jax.device_put(params, infer_param_sharding(
+                mesh, params, min_size=min_size))
+        state_vars = jax.device_put(state_vars, replicated(mesh))
+        cfg = jax_engine.EngineConfig(**engine)
+        tx, _ = jax_optim.build_optimizer(
+            jax_optim.OptimizerConfig(**opt),
+            jax_schedule.SchedulerConfig(**sched), steps_per_epoch, params)
+        state = jax_engine.create_train_state(params, state_vars, tx, cfg)
+        step = jax_engine.make_train_step(
+            jax_task.make_loss_fn(model, criterion), tx, cfg, mesh=mesh,
+            donate=False)
+        bsh = batch_sharding(mesh)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: jax.device_put(np.asarray(v), bsh)
+                                    for k, v in b.items()},
+                            jax.random.PRNGKey(0))
+            losses.append(float(m["loss"]))
+    tree = lambda t: None if t is None else jax.tree.map(  # noqa: E731
+        lambda a: np.array(a), t)
+    return (losses, tree(state.params),
+            tree(state.state_vars.get("batch_stats")), tree(state.ema_params))
+
+
+def shared_result(tmp_path_factory, name: str, fn):
+    """``fn()`` computed once for every test process of a run and read
+    back by the others (pytest-xdist's workers share the parent of their
+    base temporary directories): a lock file makes the other processes
+    wait for the first one's result. ``name`` names what ``fn`` computes,
+    whole: two calls under one name must compute the same thing."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = fn()
+        with open(f"{path}.tmp", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(f"{path}.tmp", path)
+        return out
