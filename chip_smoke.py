@@ -50,14 +50,29 @@ Phases, each of which raises (exit code 1) on failure:
      reference points, and at DINO-DETR's encoder and decoder launches at
      batch 2 (the plain version run over chunks of queries), and times them
      there beside their bound, the reference's grid_sample composition and
-     their narrow variants (K7 in alternating rounds);
+     their narrow variants (K7 in alternating rounds); then DCNv2
+     (``ops/dcnv2.py``) at a detection head's shape, x [2, 100, 100, 256],
+     3x3, 256 out, forward and backward through K7 and K7b (8 heads of 32,
+     one level, one point a query; no narrow launch) against the same
+     layer on the plain sampler, timed beside it (path ``dcnv2``);
   7. DINO-DETR training: takes resnet50_dinodetr 1024x1024 train steps at
      batch 2 through ``make_train_step`` (the res50_dinodetr_yoloresize1024
      recipe's DINODETRLoss, AdamW with the backbone at 1e-5 and clipping at
      0.1, MultiStepLR) on batches from the port's synthetic dataset and
      collater, counts the MSDA kernels' launches of every step, times the
      host's Hungarian matchings, profiles one step, and compares one step at
-     batch 1 with the same model on the plain MSDA;
+     batch 1 with the same model on the plain MSDA; then 3 steps with
+     ``matcher="auction"`` (the auction on the card), each matching held
+     to the Hungarian one on the same costs within n_gt * eps of its total
+     (path ``dino_auction_train``);
+  7b. export: ``torch.library.opcheck`` on the seven kernels' operators on
+     the card; ViT-B/16 with flash attention (224^2, batch 8), SAM-B's
+     image encoder (1024^2) and DINO-DETR R50 (1024^2, batch 1) exported
+     through ``tools/convert_to_export.py``'s functions, saved, loaded and
+     run, K1 12, K4 4 and K7 12 launches (paths ``export_vit``,
+     ``export_sam``, ``export_dino``), each held to the eager model; one
+     exported run traced by ``core/tracing.py::trace``, whose Chrome trace
+     must name K1's kernel;
   8. probes: holds the roofline probes P1-P3 against their plain versions
      (P1 and P2 through their streams and their narrow variants) at
      ResNet-50's layer-1 and layer-2 1x1 shapes and a ragged M, times P1
@@ -230,6 +245,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import random
 import re
 import statistics
@@ -291,7 +307,7 @@ from simpleaicv_tpu_torch.models.interactive_segmentation.light_sam import (
     SAMDistillEncoderModel, SAMDistillModel)
 from simpleaicv_tpu_torch.ops import _build
 from simpleaicv_tpu_torch.ops import flash_attention as fa
-from simpleaicv_tpu_torch.ops import msda
+from simpleaicv_tpu_torch.ops import dcnv2, msda
 from simpleaicv_tpu_torch.ops.fused_bn import FusedBatchNorm, bn_train
 from simpleaicv_tpu_torch.ops.upsample import resize_bilinear
 from simpleaicv_tpu_torch.perf import bw_probe, matmul_probe
@@ -315,6 +331,8 @@ from simpleaicv_tpu_torch.tasks import text_detection as text_det_task
 from simpleaicv_tpu_torch.tasks import text_recognition as text_rec_task
 from simpleaicv_tpu_torch.tasks.classification import make_loss_fn
 from simpleaicv_tpu_torch.tasks.detection import make_detr_loss_fn
+from simpleaicv_tpu_torch.core import tracing
+from simpleaicv_tpu_torch.tools import convert_to_export as export_tool
 from simpleaicv_tpu_torch.tools import test_classification as cls_test_cli
 from simpleaicv_tpu_torch.tools import test_detection as det_test_cli
 from simpleaicv_tpu_torch.tools import train_classification as cls_train_cli
@@ -2272,9 +2290,128 @@ def phase_msda_kernels(card):
     kernels = _msda_times(card, "encoder", sum(hh * ww for hh, ww in
                                                DINO_LEVELS), 70, boxes=False)
     decoder = _msda_times(card, "decoder", DINO_QUERIES, 71, boxes=True)
-    for kernel, other in zip(kernels, decoder):
-        kernel["other_shapes"] = [_reading(other)]
-    return kernels
+    dcn_readings, dcn_launches = _dcnv2_leg(card)
+    for kernel, other, dcn in zip(kernels, decoder, dcn_readings):
+        kernel["other_shapes"] = [_reading(other), dcn]
+    return kernels, dcn_launches
+
+
+# DCNv2 at a detection head's shape: [B, H, W, C] in, 3x3 taps, O out
+DCN_SHAPE = (2, 100, 100, 256)
+DCN_OUT, DCN_K = 256, 3
+
+
+def _dcnv2_plain(x, off, mask, kernel):
+    """``ops/dcnv2.py::deform_conv2d`` with the plain MSDA sampler (and its
+    autograd) in the kernels' place: the comparison's reference."""
+    b, _, _, c = x.shape
+    ho, wo = off.shape[1], off.shape[2]
+    k = kernel.shape[0]
+    sampled = msda.ms_deform_attn_reference(
+        *dcnv2.sample_layout(x, off, mask, k))
+    out = sampled.reshape(b * ho * wo, k * k * c) @ kernel.reshape(
+        k * k * c, -1)
+    return out.reshape(b, ho, wo, -1)
+
+
+def _dcnv2_leg(card):
+    """DCNv2 forward and backward through K7 and K7b (channels as 8 heads
+    of 32, one level, one point a query: 180,000 queries) against the same
+    function on the plain sampler, on the card; no narrow launch. Times
+    each kernel at this launch beside the plain sampler, the grid_sample
+    composition and its bound, and the whole layer (forward and backward)
+    beside the plain one. Returns (the K7 and K7b readings, the path's
+    launches)."""
+    b, h, w, c = DCN_SHAPE
+    k, kk = DCN_K, DCN_K * DCN_K
+    g = torch.Generator(device="cuda").manual_seed(80)
+    x = torch.randn(DCN_SHAPE, device="cuda", generator=g)
+    off = torch.randn((b, h, w, 2 * kk), device="cuda", generator=g) * 2.5
+    mask = torch.rand((b, h, w, kk), device="cuda", generator=g)
+    kernel = torch.randn((k, k, c, DCN_OUT), device="cuda",
+                         generator=g) * (k * k * c)**-0.5
+    grad = torch.randn((b, h, w, DCN_OUT), device="cuda", generator=g)
+    value, shapes, loc, wts = dcnv2.sample_layout(x, off, mask, k)
+    if (msda._msda_fwd_variant(value, shapes, loc),
+            msda._msda_bwd_variant(value, shapes, loc)) != ("tiled", "tiled"):
+        raise RuntimeError("DCNv2's sampling misses the tiled kernels")
+
+    def through(fn):
+        inputs = [t.detach().requires_grad_() for t in (x, off, mask, kernel)]
+        out = fn(*inputs)
+        out.backward(grad)
+        return [out.detach()] + [t.grad for t in inputs]
+
+    _reset_launches()
+    got = through(dcnv2.deform_conv2d)
+    torch.cuda.synchronize()
+    launches = {n: msda.KERNEL_LAUNCHES[n] for n in MSDA_KERNELS}
+    if launches != {"msda_fwd": 1, "msda_bwd": 1}:
+        raise RuntimeError(f"DCNv2 launched {launches}, not one K7 and one "
+                           f"K7b")
+    _wide_kernels_only("dcnv2")
+    want = through(_dcnv2_plain)
+    errs = [_rel_err(a, w) for a, w in zip(got, want)]
+    print(f"dcnv2 x {list(DCN_SHAPE)}, {k}x{k}, {DCN_OUT} out [{card}]: "
+          f"through K7/K7b against the plain sampler, max error over each "
+          f"tensor's largest value: out {errs[0]:.3e}, x {errs[1]:.3e}, "
+          f"offsets {errs[2]:.3e}, mask {errs[3]:.3e}, kernel {errs[4]:.3e} "
+          f"(tolerance 1e-5); launches {launches}, none narrow", flush=True)
+    if max(errs) > 1e-5:
+        raise RuntimeError("DCNv2 through K7/K7b disagrees with its plain "
+                           "version")
+    abs_fwd = (got[0] - want[0]).abs().max().item()
+    abs_bwd = max((a - w).abs().max().item()
+                  for a, w in zip(got[1:], want[1:]))
+    del got, want
+
+    layer_ms = _cuda_ms(lambda: through(dcnv2.deform_conv2d), 5)
+    plain_layer_ms = _cuda_ms(lambda: through(_dcnv2_plain), 3)
+    loc, wts = loc.contiguous(), wts.contiguous()
+    gout = torch.randn((b, loc.shape[1], c), device="cuda", generator=g)
+    ms_fwd = _cuda_ms(lambda: msda._msda_fwd_cuda(value, shapes, loc, wts),
+                      20)
+    ms_bwd = _cuda_ms(lambda: msda._msda_bwd_cuda(value, shapes, loc, wts,
+                                                  gout), 20)
+    plain_fwd = _cuda_ms(lambda: msda.ms_deform_attn_reference(
+        value, shapes, loc, wts), 3)
+    plain_bwd = _cuda_ms(lambda: msda.ms_deform_attn_backward_reference(
+        value, shapes, loc, wts, gout), 3)
+    lib_fwd = _cuda_ms(lambda: _grid_sample_msda(value, shapes, loc, wts), 5)
+    leaves = [t.detach().requires_grad_() for t in (value, loc, wts)]
+    lib_out = _grid_sample_msda(leaves[0], shapes, *leaves[1:])
+    lib_bwd = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, gout, retain_graph=True), 3)
+    del lib_out, leaves
+    print(f"dcnv2 layer forward and backward [{card}]: {layer_ms:.4f} ms "
+          f"through K7/K7b, {plain_layer_ms:.4f} ms on the plain sampler",
+          flush=True)
+    inside, touched = _corners(shapes, loc)
+    samples, d, heads = loc[..., 0].numel(), value.shape[3], value.shape[2]
+    f32 = 4
+    needed, tensor = touched * d * f32, value.numel() * f32
+    rows = b * loc.shape[1] * heads * d * f32
+    locs, weights = samples * 2 * f32, samples * f32
+    readings = []
+    for kname, ms, plain_ms, lib_ms, err, flops, nbytes in (
+            ("msda_fwd", ms_fwd, plain_fwd, lib_fwd, abs_fwd,
+             (inside * 2 + samples * 5) * d, needed + locs + weights + rows),
+            ("msda_bwd", ms_bwd, plain_bwd, lib_bwd, abs_bwd,
+             (inside * 5 + samples * 14) * d,
+             needed + tensor + 2 * (locs + weights) + rows)):
+        bound_ms, bound_by = _bound(flops, nbytes, torch.float32)
+        print(f"{kname} DCNv2 launch [{card}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, grid_sample composition {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by}; {samples} samples, "
+              f"{inside} inside corners", flush=True)
+        readings.append({
+            "shape": f"B={b} Lq={loc.shape[1]} S={h * w} H={heads} D={d} L=1 "
+                     f"P=1 f32 (dcnv2 x {list(DCN_SHAPE)}, {k}x{k}, "
+                     f"{DCN_OUT} out)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "layer_ms": layer_ms, "plain_layer_ms": plain_layer_ms})
+    return readings, launches
 
 
 # ---------------------------- DINO-DETR training ----------------------------
@@ -2636,7 +2773,99 @@ def phase_dino_training(card, warm_up=3, timed=10):
     if not (abs(loss_a - loss_b) <= 1e-4 * abs(loss_b) and rel <= 1e-2
             and cos >= 0.99 and fed_rel <= 1e-2 and fed_cos >= 0.999):
         raise RuntimeError("the kernel path disagrees with the plain MSDA")
-    return launches, ips
+    del states, models, step, grads_a, grads_b, grads_c
+    torch.cuda.empty_cache()
+    return launches, ips, _dino_auction_leg(card, batches)
+
+
+DINO_AUCTION_STEPS = 3
+
+
+def _auction_gap(matched, hungarian, cost, valid):
+    """(total cost of the auction's pairs minus the Hungarian one's, the
+    auction's bound n_gt * eps, gts the auction left unmatched) of one
+    image: eps is the auction's own, 1e-4 of the span of the valid costs
+    and at least 1e-3."""
+    n_gt = int(valid.sum())
+    c = cost.float()
+    eps = max(c[:, valid].abs().max().clamp(min=1.0).item() * 1e-4, 1e-3)
+    totals = []
+    for m in (matched, hungarian):
+        rows = m >= 0
+        totals.append(c[rows, m[rows]].double().sum().item())
+    return totals[0] - totals[1], n_gt * eps, n_gt - int((matched >= 0).sum())
+
+
+def _dino_auction_leg(card, batches):
+    """3 steps of resnet50_dinodetr 1024^2 with ``matcher="auction"`` (the
+    auction on the card, ``ops/matcher.py``) through ``make_train_step``:
+    K7 and K7b 12 launches each a step, and every matching of every step
+    (6 decoder layers and the encoder proposals) held to scipy's Hungarian
+    one on the same costs within the auction's bound of n_gt * eps on the
+    total cost (a gt the auction leaves unmatched at its iteration cap is
+    counted and printed). Returns the path's launches."""
+    model = _dino_model(seed=1)
+    state, cfg = _dino_state(model)
+    step = make_train_step(make_detr_loss_fn(LOSSES.create(
+        "DINODETRLoss", num_classes=80, matcher="auction")), cfg)
+    record = []
+    inner = dino_loss.auction_match_batch
+
+    def timed(cost, valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(cost, valid)
+        torch.cuda.synchronize()
+        record.append((out, (time.perf_counter() - t0) * 1e3,
+                       cost.detach().clone(), valid.clone()))
+        return out
+
+    _reset_launches()
+    dino_loss.auction_match_batch = timed
+    try:
+        losses = []
+        for i in range(DINO_AUCTION_STEPS):
+            state, metrics = _dino_step(step, state, batches[i % 2],
+                                        DINO_STEP_LAUNCHES)
+            losses.append(metrics["loss"].item())
+    finally:
+        dino_loss.auction_match_batch = inner
+    launches = {k: msda.KERNEL_LAUNCHES[k] for k in MSDA_KERNELS}
+    _wide_kernels_only("the DINO-DETR auction train step")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss with the auction: {losses}")
+    if len(record) != 7 * DINO_AUCTION_STEPS:
+        raise RuntimeError(f"{len(record)} auction matchings, expected "
+                           f"{7 * DINO_AUCTION_STEPS}")
+    worst, unmatched, hung_ms, over = 0.0, 0, [], []
+    for matched, _, cost, valid in record:
+        t0 = time.perf_counter()
+        hungarian = dino_loss.hungarian_match(cost, valid)
+        hung_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(cost.shape[0]):
+            if not valid[i].any():
+                continue
+            gap, bound, left = _auction_gap(matched[i], hungarian[i],
+                                            cost[i], valid[i])
+            worst = max(worst, gap / bound)
+            unmatched += left
+            if gap > bound:
+                over.append((gap, bound, left))
+    auction_ms = [entry[1] for entry in record]
+    print(f"DINO-DETR R50 1024^2 with the auction matcher, batch "
+          f"{DINO_BATCH}, {DINO_AUCTION_STEPS} steps [{card}]: launches "
+          f"{launches}, losses {' '.join(f'{v:.4f}' for v in losses)}; "
+          f"{len(record)} matchings, each within the bound n_gt * eps of "
+          f"the Hungarian total on the same costs (largest gap "
+          f"{worst:.3f} of the bound; {unmatched} gts left unmatched); the "
+          f"auction {sum(auction_ms) / DINO_AUCTION_STEPS:.2f} ms a step on "
+          f"the card (synchronised), scipy's Hungarian "
+          f"{sum(hung_ms) / DINO_AUCTION_STEPS:.2f} ms a step with its copy "
+          f"to the host", flush=True)
+    if over:
+        raise RuntimeError(f"auction matchings outside n_gt * eps of the "
+                           f"Hungarian total: {over}")
+    return launches
 
 
 PROBE_KERNELS = ("probe_mm", "probe_mm_stats", "probe_scale")
@@ -6930,6 +7159,164 @@ def phase_parallel(card):
             "parallel_pipeline_vit": sums("pipe_launches")}
 
 
+# ------------------------------- export -------------------------------
+
+EXPORT_VIT_BATCH = 8
+# the exported programs' outputs against the eager model's: bf16 models,
+# the same kernels and the same ATen operators, so the largest difference
+# stays within a bf16 step (2^-8) of the output's largest value
+EXPORT_TOL = 1e-2
+
+
+def _op_cases_on_card():
+    """(name, operator, arguments) of the seven kernels' operators at small
+    shapes on the card, bf16 where the kernel takes it; the forwards'
+    inputs require gradients, so that opcheck runs their autograd."""
+    g = torch.Generator(device="cuda").manual_seed(90)
+
+    def t(*shape, grad=False, dt=torch.bfloat16):
+        return torch.randn(shape, device="cuda", generator=g).to(
+            dt).requires_grad_(grad)
+
+    q, k, v = (t(1, 2, 200, 64, grad=True) for _ in range(3))
+    o, lse = fa._FLASH_FWD(q.detach(), k.detach(), v.detach())
+    rq, rk, rv = (t(2, 256, 64, grad=True) for _ in range(3))
+    rh, rw = (t(2, 256, 16, grad=True, dt=torch.float32) for _ in range(2))
+    ro, rlse = fa._RELPOS_FWD(*(x.detach() for x in (rq, rk, rv, rh, rw)))
+    do = t(2, 256, 64)
+    relpos_bwd = (*(x.detach() for x in (rq, rk, rv, rh, rw)), do, rlse,
+                  (do.float() * ro.float()).sum(-1))
+    shapes = [16, 16, 8, 8]
+    value = t(2, 320, 8, 32, grad=True, dt=torch.float32)
+    loc = torch.rand((2, 50, 8, 2, 4, 2), device="cuda",
+                     generator=g).requires_grad_()
+    wts = torch.rand((2, 50, 8, 2, 4), device="cuda",
+                     generator=g).requires_grad_()
+    return [("K1", fa._FLASH_FWD, (q, k, v)),
+            ("K2+K3", fa._FLASH_BWD, (q.detach(), k.detach(), v.detach(), o,
+                                      lse, t(1, 2, 200, 64))),
+            ("K4", fa._RELPOS_FWD, (rq, rk, rv, rh, rw)),
+            ("K5", fa._RELPOS_DQ, relpos_bwd),
+            ("K6", fa._RELPOS_DKV, relpos_bwd),
+            ("K7", msda._MSDA_FWD, (value, loc, wts, shapes)),
+            ("K7b", msda._MSDA_BWD, (value.detach(), loc.detach(),
+                                     wts.detach(),
+                                     t(2, 50, 256, dt=torch.float32),
+                                     shapes))]
+
+
+def _launched():
+    return {k: v for counts in (fa.KERNEL_LAUNCHES, msda.KERNEL_LAUNCHES)
+            for k, v in counts.items() if v}
+
+
+def _max_rel(got, want):
+    if isinstance(want, dict):
+        return max(_max_rel(got[k], v) for k, v in want.items()
+                   if torch.is_tensor(v) and v.is_floating_point())
+    return _rel_err(got, want)
+
+
+def _export_case(card, label, model, image, batch, expected, work_dir):
+    """Exports ``model``'s evaluation forward through the export tool's
+    functions, saves and loads the program, runs it on a seeded image
+    batch with the launches counted, and holds it to the eager model.
+    Returns (the launches, the loaded program, its input)."""
+    t0 = time.perf_counter()
+    program = export_tool.export_model(model, image, batch, "cuda")
+    export_s = time.perf_counter() - t0
+    nodes = export_tool.simpleaicv_nodes(program)
+    path = f"{work_dir}/{label}.pt2"
+    torch.export.save(program, path)
+    loaded = export_tool.load_program(path)
+    x = torch.randn((batch, image, image, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(91))
+    run = loaded.module()
+    with torch.no_grad():
+        _reset_launches()
+        out = run(x)
+        torch.cuda.synchronize()
+        launches = _launched()
+        _wide_kernels_only(f"the exported {label}")
+        want = model(x)
+        timer, eager_timer = tracing.StepTimer(), tracing.StepTimer()
+        for _ in range(4):
+            timer.start()
+            timer.stop(run(x) if label != "dino" else run(x)["pred_boxes"])
+            eager_timer.start()
+            eager_timer.stop(model(x) if label != "dino"
+                             else model(x)["pred_boxes"])
+    err = _max_rel(out, want)
+    equal = (torch.equal(out, want) if torch.is_tensor(want) else all(
+        torch.equal(out[k], v) for k, v in want.items() if torch.is_tensor(v)))
+    print(f"export {label} [{card}]: exported in {export_s:.1f} s, "
+          f"{len(program.graph.nodes)} nodes, {len(nodes)} calls of "
+          f"{sorted(set(nodes))}; saved ({os.path.getsize(path)} bytes) and "
+          f"loaded; launches {launches}; max |exported - eager| "
+          f"{err:.3e} of the largest value (tolerance {EXPORT_TOL}; "
+          f"bit-equal: {equal}); a forward {timer.summary()['p50_s'] * 1e3:.2f}"
+          f" ms exported, {eager_timer.summary()['p50_s'] * 1e3:.2f} ms "
+          f"eager (host clock, medians of 3 after one)", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"the exported {label} launched {launches}, "
+                           f"expected {expected}")
+    if len(nodes) != sum(expected.values()):
+        raise RuntimeError(f"the exported {label} graph holds {nodes}")
+    if err > EXPORT_TOL:
+        raise RuntimeError(f"the exported {label} disagrees with the eager "
+                           f"model")
+    return launches, run, x
+
+
+def phase_export(card):
+    """The hand kernels as ``torch.library`` operators: opcheck on each of
+    the seven at a small shape on the card; ViT-B/16 with flash attention
+    at 224^2 (batch 8; K1 12 launches), SAM-B's image encoder at 1024^2
+    (K4 on its 4 global layers) and DINO-DETR R50 at 1024^2, batch 1 (K7,
+    12 launches) exported with ``tools/convert_to_export.py``'s functions,
+    saved, loaded, run with their launches counted and held to the eager
+    models; one exported ViT run under ``core/tracing.py::trace``, whose
+    Chrome trace must name K1's kernel symbol."""
+    import tempfile
+    for label, op, args in _op_cases_on_card():
+        t0 = time.perf_counter()
+        results = torch.library.opcheck(op, args)
+        if any(r != "SUCCESS" for r in results.values()):
+            raise RuntimeError(f"opcheck {op} failed: {results}")
+        print(f"opcheck {op} ({label}) on the card: {results} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    paths = {}
+    with tempfile.TemporaryDirectory() as work_dir:
+        vit = _vit_b16(use_flash_attention=True).cuda().eval()
+        paths["export_vit"], run, x = _export_case(
+            card, "vit", vit, 224, EXPORT_VIT_BATCH,
+            {"flash_attention_fwd": 12}, work_dir)
+        with tracing.trace(f"{work_dir}/trace"), torch.no_grad():
+            run(x)
+            torch.cuda.synchronize()
+        with open(f"{work_dir}/trace/trace.json") as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        k1 = sorted(n for n in names if "flash_fwd_tma" in n)
+        op_calls = sum("simpleaicv::flash_attention_fwd" in n for n in names)
+        print(f"trace of the exported ViT-B/16 run: {len(names)} event "
+              f"names; K1's kernel {k1[:1]}; the operator's host calls "
+              f"named: {op_calls > 0}", flush=True)
+        if not k1:
+            raise RuntimeError("the trace names no K1 kernel (flash_fwd_tma)")
+        del vit, run, x
+        sam = _sam_b(use_flash_attention=True).cuda().eval()
+        paths["export_sam"], _, _ = _export_case(
+            card, "sam_encoder", sam.image_encoder, 1024, 1,
+            {"flash_attention_relpos_fwd": 4}, work_dir)
+        del sam
+        dino = _dino_model().cuda().eval()
+        paths["export_dino"], _, _ = _export_case(
+            card, "dino", dino, DINO_IMAGE, 1, {"msda_fwd": 12}, work_dir)
+        del dino
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``name``."""
     t0 = time.perf_counter()
@@ -6974,8 +7361,11 @@ def main():
     http_serving = _timed("http_serving", phase_http_serving, card)
     vit = _timed("training", phase_training, card)
     sam, sam_ips = _timed("sam_training", phase_sam_training, card)
-    kernels += _timed("msda_kernels", phase_msda_kernels, card)
-    dino, dino_ips = _timed("dino_training", phase_dino_training, card)
+    msda_kernels, dcn = _timed("msda_kernels", phase_msda_kernels, card)
+    kernels += msda_kernels
+    dino, dino_ips, dino_auction = _timed("dino_training",
+                                          phase_dino_training, card)
+    exported = _timed("export", phase_export, card)
     probes, probe_launches = _timed("probes", phase_probes, card)
     kernels += probes
     resnet, resident_ips = _timed(
@@ -7016,10 +7406,14 @@ def main():
     # instance-segmentation and diffusion paths (slice 17) and the OCR
     # paths (slice 18), nor the slice-19 backbones, family variants and
     # packed loader. The HTTP server launches K4 4 times a SAM request and
-    # no hand kernel on its eleven other endpoints.
+    # no hand kernel on its eleven other endpoints. DCNv2 launches one K7
+    # and one K7b a layer, the auction-matcher DINO-DETR steps 12 + 12 a
+    # step, and the three exported programs K1 12, K4 4 and K7 12 a
+    # forward.
     paths = {"sam_serving": serving, "http_serving": http_serving,
              "vit_train": vit, "sam_train": sam,
-             "dino_train": dino, "roofline_probes": probe_launches,
+             "dino_train": dino, "dino_auction_train": dino_auction,
+             "dcnv2": dcn, **exported, "roofline_probes": probe_launches,
              "resnet50_train": resnet, "sam_cli": sam_cli,
              "dino_cli": dino_cli, "seg_train": seg, "seg_cli": seg_cli,
              "pfan_train": pfan, "pfan_cli": pfan_cli,

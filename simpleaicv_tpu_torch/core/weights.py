@@ -168,6 +168,8 @@ _RULES = [
      r"(?:down|up)_\d+(?:_conv)?|middle_\d+|last_norm|last_conv|"
      r"Conv2d_\w+|Mixed_\w+)"
      r"(?:\..+)?$", lambda m: path_form(m.group(0))),
+    # a DCNv2 layer alone (``ops/dcnv2.py::DeformConv2d``): the JAX names
+    (r"^(?:offset_mask_conv|kernel|bias)$", r"\g<0>"),
 ]
 
 

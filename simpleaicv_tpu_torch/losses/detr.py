@@ -5,8 +5,9 @@ matcher, which runs scipy's ``linear_sum_assignment`` on the host.
 ``DETRLoss``: the last decoder layer's predictions are matched to the
 annotations (costs 1 / 5 / 2 on the class probability, L1 and GIoU), and
 every layer is held to that one matching by cross entropy (the no-object
-class weighted 0.1), L1 and GIoU on the matched pairs. The JAX package's
-alternative auction matcher (``ops/matcher.py``) is not ported."""
+class weighted 0.1), L1 and GIoU on the matched pairs. ``matcher`` is
+"hungarian" (scipy on the host) or "auction" (``ops/matcher.py``, on the
+cost's device with no copy to the host), as in the JAX package."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ..core.registry import LOSSES
 from ..ops.iou import iou_method
+from ..ops.matcher import auction_match_batch
 from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["cxcywh_to_xyxy", "pairwise_giou", "hungarian_match", "DETRLoss"]
@@ -50,6 +52,9 @@ def hungarian_match(cost, valid_m):
     return torch.from_numpy(out).to(cost.device)
 
 
+MATCHERS = ("hungarian", "auction")
+
+
 @LOSSES.register()
 class DETRLoss:
 
@@ -58,9 +63,10 @@ class DETRLoss:
                  box_l1_loss_weight=5.0, iou_loss_weight=2.0,
                  no_object_cls_weight=0.1, num_classes=80,
                  matcher="hungarian"):
-        if matcher != "hungarian":
-            raise ValueError(f"matcher {matcher!r} is not ported; the port "
-                             f"has the host Hungarian matcher")
+        if matcher not in MATCHERS:
+            raise ValueError(f"matcher must be one of {MATCHERS}, got "
+                             f"{matcher!r}")
+        self.matcher = matcher
         self.cls_match_cost = cls_match_cost
         self.box_match_cost = box_match_cost
         self.giou_match_cost = giou_match_cost
@@ -88,6 +94,8 @@ class DETRLoss:
                 + self.giou_match_cost * giou_cost)
         cost = torch.where(valid[:, None, :], cost,
                            torch.full_like(cost, 1e8))
+        if self.matcher == "auction":
+            return auction_match_batch(cost, valid)
         return hungarian_match(cost, valid)
 
     def __call__(self, preds, annotations):

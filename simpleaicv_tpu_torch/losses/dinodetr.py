@@ -1,6 +1,7 @@
 """DINO-DETR loss (counterpart of ``simpleaicv_tpu/losses/dinodetr.py``):
-Hungarian matching with a focal class cost (weights 2/5/2 on class, L1 and
-GIoU) run again for every decoder layer and for the encoder proposals,
+Hungarian matching (or, with ``matcher="auction"``, the auction matcher on
+the device) with a focal class cost (weights 2/5/2 on class, L1 and GIoU)
+run again for every decoder layer and for the encoder proposals,
 sigmoid-focal classification, L1 and GIoU on the matched pairs, and the
 denoising queries, whose assignment is known: positives regress and
 classify their annotation, negatives are background, padding slots are
@@ -13,7 +14,9 @@ import torch.nn.functional as F
 
 from ..core.registry import LOSSES
 from ..ops.iou import iou_method
-from .detr import cxcywh_to_xyxy, hungarian_match, pairwise_giou
+from ..ops.matcher import auction_match_batch
+from .detr import (MATCHERS, cxcywh_to_xyxy, hungarian_match,
+                   pairwise_giou)
 from ..parallel.mesh import global_sum, per_rank
 
 __all__ = ["DINODETRLoss"]
@@ -26,9 +29,10 @@ class DINODETRLoss:
                  giou_match_cost=2.0, cls_loss_weight=1.0,
                  box_l1_loss_weight=5.0, iou_loss_weight=2.0, alpha=0.25,
                  gamma=2.0, num_classes=80, matcher="hungarian"):
-        if matcher != "hungarian":
-            raise ValueError(f"matcher {matcher!r} is not ported; the port "
-                             f"has the host Hungarian matcher")
+        if matcher not in MATCHERS:
+            raise ValueError(f"matcher must be one of {MATCHERS}, got "
+                             f"{matcher!r}")
+        self.matcher = matcher
         self.cls_match_cost = cls_match_cost
         self.box_match_cost = box_match_cost
         self.giou_match_cost = giou_match_cost
@@ -62,6 +66,8 @@ class DINODETRLoss:
                 + self.giou_match_cost * giou_cost)
         cost = torch.where(valid[:, None, :], cost,
                            torch.full_like(cost, 1e8))
+        if self.matcher == "auction":
+            return auction_match_batch(cost, valid)
         return hungarian_match(cost, valid)
 
     def losses_for(self, cls_pred, reg_pred, annotations, matched,

@@ -302,7 +302,9 @@ class Embed(nn.Module):
                               / math.sqrt(self.weight.shape[1]))
 
     def forward(self, ids):
-        return self.weight[ids]
+        # a lookup, not ``weight[ids]``: indexing with a 0-d tensor reads
+        # the index on the host, which ``torch.export`` cannot trace
+        return F.embedding(ids, self.weight)
 
 
 _recompute = threading.local()

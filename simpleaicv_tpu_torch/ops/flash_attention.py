@@ -6,16 +6,16 @@ Counterpart of ``simpleaicv_tpu/ops/flash_attention.py``:
 * ``flash_attention(q, k, v)`` on ``[B, H, N, d]``, differentiable, any N:
   the counterpart of both ``flash_attention`` (the Pallas kernels
   ``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) and
-  ``flash_attention_xla`` (what ViT calls). A ``torch.autograd.Function``
-  saves ``(q, k, v, o, lse)``; its backward is FlashAttention-2's.
+  ``flash_attention_xla`` (what ViT calls). The forward saves
+  ``(q, k, v, o, lse)``; its backward is FlashAttention-2's.
 * ``attention_recompute(q, k, v)``: ``attention_recompute_xla``, a one-shot
   softmax forward with the same recompute backward. Plain tensor code in the
   JAX package, so plain PyTorch here on every device.
 * ``flash_attention_relpos``: ``flash_attention_relpos`` (the Pallas kernels
   ``_relpos_fwd_kernel``, ``_relpos_dq_kernel``, ``_relpos_dkv_kernel``) and
   its XLA twin ``flash_attention_relpos_xla`` (what SAM calls),
-  differentiable in all five tensor arguments. A ``torch.autograd.Function``
-  saves ``(q, k, v, rel_h, rel_w, o, lse)``.
+  differentiable in all five tensor arguments. The forward saves
+  ``(q, k, v, rel_h, rel_w, o, lse)``.
 
 Every wrapper dispatches on the tensors' device. CUDA tensors go to the
 hand-written Hopper kernels in ``csrc/``, which never materialise the
@@ -25,6 +25,15 @@ hand-written Hopper kernels in ``csrc/``, which never materialise the
 ``flash_attention_relpos_dq_reference``,
 ``flash_attention_relpos_dkv_reference``), which do. A CUDA tensor never
 takes a plain version: a kernel that cannot build or launch raises.
+
+The kernels are ``torch.library`` operators in the ``simpleaicv``
+namespace, so that ``torch.export``, ``torch.compile`` and CUDA graphs see
+them: ``flash_attention_fwd`` (K1), ``flash_attention_bwd`` (K2 and K3),
+``flash_attention_relpos_fwd`` (K4), ``flash_attention_relpos_dq`` (K5) and
+``flash_attention_relpos_dkv`` (K6). Each has a CUDA implementation (the
+kernel, its variant chosen there from the real tensors), a CPU one (the
+plain version), a fake one (the outputs' shapes, dtypes and strides) and,
+for the forwards, autograd wired to the backward operators.
 """
 
 from __future__ import annotations
@@ -292,25 +301,59 @@ def _flash_bwd_cuda(q, k, v, o, lse, do):
             *_flash_dkv_cuda(q, k, v, do, lse, delta))
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Saves (q, k, v, o, lse); CPU tensors take the plain versions, CUDA
-    tensors the kernels."""
+@torch.library.custom_op("simpleaicv::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an operator: (o, lse). The CPU implementation is the plain
+    version; ``o`` comes in the kernel's [B, N, H, d] storage on every
+    device."""
+    o, lse = flash_attention_reference(q, k, v)
+    return _empty_bnhd(q).copy_(o), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v)
-        else:
-            o, lse = _flash_fwd_cuda(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            return flash_attention_backward_reference(q, k, v, o, lse, do)
-        return _flash_bwd_cuda(q, k, v, o, lse, do)
+_flash_fwd_op.register_kernel("cuda")(_flash_fwd_cuda)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v):
+    return _empty_bnhd(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("simpleaicv::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 and K3 as an operator: (dq, dk, dv) from the forward's residuals
+    and dO, each in q's dtype and [B, N, H, d] storage."""
+    return tuple(_empty_bnhd(q).copy_(g) for g in
+                 flash_attention_backward_reference(q, k, v, o, lse, do))
+
+
+_flash_bwd_op.register_kernel("cuda")(_flash_bwd_cuda)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do):
+    return _empty_bnhd(q), _empty_bnhd(q), _empty_bnhd(q)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, *output)
+    ctx.mark_non_differentiable(output[1])
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    return _FLASH_BWD(q, k, v, o, lse, do)
+
+
+# the forward saves (q, k, v, o, lse) and nothing else
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
+_FLASH_FWD = torch.ops.simpleaicv.flash_attention_fwd.default
+_FLASH_BWD = torch.ops.simpleaicv.flash_attention_bwd.default
 
 
 def flash_attention(q, k, v):
@@ -320,7 +363,7 @@ def flash_attention(q, k, v):
     which read strided inputs in place and return ``o`` as a [B, H, N, d]
     view of [B, N, H, d] storage; CPU tensors run the plain versions."""
     _check_qkv(q, k, v)
-    return _FlashAttention.apply(q, k, v)
+    return _FLASH_FWD(q, k, v)[0]
 
 
 class _AttentionRecompute(torch.autograd.Function):
@@ -527,37 +570,90 @@ def _flash_relpos_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta):
     return dk, dv
 
 
-class _FlashAttentionRelpos(torch.autograd.Function):
-    """Saves (q, k, v, rel_h, rel_w, o, lse) and nothing else between the
-    forward and the backward, so a checkpointed layer may run the forward
-    twice. CPU tensors take the plain versions, CUDA tensors the kernels."""
+@torch.library.custom_op("simpleaicv::flash_attention_relpos_fwd",
+                         mutates_args=(), device_types="cpu")
+def _relpos_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   rel_h: torch.Tensor, rel_w: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 as an operator: (o, lse); the CPU implementation is the plain
+    version."""
+    o, lse = flash_attention_relpos_reference(q, k, v, rel_h, rel_w)
+    return o.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, rel_h, rel_w):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_relpos_reference(q, k, v, rel_h, rel_w)
-        else:
-            o, lse = _flash_relpos_fwd_cuda(q, k, v, rel_h, rel_w)
-        ctx.save_for_backward(q, k, v, rel_h, rel_w, o, lse)
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, rel_h, rel_w, o, lse = ctx.saved_tensors
-        # the kernels take contiguous tensors; autograd hands dO over
-        # contiguous already where it comes from SAM's head merge
-        do = do.to(q.dtype).contiguous()
-        # delta = rowsum(dO * o) in f32 is outside the TPU kernels too
-        delta = (do.float() * o.float()).sum(dim=-1)
-        args = (q, k, v, rel_h, rel_w, do, lse, delta)
-        if q.device.type == "cpu":
-            dq, drh, drw = flash_attention_relpos_dq_reference(*args)
-            dk, dv = flash_attention_relpos_dkv_reference(*args)
-        else:
-            dq, drh, drw = _flash_relpos_dq_cuda(*args)
-            dk, dv = _flash_relpos_dkv_cuda(*args)
-        return dq, dk, dv, drh, drw
+_relpos_fwd_op.register_kernel("cuda")(_flash_relpos_fwd_cuda)
+
+
+@_relpos_fwd_op.register_fake
+def _(q, k, v, rel_h, rel_w):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2],
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("simpleaicv::flash_attention_relpos_dq",
+                         mutates_args=(), device_types="cpu")
+def _relpos_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  rel_h: torch.Tensor, rel_w: torch.Tensor, do: torch.Tensor,
+                  lse: torch.Tensor, delta: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 as an operator: (dq, d rel_h, d rel_w)."""
+    return tuple(t.contiguous() for t in flash_attention_relpos_dq_reference(
+        q, k, v, rel_h, rel_w, do, lse, delta))
+
+
+_relpos_dq_op.register_kernel("cuda")(_flash_relpos_dq_cuda)
+
+
+@_relpos_dq_op.register_fake
+def _(q, k, v, rel_h, rel_w, do, lse, delta):
+    return (q.new_empty(q.shape), rel_h.new_empty(rel_h.shape),
+            rel_w.new_empty(rel_w.shape))
+
+
+@torch.library.custom_op("simpleaicv::flash_attention_relpos_dkv",
+                         mutates_args=(), device_types="cpu")
+def _relpos_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   rel_h: torch.Tensor, rel_w: torch.Tensor, do: torch.Tensor,
+                   lse: torch.Tensor, delta: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 as an operator: (dk, dv)."""
+    return tuple(t.contiguous() for t in flash_attention_relpos_dkv_reference(
+        q, k, v, rel_h, rel_w, do, lse, delta))
+
+
+_relpos_dkv_op.register_kernel("cuda")(_flash_relpos_dkv_cuda)
+
+
+@_relpos_dkv_op.register_fake
+def _(q, k, v, rel_h, rel_w, do, lse, delta):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _relpos_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, *output)
+    ctx.mark_non_differentiable(output[1])
+
+
+def _relpos_backward(ctx, do, _dlse):
+    q, k, v, rel_h, rel_w, o, lse = ctx.saved_tensors
+    # the kernels take contiguous tensors; autograd hands dO over
+    # contiguous already where it comes from SAM's head merge
+    do = do.to(q.dtype).contiguous()
+    # delta = rowsum(dO * o) in f32 is outside the TPU kernels too
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, rel_h, rel_w, do, lse, delta)
+    dq, drh, drw = _RELPOS_DQ(*args)
+    dk, dv = _RELPOS_DKV(*args)
+    return dq, dk, dv, drh, drw
+
+
+# the forward saves (q, k, v, rel_h, rel_w, o, lse) and nothing else, so a
+# checkpointed layer may run it twice
+_relpos_fwd_op.register_autograd(_relpos_backward,
+                                 setup_context=_relpos_setup_context)
+_RELPOS_FWD = torch.ops.simpleaicv.flash_attention_relpos_fwd.default
+_RELPOS_DQ = torch.ops.simpleaicv.flash_attention_relpos_dq.default
+_RELPOS_DKV = torch.ops.simpleaicv.flash_attention_relpos_dkv.default
 
 
 def flash_attention_relpos(q, k, v, rel_h, rel_w):
@@ -573,4 +669,4 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w):
     contiguous; CPU tensors run the plain versions.
     """
     _check(q, k, v, rel_h, rel_w)
-    return _FlashAttentionRelpos.apply(q, k, v, rel_h, rel_w)
+    return _RELPOS_FWD(q, k, v, rel_h, rel_w)

@@ -14,8 +14,8 @@ Bilinear samples with align_corners=False and zero padding outside each
 level, weighted and summed in f32; the inputs are cast to f32 first, as
 ``ms_deform_attn_xla`` casts them. The one function stands for both the
 JAX package's XLA core and its Pallas kernel, and is differentiable in the
-value, the locations and the weights (a ``torch.autograd.Function`` that
-saves its three inputs).
+value, the locations and the weights (the forward saves its three inputs
+and nothing else).
 
 It dispatches on the tensors' device. CUDA tensors launch the hand kernels
 of ``csrc/msda.cu``: ``msda_fwd`` (K7, the Pallas kernel's counterpart: a
@@ -26,8 +26,15 @@ its narrow variant for what that does not take, ``_msda_bwd_variant``).
 ``NARROW_LAUNCHES`` counts the narrow variants' launches. CPU
 tensors take the plain versions: ``ms_deform_attn_reference``, a
 transcription of ``_bilinear_gather_level`` and ``ms_deform_attn_xla``, and
-its autograd (``ms_deform_attn_backward_reference``). A CUDA tensor never
-takes a plain version: a kernel that cannot build or launch raises.
+its gradients written out (``ms_deform_attn_backward_reference``). A CUDA
+tensor never takes a plain version: a kernel that cannot build or launch
+raises.
+
+K7 and K7b are the ``torch.library`` operators ``simpleaicv::msda_fwd``
+and ``simpleaicv::msda_bwd``, so that ``torch.export``, ``torch.compile``
+and CUDA graphs see them: a CUDA implementation (the kernel, its variant
+chosen there), a CPU one (the plain version), a fake one (the outputs'
+shapes) and, for the forward, autograd wired to the backward operator.
 """
 
 from __future__ import annotations
@@ -87,7 +94,8 @@ def ms_deform_attn_reference(value, spatial_shapes, sampling_locations,
                              attention_weights):
     """The plain version: ``ms_deform_attn_xla`` in PyTorch. Materialises
     four [B, Lq, H, P, D] f32 corner gathers per level. Differentiable by
-    autograd, whose gradients are the reference ones."""
+    autograd, whose gradients ``ms_deform_attn_backward_reference``
+    writes out."""
     b, _, heads, d = value.shape
     lq = sampling_locations.shape[1]
     out = torch.zeros((b, lq, heads, d), dtype=torch.float32,
@@ -108,12 +116,66 @@ def ms_deform_attn_backward_reference(value, spatial_shapes,
                                       sampling_locations, attention_weights,
                                       grad_out):
     """The plain backward: (grad_value, grad_locations, grad_weights) of
-    ``ms_deform_attn_reference`` by autograd, each in f32."""
-    with torch.enable_grad():
-        inputs = [t.detach().float().requires_grad_()
-                  for t in (value, sampling_locations, attention_weights)]
-        out = ms_deform_attn_reference(inputs[0], spatial_shapes, *inputs[1:])
-        return torch.autograd.grad(out, inputs, grad_out.float())
+    ``ms_deform_attn_reference``, each in f32, written out (no autograd, so
+    that it also runs inside an operator's implementation). Per level and
+    corner: the value's gradient is dO * weight * corner weight added at
+    the corner (zero outside the level), the weight's the sample . dO, and
+    a location's the sample's slope across the cell times the level's
+    size."""
+    b, s, heads, d = value.shape
+    lq = sampling_locations.shape[1]
+    go = grad_out.float().reshape(b, lq, heads, 1, d)
+    grad_value = torch.zeros((b, heads, s, d), dtype=torch.float32,
+                             device=value.device)
+    grad_loc = torch.zeros(sampling_locations.shape, dtype=torch.float32,
+                           device=value.device)
+    grad_wts = torch.zeros(attention_weights.shape, dtype=torch.float32,
+                           device=value.device)
+    start = 0
+    for lid, (h, w) in enumerate(spatial_shapes):
+        h, w = int(h), int(w)
+        v = value[:, start:start + h * w].float().permute(0, 2, 1, 3)
+        loc = sampling_locations[:, :, :, lid].float()   # [B, Lq, H, P, 2]
+        wts = attention_weights[:, :, :, lid].float()    # [B, Lq, H, P]
+        p = loc.shape[3]
+        x = loc[..., 0] * w - 0.5
+        y = loc[..., 1] * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+        gs = go * wts[..., None]                      # d out / d sample
+
+        def corner(yy, xx):
+            """(index [B, H, Lq*P], inside [B, Lq, H, P, 1], value)."""
+            inside = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h))[..., None]
+            xi = torch.clamp(xx, 0, w - 1).long()
+            yi = torch.clamp(yy, 0, h - 1).long()
+            idx = (yi * w + xi).permute(0, 2, 1, 3).reshape(b, heads, lq * p)
+            val = torch.gather(v, 2, idx[..., None].expand(-1, -1, -1, d))
+            val = val.reshape(b, heads, lq, p, d).permute(0, 2, 1, 3, 4)
+            return idx, inside.float(), val * inside.float()
+
+        corners = [corner(y0, x0), corner(y0, x0 + 1), corner(y0 + 1, x0),
+                   corner(y0 + 1, x0 + 1)]
+        (_, _, v00), (_, _, v01), (_, _, v10), (_, _, v11) = corners
+        top = v00 * (1 - wx) + v01 * wx
+        bot = v10 * (1 - wx) + v11 * wx
+        sample = top * (1 - wy) + bot * wy
+        grad_wts[:, :, :, lid] = (sample * go).sum(-1)
+        dwx = ((v01 - v00) * (1 - wy) + (v11 - v10) * wy) * gs
+        dwy = (bot - top) * gs
+        grad_loc[:, :, :, lid, :, 0] = dwx.sum(-1) * w
+        grad_loc[:, :, :, lid, :, 1] = dwy.sum(-1) * h
+        level = torch.zeros((b, heads, h * w, d), dtype=torch.float32,
+                            device=value.device)
+        for (idx, inside, _), cw in zip(corners, (
+                (1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx),
+                wy * wx)):
+            g = (gs * cw * inside).permute(0, 2, 1, 3, 4).reshape(
+                b, heads, lq * p, d)
+            level.scatter_add_(2, idx[..., None].expand(-1, -1, -1, d), g)
+        grad_value[:, :, start:start + h * w] = level
+        start += h * w
+    return grad_value.permute(0, 2, 1, 3).contiguous(), grad_loc, grad_wts
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights):
@@ -273,31 +335,72 @@ def _msda_bwd_cuda(value, spatial_shapes, loc, wts, grad_out):
     return grad_value, grad_loc, grad_wts
 
 
-class _MSDeformAttn(torch.autograd.Function):
-    """Saves (value, locations, weights) and nothing else, so a checkpointed
-    layer may run the forward twice. CPU tensors take the plain versions,
-    CUDA tensors the kernels."""
+def _pairs(flat):
+    return tuple(zip(flat[0::2], flat[1::2]))
 
-    @staticmethod
-    def forward(ctx, value, loc, wts, spatial_shapes):
-        if value.device.type == "cpu":
-            out = ms_deform_attn_reference(value, spatial_shapes, loc, wts)
-        else:
-            out = _msda_fwd_cuda(value, spatial_shapes, loc, wts)
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, loc, wts)
-        return out
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, wts = ctx.saved_tensors
-        if value.device.type == "cpu":
-            grads = ms_deform_attn_backward_reference(
-                value, ctx.spatial_shapes, loc, wts, grad_out)
-        else:
-            grads = _msda_bwd_cuda(value, ctx.spatial_shapes, loc, wts,
-                                   grad_out)
-        return (*grads, None)
+@torch.library.custom_op("simpleaicv::msda_fwd", mutates_args=(),
+                         device_types="cpu")
+def _msda_fwd_op(value: torch.Tensor, loc: torch.Tensor, wts: torch.Tensor,
+                 spatial_shapes: list[int]) -> torch.Tensor:
+    """K7 as an operator: [B, Lq, H * D] f32 from f32 value, locations and
+    weights and the levels' (h, w) flattened; the CPU implementation is
+    the plain version."""
+    return ms_deform_attn_reference(value, _pairs(spatial_shapes), loc, wts)
+
+
+@_msda_fwd_op.register_kernel("cuda")
+def _(value, loc, wts, spatial_shapes):
+    return _msda_fwd_cuda(value, _pairs(spatial_shapes), loc, wts)
+
+
+@_msda_fwd_op.register_fake
+def _(value, loc, wts, spatial_shapes):
+    b, _, heads, d = value.shape
+    return value.new_empty((b, loc.shape[1], heads * d), dtype=torch.float32)
+
+
+@torch.library.custom_op("simpleaicv::msda_bwd", mutates_args=(),
+                         device_types="cpu")
+def _msda_bwd_op(value: torch.Tensor, loc: torch.Tensor, wts: torch.Tensor,
+                 grad_out: torch.Tensor, spatial_shapes: list[int]
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7b as an operator: (grad_value, grad_locations, grad_weights), f32
+    and contiguous."""
+    return ms_deform_attn_backward_reference(value, _pairs(spatial_shapes),
+                                             loc, wts, grad_out)
+
+
+@_msda_bwd_op.register_kernel("cuda")
+def _(value, loc, wts, grad_out, spatial_shapes):
+    return _msda_bwd_cuda(value, _pairs(spatial_shapes), loc, wts, grad_out)
+
+
+@_msda_bwd_op.register_fake
+def _(value, loc, wts, grad_out, spatial_shapes):
+    f32 = torch.float32
+    return (value.new_empty(value.shape, dtype=f32),
+            loc.new_empty(loc.shape, dtype=f32),
+            wts.new_empty(wts.shape, dtype=f32))
+
+
+def _msda_setup_context(ctx, inputs, output):
+    value, loc, wts, spatial_shapes = inputs
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, loc, wts)
+
+
+def _msda_backward(ctx, grad_out):
+    value, loc, wts = ctx.saved_tensors
+    return (*_MSDA_BWD(value, loc, wts, grad_out, ctx.spatial_shapes), None)
+
+
+# the forward saves (value, locations, weights) and nothing else, so a
+# checkpointed layer may run it twice
+_msda_fwd_op.register_autograd(_msda_backward,
+                               setup_context=_msda_setup_context)
+_MSDA_FWD = torch.ops.simpleaicv.msda_fwd.default
+_MSDA_BWD = torch.ops.simpleaicv.msda_bwd.default
 
 
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
@@ -308,5 +411,6 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations,
     kernels (D <= 64, at most 8 levels), CPU tensors the plain versions."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check(value, spatial_shapes, sampling_locations, attention_weights)
-    return _MSDeformAttn.apply(value.float(), sampling_locations.float(),
-                               attention_weights.float(), spatial_shapes)
+    return _MSDA_FWD(value.float(), sampling_locations.float(),
+                     attention_weights.float(),
+                     [x for hw in spatial_shapes for x in hw])

@@ -82,7 +82,7 @@ def test_imagenet_resnet50_names_the_missing_dataset(tmp_path):
     """The ImageNet config loads since the ILSVRC2012 reader is ported (it
     reads nothing when it is built), and so does a COCO config since the
     COCO reader is (its model built on the meta device); a config that
-    imports a reader module the port still lacks names it."""
+    imports a data module the port still lacks names it."""
     cfg = load_config(str(EXP / "imagenet/resnet50"))
     assert type(cfg.train_dataset).__name__ == "ILSVRC2012Dataset"
     with torch.device("meta"):
@@ -90,9 +90,9 @@ def test_imagenet_resnet50_names_the_missing_dataset(tmp_path):
                                "res50_fcos_retinaresize800"))
     assert type(cfg.train_dataset).__name__ == "CocoDetection"
     (tmp_path / "train_config.py").write_text(
-        "from simpleaicv_tpu.data.mosaic import MosaicResizeDetection\n")
-    with pytest.raises(MissingCounterpartError,
-                       match="MosaicResizeDetection"):
+        "from simpleaicv_tpu.data.processing.common import "
+        "resize_max_side\n")
+    with pytest.raises(MissingCounterpartError, match="resize_max_side"):
         load_config(str(tmp_path))
 
 

@@ -1034,3 +1034,83 @@ def test_device_augment_on_card_equals_the_cpu(policy):
                                rtol=0)
     assert ((out["image"].cpu() - ref["image"]).abs() > 1e-6).float(
         ).mean() <= 5e-3
+
+
+def _op_cases_on_card(dtype):
+    """(operator, arguments) of the seven kernels' operators at small shapes
+    on the card; the forwards' inputs require gradients so that opcheck
+    also runs their autograd."""
+    rng = np.random.RandomState(30)
+
+    def t(*shape, grad=False, dt=dtype):
+        return _randn(rng, *shape).to("cuda", dt).requires_grad_(grad)
+
+    q, k, v = (t(1, 2, 72, 64, grad=True) for _ in range(3))
+    o, lse = fa_ops._FLASH_FWD(q.detach(), k.detach(), v.detach())
+    bh, n, d = 2, 256, 64
+    rq, rk, rv = (t(bh, n, d, grad=True) for _ in range(3))
+    rh, rw = (t(bh, n, 16, grad=True, dt=torch.float32) for _ in range(2))
+    ro, rlse = fa_ops._RELPOS_FWD(*(x.detach() for x in (rq, rk, rv, rh, rw)))
+    do = t(bh, n, d)
+    relpos_bwd = (*(x.detach() for x in (rq, rk, rv, rh, rw)), do, rlse,
+                  (do.float() * ro.float()).sum(-1))
+    shapes = [8, 8, 4, 4]
+    value = t(2, 80, 2, 32, grad=True, dt=torch.float32)
+    loc = torch.rand(2, 30, 2, 2, 4, 2, device="cuda").requires_grad_()
+    wts = torch.rand(2, 30, 2, 2, 4, device="cuda").requires_grad_()
+    return [
+        (fa_ops._FLASH_FWD, (q, k, v)),
+        (fa_ops._FLASH_BWD, (q.detach(), k.detach(), v.detach(), o, lse,
+                             t(1, 2, 72, 64))),
+        (fa_ops._RELPOS_FWD, (rq, rk, rv, rh, rw)),
+        (fa_ops._RELPOS_DQ, relpos_bwd),
+        (fa_ops._RELPOS_DKV, relpos_bwd),
+        (msda._MSDA_FWD, (value, loc, wts, shapes)),
+        (msda._MSDA_BWD, (value.detach(), loc.detach(), wts.detach(),
+                          t(2, 30, 64, dt=torch.float32), shapes)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("index", range(7))
+def test_opcheck_on_card(index, dtype):
+    """Each operator's CUDA implementation (the kernel) against its fake
+    one and its autograd registration, with dynamic shapes."""
+    op, args = _op_cases_on_card(dtype)[index]
+    results = torch.library.opcheck(op, args)
+    assert all(r == "SUCCESS" for r in results.values()), results
+
+
+@pytest.mark.parametrize("c,stride", [(256, 1), (64, 2)])
+def test_dcnv2_through_k7_and_k7b_on_card_equals_the_plain_version(c,
+                                                                    stride):
+    """DCNv2 at a detection head's layout (heads of 32, one level, one
+    point a query) through the tiled K7 and K7b, against the same inputs
+    on the CPU's plain versions; no narrow launch."""
+    from simpleaicv_tpu_torch.ops.dcnv2 import deform_conv2d
+    rng = np.random.RandomState(31)
+    h = w = 25
+    ho = -(-h // stride)
+    x = _randn(rng, 2, h, w, c)
+    off = _randn(rng, 2, ho, ho, 18) * 2.5
+    mask = torch.from_numpy(rng.rand(2, ho, ho, 9).astype(np.float32))
+    kernel = _randn(rng, 3, 3, c, 32) * 0.05
+    grad = _randn(rng, 2, ho, ho, 32)
+    results = []
+    for device in ("cpu", "cuda"):
+        inputs = [a.detach().to(device).requires_grad_()
+                  for a in (x, off, mask, kernel)]
+        before = dict(msda.KERNEL_LAUNCHES), dict(msda.NARROW_LAUNCHES)
+        out = deform_conv2d(*inputs, stride=stride)
+        out.backward(grad.to(device))
+        results.append([out.detach().cpu()]
+                       + [a.grad.cpu() for a in inputs])
+        if device == "cuda":
+            assert msda.KERNEL_LAUNCHES["msda_fwd"] == before[0]["msda_fwd"] + 1
+            assert msda.KERNEL_LAUNCHES["msda_bwd"] == before[0]["msda_bwd"] + 1
+            assert msda.NARROW_LAUNCHES == before[1]
+    for name, got, want in zip(("out", "x", "offsets", "mask", "kernel"),
+                               results[1], results[0]):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * scale,
+                                   msg=name)
