@@ -215,7 +215,19 @@ Phases, each of which raises (exit code 1) on failure:
      against the CPU's;
  44. ocr_cli: fake_synthetic/resnet18_dbnet and resnet18_ctc through the
      OCR train and test CLIs in this process.
- 45. parallel: a world of ``min(cards, 4)`` ranks under NCCL through the
+ 45. prepared_data: the port's ``prepare_dataset`` on the host: a folder
+     of 24 image/PNG-mask pairs at mixed sizes (902 x 2276 and 1280 x 720
+     among them) through ``sam-masks`` for train and test, RCTW- and
+     ART-style trees through ``rctw``/``art``, ``text-lines`` and
+     ``char-table``, LIP- and CelebAMask-HQ-style trees through ``lip``
+     and ``celebamask-hq`` (each subcommand's seconds and ms an image);
+     then SAM-B 1024^2 at batch 8 for an epoch on the converted SA-1B
+     tree and its evaluation through the SAM train and test CLIs in this
+     process (K4, K5 and K6 each launched, none narrow), the OCR and
+     parsing outputs read back through the port's readers, and one step
+     each of resnet18_dbnet and the resnet18 BiLSTM CTC model on the card
+     from them (no hand kernel);
+ 46. parallel: a world of ``min(cards, 4)`` ranks under NCCL through the
      port's launcher (one card: a world of one in this process through a
      ``FileStore``): three ViT-B/16 b128 flash steps through the
      distributed engine, each rank its rows (in a world of one equal bit
@@ -6390,6 +6402,368 @@ def _slice_18(card):
     return paths
 
 
+# ---- slice 24: offline dataset preparation ----------------------------------
+
+# the mask folder's images (h, w), in turn: the salient-object and matting
+# sets' mixed sizes, among them a 902 x 2276 panorama and 1280 x 720 frames
+PREPARED_SIZES = ((902, 2276), (720, 1280), (1280, 720), (480, 640),
+                  (1024, 768), (600, 800))
+PREPARED_PAIRS = {"train": 16, "test": 8}
+# the OCR trees: images of 540 x 720 converted at --max-side 1024, so that
+# they fit the DBNet recipe's 1024^2 canvas (TextDetectionCollater pads and
+# does not resize; the tool's default of 1920 would not fit)
+PREPARED_OCR_IMAGES, PREPARED_OCR_SIDE = 6, 1024
+
+PREPARED_SAM_CLI_CONFIG = '''"""SAM-B as
+experiments/13.interactive_segmentation_training/sa_1b/sam_b/train_config.py
+states it (sam_b at 1024^2 with gradient checkpointing, SAMMultiLevelLoss,
+prompt kinds 0.5 / 0.25 / 0.25, 2 decoder point iterations, AdamW 1e-4 /
+1e-4, CosineLR with a 1-epoch warm-up, batch 8, SamResize(1024)) over the
+SA-1B tree that the dataset tool's sam-masks subcommand converted from a
+folder of image/mask pairs (the combined recipe's salient-object and matting
+sets), cut to: 16 train and 8 test pairs written for the run; 1 epoch (not
+100); 8 loader workers (not 16)."""
+
+from {pkg}.core.registry import LOSSES, MODELS
+from {pkg}.data.datasets import SAMSegmentationDataset
+from {pkg}.data.interactive_segmentation import SAMBatchCollater, SamResize
+
+
+class config:
+    network = "sam_b"
+    input_image_size = 1024
+
+    model = MODELS.create(network, image_size=input_image_size,
+                          use_gradient_checkpoint=True)
+    train_criterion = LOSSES.create("SAMMultiLevelLoss")
+
+    train_dataset = SAMSegmentationDataset(
+        {root!r}, set_name_list=["masks"], set_type="train",
+        transform=SamResize(input_image_size))
+    test_dataset = {{"masks": SAMSegmentationDataset(
+        {root!r}, set_name_list=["masks"], set_type="test",
+        transform=SamResize(input_image_size))}}
+    train_collater = SAMBatchCollater(resize=input_image_size)
+    test_collater = SAMBatchCollater(resize=input_image_size,
+                                     use_noise_bbox=False)
+
+    prompt_probs = {{"point": 0.5, "box": 0.25, "mask": 0.25}}
+    decoder_point_iters = 2
+
+    seed = 0
+    batch_size = 8
+    num_workers = 8
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{"lr": 1e-4, "global_weight_decay": False,
+                           "weight_decay": 1e-4,
+                           "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1}})
+    epochs = 1
+    print_interval = 2
+    use_ema_model = False
+'''
+
+
+def _smooth_noise(rng, h, w):
+    """uint8 [h, w, 3] noise, low-passed by a 4x nearest upsample."""
+    small = rng.randint(0, 120, ((h + 3) // 4, (w + 3) // 4, 3))
+    return np.repeat(np.repeat(small, 4, 0), 4, 1)[:h, :w].astype(np.uint8)
+
+
+def _write_image(path, image):
+    from simpleaicv_tpu_torch.data.image_io import write_image
+    write_image(path, image)
+
+
+def write_mask_folder(root, seed=0):
+    """``<root>/{train,test}/m_<i>.jpg`` and same-stem ``.png`` masks: a
+    bright ellipse on dark noise in each, its mask 255 inside and a ramp of
+    3 pixels at its edge (values about 127 and 128 fall either side of
+    sam-masks' threshold), at ``PREPARED_SIZES`` in turn. Returns the
+    images written, by split."""
+    rng = np.random.RandomState(seed)
+    written = {}
+    i = 0
+    for split, n in PREPARED_PAIRS.items():
+        d = os.path.join(root, split)
+        os.makedirs(d, exist_ok=True)
+        for _ in range(n):
+            h, w = PREPARED_SIZES[i % len(PREPARED_SIZES)]
+            ys, xs = np.ogrid[:h, :w]
+            cy, cx = rng.randint(h // 4, 3 * h // 4), rng.randint(
+                w // 4, 3 * w // 4)
+            ay, ax = rng.randint(h // 8, h // 4), rng.randint(w // 8, w // 4)
+            r = np.sqrt(((ys - cy) / ay) ** 2 + ((xs - cx) / ax) ** 2)
+            edge = (1.0 - r) * min(ay, ax) / 3.0  # 3 pixels of ramp
+            mask = np.clip(np.rint(255 * edge), 0, 255).astype(np.uint8)
+            image = _smooth_noise(rng, h, w)
+            image[mask > 0] = rng.randint(140, 256, 3).astype(np.uint8)
+            _write_image(os.path.join(d, f"m_{i:03d}.jpg"), image)
+            _write_image(os.path.join(d, f"m_{i:03d}.png"), mask)
+            i += 1
+        written[split] = n
+    return written
+
+
+def _text_quads(rng, h, w, n):
+    """``n`` axis-aligned text quads on a grid of rows, [[x, y], ...]."""
+    quads = []
+    for k in range(n):
+        y = 30 + k * (h - 60) // n
+        x = rng.randint(20, w // 3)
+        qw, qh = rng.randint(w // 4, w // 2), rng.randint(24, 40)
+        quads.append([[x, y], [x + qw, y], [x + qw, y + qh], [x, y + qh]])
+    return quads
+
+
+def _text(rng):
+    return "".join(rng.choice(list("0123456789ABCDEFGHabcdefgh文字识别"),
+                              rng.randint(2, 9)))
+
+
+def write_ocr_raw(root, seed=0):
+    """An RCTW-style tree (``train_images``, ``train_gts`` of quoted
+    utf-8-sig lines) and an ART-style one (``train_images``,
+    ``train_labels.json``) of ``PREPARED_OCR_IMAGES`` 540 x 720 images
+    each: 3 quads with text, one "###" quad and, in the ART tree, a
+    curved 6-point line under them. Returns the text regions written."""
+    rng = np.random.RandomState(seed)
+    h, w = 540, 720
+    regions = 0
+    rctw = os.path.join(root, "rctw")
+    art = os.path.join(root, "art")
+    for d in (os.path.join(rctw, "train_images"),
+              os.path.join(rctw, "train_gts"),
+              os.path.join(art, "train_images")):
+        os.makedirs(d, exist_ok=True)
+    labels = {}
+    for i in range(PREPARED_OCR_IMAGES):
+        for tree in (rctw, art):
+            image = _smooth_noise(rng, h, w) + 100
+            quads = _text_quads(rng, h - 100, w, 4)
+            for q in quads:
+                (x0, y0), (x1, y1) = q[0], q[2]
+                image[y0:y1, x0:x1] = 250
+            texts = [_text(rng) for _ in quads[:3]] + ["###"]
+            name = f"image_{i}" if tree == rctw else f"gt_{i}"
+            _write_image(os.path.join(tree, "train_images", name + ".jpg"),
+                         image)
+            if tree == rctw:
+                rows = [",".join(str(v) for p in q for v in p)
+                        + f',0,"{t}"' for q, t in zip(quads, texts)]
+                with open(os.path.join(rctw, "train_gts", name + ".txt"),
+                          "w", encoding="utf-8-sig") as f:
+                    f.write("\n".join(rows) + "\n")
+            else:
+                top = [[60 + 90 * k, 470 - 12 * (k % 2)] for k in range(4)]
+                curve = top + [[x, y + 36] for x, y in reversed(top)]
+                labels[name] = [{"points": q, "transcription": t}
+                                for q, t in zip(quads, texts)] + [
+                    {"points": curve, "transcription": _text(rng)}]
+            regions += len(quads) + (tree == art)
+    with open(os.path.join(art, "train_labels.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(labels, f, ensure_ascii=False)
+    return regions
+
+
+def write_parsing_raw(root, seed=0):
+    """A LIP-style tree (2 train and 2 val pairs, one mask at half the
+    image's size) and a CelebAMask-HQ-style one (3 faces, 3 part masks
+    each at half size, the HQ-to-CelebA mapping putting one in each
+    split). Returns the pairs written."""
+    rng = np.random.RandomState(seed)
+    lip = os.path.join(root, "lip")
+    for st in ("train", "val"):
+        img_dir = os.path.join(lip, "TrainVal_images", f"{st}_images")
+        seg_dir = os.path.join(lip, "TrainVal_parsing_annotations",
+                               f"{st}_segmentations")
+        os.makedirs(img_dir)
+        os.makedirs(seg_dir)
+        for i in range(2):
+            h, w = 256, 192
+            mask = np.zeros((h // (i + 1), w // (i + 1)), np.uint8)
+            mask[10:60, 20:90] = rng.randint(1, 20)
+            _write_image(os.path.join(img_dir, f"p{i}.jpg"),
+                         _smooth_noise(rng, h, w))
+            _write_image(os.path.join(seg_dir, f"p{i}.png"), mask)
+    cm = os.path.join(root, "celebamask")
+    os.makedirs(os.path.join(cm, "CelebA-HQ-img"))
+    os.makedirs(os.path.join(cm, "CelebAMask-HQ-mask-anno", "0"))
+    for idx in range(3):
+        _write_image(os.path.join(cm, "CelebA-HQ-img", f"{idx}.jpg"),
+                     _smooth_noise(rng, 256, 256))
+        for k, part in enumerate(("skin", "hair", "neck")):
+            part_mask = np.zeros((128, 128), np.uint8)
+            part_mask[10 + 30 * k:40 + 30 * k, 20:100] = 255
+            _write_image(os.path.join(cm, "CelebAMask-HQ-mask-anno", "0",
+                                      f"{idx:05d}_{part}.png"), part_mask)
+    with open(os.path.join(cm, "CelebA-HQ-to-CelebA-mapping.txt"), "w") as f:
+        f.write("idx orig_idx orig_file\n0 5 a.jpg\n1 170000 b.jpg\n"
+                "2 190000 c.jpg\n")
+    return 7
+
+
+def _prepare(label, argv, images):
+    """One ``prepare_dataset`` subcommand, its seconds and ms an image on
+    this machine's host printed."""
+    from simpleaicv_tpu_torch.tools import prepare_dataset
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        rc = prepare_dataset.main(argv)
+        took = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"prepare_dataset {label} returned {rc}")
+    print(f"prepared_data: {label}: {took:.2f} s for {images} images, "
+          f"{1e3 * took / max(images, 1):.1f} ms an image on the host",
+          flush=True)
+    return took
+
+
+def _prepared_sa1b(root):
+    """The mask folder written under ``<root>/raw`` and converted by
+    ``sam-masks`` into ``<root>/masks/{train,test}``; fails unless
+    ``SAMSegmentationDataset`` finds every pair with its json."""
+    from simpleaicv_tpu_torch.data.datasets import SAMSegmentationDataset
+    raw = os.path.join(root, "raw")
+    written = write_mask_folder(raw)
+    for split, n in written.items():
+        _prepare(f"sam-masks --set-type {split}",
+                 ["sam-masks", "--root", raw, "--out",
+                  os.path.join(root, "masks"), "--set-type", split], n)
+        found = len(SAMSegmentationDataset(root, ["masks"], split))
+        if found != n:
+            raise RuntimeError(f"SAMSegmentationDataset found {found} of the "
+                               f"{n} converted {split} pairs")
+    return written
+
+
+def _prepared_ocr_and_parsing(root):
+    """The OCR and parsing trees converted through ``rctw``, ``art``,
+    ``text-lines``, ``char-table``, ``lip`` and ``celebamask-hq``, and
+    read back through the port's readers: (the detection samples, the
+    line samples, the character table)."""
+    from simpleaicv_tpu_torch.data.datasets import (
+        FaceParsingDataset, HumanParsingDataset, TextDetection,
+        TextRecognition)
+    raw, out = os.path.join(root, "raw"), os.path.join(root, "out")
+    write_ocr_raw(raw)
+    write_parsing_raw(raw)
+    det, lines = os.path.join(out, "det"), os.path.join(out, "lines")
+    n = PREPARED_OCR_IMAGES
+    for tool in ("rctw", "art"):
+        _prepare(tool, [tool, "--root", os.path.join(raw, tool), "--out",
+                        det, "--max-side", str(PREPARED_OCR_SIDE)], n)
+    sets = {"ICDAR2017RCTW_text_detection": "ICDAR2017RCTW_text_recognition",
+            "ICDAR2019ART_text_detection": "ICDAR2019ART_text_recognition"}
+    labels = []
+    for det_set, rec_set in sets.items():
+        _prepare(f"text-lines {det_set}",
+                 ["text-lines", "--root", det, "--set-name", det_set,
+                  "--out", os.path.join(lines, rec_set)], n)
+        labels += [os.path.join(lines, rec_set, f"{rec_set}_{t}.json")
+                   for t in ("train", "test")]
+    table_path = os.path.join(out, "table.json")
+    _prepare("char-table", ["char-table", "--labels", *labels, "--out",
+                            table_path], 0)
+    _prepare("lip", ["lip", "--root", os.path.join(raw, "lip"), "--out",
+                     os.path.join(out, "parsing")], 4)
+    _prepare("celebamask-hq", ["celebamask-hq", "--root",
+                               os.path.join(raw, "celebamask"), "--out",
+                               os.path.join(out, "parsing")], 3)
+    detection = [s for t in ("train", "test") for s in TextDetection(
+        det, list(sets), set_type=t)]
+    recognition = [s for t in ("train", "test") for s in TextRecognition(
+        lines, list(sets.values()), set_type=t)]
+    parsing = [s for cls, names, types in (
+        (HumanParsingDataset, ["LIP"], ("train", "val")),
+        (FaceParsingDataset, ["CelebAMask-HQ"], ("train", "val", "test")))
+        for t in types for s in cls(os.path.join(out, "parsing"), names,
+                                    set_type=t)]
+    with open(table_path, encoding="utf-8") as f:
+        table = json.load(f)
+    polys = sum(len(s["annots"]) for s in detection)
+    print(f"prepared_data: read back {len(detection)} detection images "
+          f"({polys} polygons), {len(recognition)} text lines, "
+          f"{len(parsing)} parsing pairs, a table of {len(table)} "
+          f"characters", flush=True)
+    if len(detection) != 2 * n or len(recognition) < 3 * n or \
+            len(parsing) != 7 or not table or any(
+                s["mask"].shape != s["image"].shape[:2] for s in parsing):
+        raise RuntimeError("prepared_data: the converted OCR or parsing "
+                           "sets do not read back whole")
+    return detection, recognition, table
+
+
+def _one_step(card, label, model, loss_fn, opt, sched, epochs, host, keys):
+    """One bf16 train step of ``model`` on the host batch ``host`` through
+    ``make_train_step``; fails unless the loss is finite and at least half
+    the parameter tensors took a gradient (a nonzero first moment of
+    AdamW: the recipes' warm-up gives the first step an lr of 0, so the
+    weights themselves do not move)."""
+    batch = {k: torch.from_numpy(host[k]).cuda() for k in keys}
+    state = _recipe_state(model, opt, sched, epochs, OCR_STEPS_PER_EPOCH)
+    step = make_train_step(loss_fn, EngineConfig())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, seed=0)
+    loss = metrics["loss"].item()
+    took = time.perf_counter() - t0
+    mu = state.optimizer.moments["mu"]
+    taken = sum(bool(m.any()) for m in mu)
+    print(f"prepared_data: {label}: one step on the prepared batch "
+          f"{tuple(batch['image'].shape)} in {took:.2f} s (its first, with "
+          f"the autotuning), loss {loss:.4f}, {taken} of {len(mu)} "
+          f"parameter tensors took a gradient [{card}]", flush=True)
+    if not np.isfinite(loss) or 2 * taken < len(mu):
+        raise RuntimeError(f"prepared_data: {label}'s step failed")
+
+
+def phase_prepared_data(card, resident_ips=float("nan")):
+    """Offline dataset preparation through the port's ``prepare_dataset``
+    on the host, then its outputs on the card: a mask folder converted by
+    ``sam-masks`` trains SAM-B 1024^2 at batch 8 for an epoch and is
+    evaluated through the SAM train and test CLIs (path
+    ``prepared_sam_cli``: K4-K6); the RCTW- and ART-style trees converted
+    by ``rctw``/``art``, cut into lines by ``text-lines`` with a
+    ``char-table``, and the LIP and CelebAMask-HQ trees converted, read
+    back through the port's readers; one step of resnet18_dbnet (1024^2)
+    and of the resnet18 BiLSTM CTC model (32 x 512, the prepared table)
+    on the card from them (path ``prepared_ocr``: no hand kernel)."""
+    import tempfile
+    sam = _cli_in_process(card, "prepared_sam_cli", sam_train_cli,
+                          sam_test_cli, PREPARED_SAM_CLI_CONFIG, resident_ips,
+                          SAM_KERNELS, write_set=_prepared_sa1b)
+    with tempfile.TemporaryDirectory() as root:
+        detection, recognition, table = _prepared_ocr_and_parsing(root)
+    from simpleaicv_tpu_torch.data.text_detection import DBNetMapGenerator
+    _reset_launches()
+    gen = DBNetMapGenerator()
+    dbnet = init_params(MODELS.create("resnet18_dbnet"),
+                        torch.Generator().manual_seed(0))
+    _one_step(card, "resnet18_dbnet 1024^2", dbnet,
+              text_det_task.make_loss_fn(LOSSES.create("DBNetLoss")),
+              DBNET_RECIPE_OPT, DBNET_RECIPE_SCHED, DBNET_EPOCHS,
+              TextDetectionCollater(PREPARED_OCR_SIDE)(
+                  [gen(s) for s in detection]),
+              ("image",) + text_det_task.MAP_KEYS)
+    converter = CTCTextLabelConverter(table, str_max_length=CTC_STR_MAX)
+    ctc = init_params(CTCModel(
+        backbone_type="resnet18", encoder_type="BiLSTMEncoder",
+        predictor_hidden_planes=64, num_classes=converter.num_classes),
+        torch.Generator().manual_seed(0))
+    _one_step(card, "resnet18 BiLSTM CTC 32 x 512", ctc,
+              text_rec_task.make_loss_fn(LOSSES.create("CTCLoss")),
+              CTC_RECIPE_OPT, CTC_RECIPE_SCHED, CTC_EPOCHS,
+              KeepRatioResizeTextRecognitionCollater(
+                  converter, 32, CTC_MAX_W)(recognition),
+              ("image", "targets", "target_lengths"))
+    ocr = _no_hand_kernel("prepared_ocr")
+    del dbnet, ctc
+    torch.cuda.empty_cache()
+    return {"prepared_sam_cli": sam, "prepared_ocr": ocr}
+
+
 # ---- slice 19: the ConvFormer, VAN, DarkNet and CIFAR-ResNet backbones,
 # their family variants and the packed loader --------------------------------
 
@@ -7389,6 +7763,7 @@ def main():
     slice_17 = _timed("slice_17", _slice_17, card)
     slice_18 = _timed("slice_18", _slice_18, card)
     slice_19 = _timed("slice_19", _slice_19, card, resident_ips)
+    prepared = _timed("prepared_data", phase_prepared_data, card, sam_ips)
     parallel = _timed("parallel", phase_parallel, card)
     # one count per kernel and path; the forward rel-pos kernel lies on two
     # paths (4 launches per served request, 8 per SAM train step and 4 per
@@ -7409,7 +7784,9 @@ def main():
     # no hand kernel on its eleven other endpoints. DCNv2 launches one K7
     # and one K7b a layer, the auction-matcher DINO-DETR steps 12 + 12 a
     # step, and the three exported programs K1 12, K4 4 and K7 12 a
-    # forward.
+    # forward. SAM-B trained from the sam-masks conversion launches K4-K6
+    # through the CLIs in this process (``prepared_sam_cli``); the OCR
+    # steps on the prepared sets launch none (``prepared_ocr``).
     paths = {"sam_serving": serving, "http_serving": http_serving,
              "vit_train": vit, "sam_train": sam,
              "dino_train": dino, "dino_auction_train": dino_auction,
@@ -7421,7 +7798,7 @@ def main():
              "retina_train": retina, "sapiens_train": sapiens,
              "dense_parity": parity, "dense_cli": dense_cli,
              "fcos_learns": fcos_learns, **slice_15, **slice_16,
-             **slice_17, **slice_18, **slice_19, **parallel}
+             **slice_17, **slice_18, **slice_19, **prepared, **parallel}
     for kernel in kernels:
         by_path = {path: counts[kernel["name"]]
                    for path, counts in paths.items()

@@ -38,16 +38,31 @@ build than the one PIL and OpenCV share here.
 ``read_image`` and ``read_grey`` read a file; where ``cv2.imread`` would
 return None (no such file, bytes that do not decode) they raise
 ``ValueError`` naming it.
+
+``encode_image`` and ``write_image`` are the counterparts of
+``cv2.imencode`` and ``cv2.imwrite`` for the two formats the dataset
+preparation writes, taking RGB where OpenCV takes BGR:
+  * ``.jpg``/``.jpeg`` through PIL at OpenCV's defaults (quality 95, no
+    optimisation, baseline, a colour image's chroma at 4:2:0, a grey
+    image as one component): the same bytes as ``cv2.imencode`` where PIL
+    and OpenCV share a libjpeg build, as they do on this repository's test
+    machine;
+  * ``.png`` through ``core/png.py``: other bytes than OpenCV's (another
+    compressor), the same pixels.
 """
 
 from __future__ import annotations
 
 import io
+import os
 
 import numpy as np
 from PIL import Image, ImageOps
 
-__all__ = ["decode_image", "decode_grey", "read_image", "read_grey"]
+from ..core.png import encode_png
+
+__all__ = ["decode_image", "decode_grey", "read_image", "read_grey",
+           "encode_image", "write_image"]
 
 _ERRORS = (OSError, SyntaxError, ValueError, EOFError,
            Image.DecompressionBombError)
@@ -149,3 +164,26 @@ def read_image(path: str) -> np.ndarray:
 def read_grey(path: str) -> np.ndarray:
     """The image file at ``path`` as uint8 [H, W] grey."""
     return decode_grey(_read(path), path)
+
+
+def encode_image(ext: str, image: np.ndarray) -> bytes:
+    """The ``ext`` (``.jpg``, ``.jpeg`` or ``.png``) file of a uint8
+    [H, W] grey or [H, W, 3] RGB image."""
+    image = np.ascontiguousarray(image, np.uint8)
+    ext = ext.lower()
+    if ext == ".png":
+        return encode_png(image)
+    if ext not in (".jpg", ".jpeg"):
+        raise ValueError(f"cannot encode {ext!r}: only .jpg and .png")
+    out = io.BytesIO()
+    colour = {"subsampling": 2} if image.ndim == 3 else {}
+    Image.fromarray(image).save(out, format="JPEG", quality=95, **colour)
+    return out.getvalue()
+
+
+def write_image(path: str, image: np.ndarray):
+    """Writes a uint8 [H, W] grey or [H, W, 3] RGB image to ``path`` in the
+    format its extension names (``.jpg`` without one)."""
+    body = encode_image(os.path.splitext(path)[1] or ".jpg", image)
+    with open(path, "wb") as f:
+        f.write(body)

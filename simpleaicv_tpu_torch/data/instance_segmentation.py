@@ -5,13 +5,14 @@ The collaters give fixed shapes: boxes padded to ``max_annots_num`` slots
 with -1, each instance's mask pre-downsampled to the mask-feature grid
 (``resize // mask_downsample``, uint8).
 
-The JAX package's three OpenCV resizes are ``torch.nn.functional.interpolate``
-on CPU tensors here, without antialiasing, which sample the same source
-points and need no OpenCV:
+The JAX package's three OpenCV resizes sample the same source points here
+and need no OpenCV:
   * the image, ``cv2.resize`` (``INTER_LINEAR``): ``transforms.
     resize_bilinear``, bilinear at pixel centres;
-  * each mask, ``INTER_NEAREST``: ``resize_nearest`` (source index
-    ``floor(dst * in / out)``);
+  * each mask, ``INTER_NEAREST``: ``resize_nearest``, a gather at
+    ``min(floor(x * (1 / (out / in))), in - 1)`` in f64, OpenCV's places
+    (``F.interpolate``'s nearest mode takes its scale in f32 and parts
+    from them by a row or column at many sizes);
   * the collaters' downscale of each mask canvas to the mask grid,
     ``INTER_LINEAR`` then ``> 0.5``: bilinear at pixel centres.
 

@@ -15,9 +15,8 @@ import random
 from typing import Optional
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
+from .raster import resize_nearest_index
 from .transforms import resize_bilinear
 
 __all__ = ["SamResize", "noise_bbox", "SAMBatchCollater",
@@ -25,11 +24,10 @@ __all__ = ["SamResize", "noise_bbox", "SAMBatchCollater",
 
 
 def resize_nearest(mask, out_h: int, out_w: int):
-    """[h, w] -> [out_h, out_w] f32 by nearest neighbour: source index
-    floor(dst * in / out), OpenCV's ``INTER_NEAREST``."""
-    t = torch.from_numpy(np.ascontiguousarray(mask, np.float32))
-    return F.interpolate(t[None, None], size=(out_h, out_w),
-                         mode="nearest")[0, 0].numpy()
+    """[h, w] -> [out_h, out_w] f32 by nearest neighbour at OpenCV's
+    ``INTER_NEAREST`` places, ``min(floor(x * (1 / (out / in))), in - 1)``
+    in f64 (``raster.nearest_indices``)."""
+    return resize_nearest_index(np.asarray(mask, np.float32), out_h, out_w)
 
 
 class SamResize:

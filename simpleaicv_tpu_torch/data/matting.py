@@ -8,8 +8,8 @@ The JAX package's OpenCV calls become numpy and torch:
 
 * ``cv2.resize`` (``INTER_LINEAR`` on f32): ``F.interpolate(bilinear,
   align_corners=False, antialias=False)``, the same source points
-  (``data.transforms.resize_bilinear``); ``INTER_NEAREST``: the source
-  index floor(dst * in / out) (``data.interactive_segmentation.
+  (``data.transforms.resize_bilinear``); ``INTER_NEAREST``: a gather at
+  OpenCV's source index, computed in f64 (``data.interactive_segmentation.
   resize_nearest``);
 * ``cv2.ellipse`` (filled): OpenCV's own polygon, outline and convex fill
   in its 16.16 fixed point, rebuilt in Python; OpenCV clips an outline

@@ -25,7 +25,8 @@ resize_bilinear`` (``F.interpolate``, bilinear at pixel centres without
 antialiasing) where the JAX writer calls ``cv2.resize``; on this CPU the
 uint8 canvases part from cv2's by at most one level
 (``tests/test_torch_packed.py``). The mask's nearest resize is
-``interactive_segmentation.resize_nearest`` (OpenCV's ``INTER_NEAREST``).
+``interactive_segmentation.resize_nearest``, a gather at OpenCV's
+``INTER_NEAREST`` places computed in f64 (``raster.nearest_indices``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ A sample is a dict: 'image' HWC f32, 'mask' HW int, 'scale' and 'size'
 The JAX package resizes with OpenCV. Here the image goes through
 ``data.transforms.resize_bilinear`` (``F.interpolate`` at pixel centres,
 no antialiasing: ``INTER_LINEAR``) and the mask through
-``data.interactive_segmentation.resize_nearest`` (source index
-``floor(dst * in / out)``: ``INTER_NEAREST``). ``SegPhotoMetricDistortion``'s
+``data.interactive_segmentation.resize_nearest`` (a gather at
+``INTER_NEAREST``'s source index ``min(floor(x * (1 / (out / in))), in -
+1)``, in f64 as OpenCV computes it). ``SegPhotoMetricDistortion``'s
 RGB <-> HSV round trip is OpenCV's 8-bit one in numpy: H in [0, 180), S and
 V in [0, 255], the forward in OpenCV's 12-bit fixed point, the inverse in
 f32. The random transforms draw from the global ``random`` state in the

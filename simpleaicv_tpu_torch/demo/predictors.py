@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from .. import models  # noqa: F401  (registers the models and decoders)
 from ..core.checkpoint import load_checkpoint_tensors
 from ..core.registry import BACKBONES, DECODERS, MODELS
+from ..data.raster import bounding_rect, nearest_indices
 from ..data.text_detection import DBNetDecoder
 from ..data.text_recognition import CTCTextLabelConverter
 from ..models.common import init_params, resolve_device
@@ -97,30 +98,12 @@ def letterbox(image_rgb: np.ndarray, size: int, device):
     return canvas, factor, (nh, nw)
 
 
-def nearest_indices(src: int, dst: int) -> np.ndarray:
-    """The source index of each of ``dst`` places under cv2
-    ``INTER_NEAREST``: ``min(floor(x * (1 / (dst / src))), src - 1)``."""
-    scale = 1.0 / (dst / src)
-    return np.minimum(np.floor(np.arange(dst) * scale).astype(np.int64),
-                      src - 1)
-
-
 def resize_nearest(mask, hw):
     """[..., h, w] tensor -> [..., hw[0], hw[1]] at cv2 ``INTER_NEAREST``'s
     places, on the tensor's device."""
     iy, ix = (torch.from_numpy(nearest_indices(s, d)).to(mask.device)
               for s, d in zip(mask.shape[-2:], hw))
     return mask.index_select(-2, iy).index_select(-1, ix)
-
-
-def bounding_rect(mask: np.ndarray):
-    """(x, y, w, h) of the nonzero pixels of a 2-D mask, (0, 0, 0, 0) when
-    it has none (cv2.boundingRect's convention)."""
-    ys, xs = np.nonzero(mask)
-    if xs.size == 0:
-        return 0, 0, 0, 0
-    x0, y0 = int(xs.min()), int(ys.min())
-    return x0, y0, int(xs.max()) - x0 + 1, int(ys.max()) - y0 + 1
 
 
 def _rgb_to_gray_u8(rgb: np.ndarray) -> np.ndarray:

@@ -81,8 +81,10 @@ def test_an_unported_registry_name_raises_missing_counterpart(tmp_path):
 def test_imagenet_resnet50_names_the_missing_dataset(tmp_path):
     """The ImageNet config loads since the ILSVRC2012 reader is ported (it
     reads nothing when it is built), and so does a COCO config since the
-    COCO reader is (its model built on the meta device); a config that
-    imports a data module the port still lacks names it."""
+    COCO reader is (its model built on the meta device), and so does a
+    config that imports the dataset preparation since it is ported; a
+    config that imports a module the port lacks (the host C++ of
+    ``ops/native.py``, which the port does not need) names it."""
     cfg = load_config(str(EXP / "imagenet/resnet50"))
     assert type(cfg.train_dataset).__name__ == "ILSVRC2012Dataset"
     with torch.device("meta"):
@@ -91,8 +93,13 @@ def test_imagenet_resnet50_names_the_missing_dataset(tmp_path):
     assert type(cfg.train_dataset).__name__ == "CocoDetection"
     (tmp_path / "train_config.py").write_text(
         "from simpleaicv_tpu.data.processing.common import "
-        "resize_max_side\n")
-    with pytest.raises(MissingCounterpartError, match="resize_max_side"):
+        "resize_max_side\n\n\nclass config:\n    resize = resize_max_side\n")
+    cfg = load_config(str(tmp_path))
+    assert cfg.resize.__module__ == \
+        "simpleaicv_tpu_torch.data.processing.common"
+    (tmp_path / "train_config.py").write_text(
+        "from simpleaicv_tpu.ops.native import native_greedy_nms\n")
+    with pytest.raises(MissingCounterpartError, match="native_greedy_nms"):
         load_config(str(tmp_path))
 
 
